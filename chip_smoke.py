@@ -1,0 +1,617 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (flashmoe_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run on any error:
+
+1. build: compile the CUDA kernels from ``flashmoe_tpu_torch/csrc/``;
+2. kernels: hold each kernel against its plain torch version on the card
+   at the shapes the main path gives it (plus a small f32 case), and time
+   the kernel, the plain version and one PyTorch library call computing
+   the same function;
+3. capacity arm: one MoE layer of the FlashMoE reference config (E=64,
+   top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain;
+4. serve: Mixtral-8x7B at its published widths with 4 of its 32 layers
+   and random bf16 weights: 4 prompts of 256 tokens, 16 greedy tokens
+   through ``generate`` (the main path: counts reset before, read after);
+   every step's logits against ``forward`` over the whole sequence, and
+   every prefill MoE layer against the dense oracle ``reference_moe``.
+
+The second-to-last line of stdout is the kernels' JSON line, the last
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+package beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from flashmoe_tpu_torch import config  # noqa: E402
+from flashmoe_tpu_torch.kernels import _build  # noqa: E402
+from flashmoe_tpu_torch.models import (generate, presets,  # noqa: E402
+                                       reference, transformer)
+from flashmoe_tpu_torch.ops import (attention, expert, gate,  # noqa: E402
+                                    moe, ragged)
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
+# tensor-core FLOP/s
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+# bf16 kernels against f32 plain versions: normwise relative error
+# (||kernel - plain|| / ||plain||).  Outputs are rounded to bf16 (2^-8 =
+# 3.9e-3 relative per element) and the f32 sums run in another order, so
+# hidden values may round to a neighbouring bf16 value.
+BF16_NORMWISE_TOL = 1e-2
+# the gate's f32 outputs: both sides sum f32 products of the same inputs
+GATE_ABS_TOL = 1e-4
+# a routing difference is accepted only as a near-tie of the plain
+# version's probabilities, and on at most this share of tokens
+NEAR_TIE = 1e-4
+MAX_FLIP_SHARE = 1e-3
+# the gate's losses: f32 sums of the same f32 terms in another order
+GATE_LOSS_RTOL = 1e-4
+# generate's step logits against forward over the whole sequence: the two
+# paths round bf16 activations at different points (GEMMs of other shapes,
+# decode attention in plain matmuls), which compounds over 4 layers to
+# about 1e-2 normwise at the median row; every row is held to 5x that.
+# Where that perturbation flips a routing decision, the logits of that
+# position and of later ones in its sequence may move far.  Such a row is
+# excused only when both paths' routing was recorded and every flip lies
+# at a near-tie of forward's probabilities: gate logits move by about the
+# bf16 tolerance, so two probabilities within twice that may cross.
+SERVE_MEDIAN_TOL = 2 * BF16_NORMWISE_TOL
+SERVE_ROW_TOL = 5 * BF16_NORMWISE_TOL
+SERVE_NEAR_TIE = 2 * BF16_NORMWISE_TOL
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def normwise(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` back-to-back calls on
+    CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+# ----------------------------------------------------------------------
+# kernel phase
+# ----------------------------------------------------------------------
+
+def routing_flips(ids_k, ids_p, probs_p) -> int:
+    """Tokens whose top-k sets differ between kernel and plain; each must
+    be a near-tie of the plain probabilities (the k-th and (k+1)-th)."""
+    k = ids_k.shape[1]
+    diff = (ids_k.sort(-1).values != ids_p.sort(-1).values).any(-1)
+    n = int(diff.sum())
+    if n:
+        top = probs_p[diff].sort(-1, descending=True).values
+        gaps = top[:, k - 1] - top[:, k]
+        check(bool((gaps <= NEAR_TIE).all()),
+              f"routing differs on {n} tokens, not all near-ties "
+              f"(largest gap {float(gaps.max()):.3g})")
+        check(n <= MAX_FLIP_SHARE * ids_k.shape[0] + 1,
+              f"routing differs on {n} of {ids_k.shape[0]} tokens")
+    return n
+
+
+def check_gate(tag, x, w, cfg):
+    cfg = cfg.replace(router_z_loss_coef=1e-3)  # so z_loss is compared
+    got = gate.router_cuda(x, w, cfg)
+    want = gate.router_plain(x, w, cfg)
+    probs = torch.softmax(reference.dot_f32(x, w), -1)
+    torch.cuda.synchronize()
+    flips = routing_flips(got.expert_idx, want.expert_idx, probs)
+    same = (got.expert_idx == want.expert_idx).all(-1)
+    err = max_abs(got.combine_weights[same], want.combine_weights[same])
+    check(err <= GATE_ABS_TOL, f"gate {tag}: combine weights err {err}")
+    own = torch.bincount(got.expert_idx.reshape(-1),
+                         minlength=cfg.num_experts)
+    check(torch.equal(own, got.expert_counts), f"gate {tag}: counts")
+    # each flipped token moves one selection from one expert to another
+    dc = int((got.expert_counts - want.expert_counts).abs().sum())
+    check(dc <= 2 * flips, f"gate {tag}: counts differ from plain by {dc} "
+          f"with {flips} routing flips")
+    pm = max_abs(got.probs_mean, want.probs_mean)
+    check(pm <= 1e-6, f"gate {tag}: probs_mean err {pm}")
+    losses = {}
+    for name in ("aux_loss", "z_loss"):
+        a, b = float(getattr(got, name)), float(getattr(want, name))
+        losses[name] = abs(a - b) / abs(b)
+        check(b != 0 and losses[name] <= GATE_LOSS_RTOL,
+              f"gate {tag}: {name} {a} vs plain {b}")
+    print(f"gate {tag}: S={x.shape[0]} H={x.shape[1]} E={cfg.num_experts} "
+          f"K={cfg.expert_top_k} {x.dtype}: max_abs_err={err:.3g} "
+          f"(tol {GATE_ABS_TOL}, f32 sums in another order) "
+          f"routing_flips={flips} counts_diff={dc} probs_mean_err={pm:.3g} "
+          f"aux_rel_err={losses['aux_loss']:.3g} "
+          f"z_rel_err={losses['z_loss']:.3g} (tol {GATE_LOSS_RTOL})")
+    return err
+
+
+def gate_phase(cfg, x, w):
+    err = check_gate("prefill", x, w, cfg)
+    check_gate("decode", x[:4].contiguous(), w, cfg)
+    tc = config.MoEConfig(num_experts=16, expert_top_k=4, hidden_size=256,
+                          dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    check_gate("f32", torch.randn(100, 256, device="cuda", generator=g),
+               torch.randn(256, 16, device="cuda", generator=g) / 16, tc)
+    s, h = x.shape
+    e, k = cfg.num_experts, cfg.expert_top_k
+
+    def library():
+        torch.topk(torch.softmax(torch.matmul(x, w).float(), -1), k)
+
+    return dict(
+        name="gate", route="cuda", source="flashmoe_tpu_torch/csrc/gate.cu",
+        replaces="flashmoe_tpu/ops/gate.py:102", max_abs_err=err,
+        ms=cuda_ms(lambda: gate.router_cuda(x, w, cfg), 50),
+        plain_ms=cuda_ms(lambda: gate.router_plain(x, w, cfg), 50),
+        library_ms=cuda_ms(library, 50),
+        **bound(bytes_=2 * s * h + 2 * h * e + 8 * s * k + 12 * e,
+                    flops=2 * s * h * e))
+
+
+def bound(bytes_: float, flops: float) -> dict:
+    tb, tf = bytes_ / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def check_ffn(tag, args, kw):
+    got = expert.grouped_ffn_cuda(*args, **kw)
+    want = expert.grouped_ffn_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = BF16_NORMWISE_TOL if got.dtype == torch.bfloat16 else 1e-5
+    err, nerr = max_abs(got, want), normwise(got, want)
+    check(bool(torch.isfinite(got).all()), f"grouped_ffn {tag}: finite")
+    check(nerr <= tol, f"grouped_ffn {tag}: normwise err {nerr}")
+    print(f"grouped_ffn {tag}: rows={args[0].shape[0]} "
+          f"H={args[0].shape[1]} I={args[2].shape[2]} E={args[2].shape[0]} "
+          f"{got.dtype} gated={kw['gated']}: normwise_err={nerr:.3g} "
+          f"(tol {tol}) max_abs_err={err:.3g}")
+    return err
+
+
+def ffn_inputs(cfg, params, x):
+    """What the dropless arm hands the grouped FFN for tokens x."""
+    r = gate.router_cuda(x, params["gate_w"], cfg)
+    plan = ragged.make_ragged_plan(r.expert_idx, cfg, expert.ROW_TILE)
+    xbuf = ragged.ragged_dispatch(x, plan, cfg, expert.ROW_TILE)
+    args = (xbuf, plan.tile_gid, params["w_up"], params["b_up"],
+            params["w_down"], params["b_down"], params.get("w_gate"))
+    kw = dict(act_name=cfg.hidden_act, gated=cfg.gated_ffn,
+              block_m=expert.ROW_TILE, num_rows=plan.num_rows)
+    return args, kw, plan
+
+
+def ffn_phase(cfg, params, x):
+    args, kw, plan = ffn_inputs(cfg, params, x)
+    err = check_ffn("prefill", args, kw)
+    dargs, dkw, _ = ffn_inputs(cfg, params, x[:4].contiguous())
+    check_ffn("decode", dargs, dkw)
+    small = config.MoEConfig(
+        num_experts=3, expert_top_k=2, hidden_size=128, intermediate_size=256,
+        gated_ffn=True, hidden_act="gelu", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    sp = reference.init_moe_params(g, small, device="cuda")
+    sp["b_up"] = torch.randn(3, 256, device="cuda", generator=g)
+    sx = torch.randn(64, 128, device="cuda", generator=g)
+    sargs, skw, _ = ffn_inputs(small, sp, sx)
+    check_ffn("f32", sargs, skw)
+
+    # the same function through cuBLAS, one expert segment at a time
+    counts = plan.counts.tolist()
+    bm = expert.ROW_TILE
+    xbuf, w_up, b_up, w_down, b_down, w_gate = (args[0], *args[2:])
+    segs, start = [], 0
+    for e, c in enumerate(counts):
+        segs.append((e, start, start + c))
+        start += -(-c // bm) * bm
+    act = reference.activation_fn(cfg.hidden_act)
+
+    def library():
+        out = torch.empty_like(xbuf)
+        for e, a, b in segs:
+            xe = xbuf[a:b]
+            u = torch.addmm(b_up[e], xe, w_up[e])
+            out[a:b] = torch.addmm(b_down[e], act(xe @ w_gate[e]) * u,
+                                   w_down[e])
+        return out
+
+    rows = sum(counts)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    n_mats = 3 if cfg.gated_ffn else 2
+    touched = sum(1 for c in counts if c)
+    return dict(
+        name="grouped_ffn", route="cuda",
+        source="flashmoe_tpu_torch/csrc/grouped_ffn.cu",
+        replaces="flashmoe_tpu/ops/expert.py:77", max_abs_err=err,
+        ms=cuda_ms(lambda: expert.grouped_ffn_cuda(*args, **kw), 10),
+        plain_ms=cuda_ms(lambda: expert.grouped_ffn_plain(*args, **kw), 3),
+        library_ms=cuda_ms(library, 10),
+        **bound(
+            bytes_=2 * rows * h * 2 + touched * (n_mats * h * i * 2
+                                                 + 4 * (i + h)),
+            flops=2 * rows * h * i * n_mats))
+
+
+def flash_phase():
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def qkv(b, n, nkv, t, d, dt):
+        return (torch.randn(b, n, t, d, device="cuda", generator=g,
+                            dtype=dt),
+                torch.randn(b, nkv, t, d, device="cuda", generator=g,
+                            dtype=dt),
+                torch.randn(b, nkv, t, d, device="cuda", generator=g,
+                            dtype=dt))
+
+    def one(tag, q, k, v):
+        got = attention.flash_attention_cuda(q, k, v, causal=True)
+        want = attention.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        tol = BF16_NORMWISE_TOL if q.dtype == torch.bfloat16 else 1e-5
+        err, nerr = max_abs(got, want), normwise(got, want)
+        check(nerr <= tol, f"flash {tag}: normwise err {nerr}")
+        print(f"flash_attention {tag}: q={tuple(q.shape)} "
+              f"kv={tuple(k.shape)} {q.dtype}: normwise_err={nerr:.3g} "
+              f"(tol {tol}) max_abs_err={err:.3g}")
+        return err
+
+    q, k, v = qkv(4, 32, 8, 256, 128, torch.bfloat16)
+    err = one("prefill", q, k, v)
+    one("ragged_T272", *qkv(4, 32, 8, 272, 128, torch.bfloat16))
+    one("d64", *qkv(2, 8, 8, 200, 64, torch.bfloat16))
+    one("f32", *qkv(1, 4, 2, 100, 64, torch.float32))
+    b, n, t, d = q.shape
+    nkv = k.shape[1]
+    return dict(
+        name="flash_attention", route="cuda",
+        source="flashmoe_tpu_torch/csrc/flash_attention.cu",
+        replaces="flashmoe_tpu/ops/attention.py:54", max_abs_err=err,
+        ms=cuda_ms(lambda: attention.flash_attention_cuda(q, k, v), 50),
+        plain_ms=cuda_ms(lambda: attention.flash_attention_plain(q, k, v), 20),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50),
+        **bound(bytes_=2 * (2 * b * n * t * d + 2 * b * nkv * t * d),
+                    flops=4 * b * n * d * t * (t + 1) / 2))
+
+
+# ----------------------------------------------------------------------
+# layer and model phases
+# ----------------------------------------------------------------------
+
+def layer_agreement(tag, got, want, flips):
+    """Outputs of two routings of one layer: normwise within the bf16
+    tolerance when the routing agreed everywhere; with near-tie flips,
+    at most the flipped share of tokens (plus the capacity positions
+    they shift) may disagree."""
+    per_tok = (torch.linalg.vector_norm((got - want).float(), dim=-1)
+               / torch.linalg.vector_norm(want.float(), dim=-1)
+               .clamp_min(1e-30))
+    bad = int((per_tok > 4 * BF16_NORMWISE_TOL).sum())
+    nerr = normwise(got, want)
+    check(bool(torch.isfinite(got).all()), f"{tag}: finite")
+    if flips == 0:
+        check(nerr <= BF16_NORMWISE_TOL, f"{tag}: normwise err {nerr}")
+    else:
+        check(bad <= 0.02 * got.shape[0],
+              f"{tag}: {bad} tokens disagree after {flips} routing flips")
+    print(f"{tag}: normwise_err={nerr:.3g} (tol {BF16_NORMWISE_TOL}) "
+          f"tokens_off={bad} routing_flips={flips}")
+
+
+def reset_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def kernel_fns():
+    return {"gate": gate.router_cuda,
+            "grouped_ffn": expert.grouped_ffn_cuda,
+            "flash_attention": attention.flash_attention_cuda}
+
+
+def capacity_phase():
+    cfg = presets.flashmoe_reference(param_dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = reference.init_moe_params(g, cfg, device="cuda")
+    x = torch.randn(cfg.tokens, cfg.hidden_size, device="cuda",
+                    generator=g, dtype=torch.bfloat16)
+    reset_counts()
+    out = moe.moe_layer(params, x, cfg)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in kernel_fns().items()}
+    check(counts["gate"] > 0 and counts["grouped_ffn"] > 0,
+          f"capacity arm launches {counts}")
+    plain = moe.moe_layer(params, x, cfg, use_kernels=False)
+    rk = gate.router_cuda(x, params["gate_w"], cfg)
+    rp = gate.router_plain(x, params["gate_w"], cfg)
+    flips = routing_flips(rk.expert_idx, rp.expert_idx,
+                          torch.softmax(reference.dot_f32(x, params["gate_w"]), -1))
+    print(f"capacity arm: flashmoe_reference E={cfg.num_experts} "
+          f"K={cfg.expert_top_k} H={cfg.hidden_size} "
+          f"I={cfg.intermediate_size} S={cfg.tokens} "
+          f"capacity={cfg.capacity_for(cfg.tokens)} launches={counts}")
+    layer_agreement("capacity arm vs plain", out.out, plain.out, flips)
+    ms = cuda_ms(lambda: moe.moe_layer(params, x, cfg), 5)
+    print(f"capacity arm layer_ms={ms:.4f}")
+    del params
+
+
+def serve_phase(cfg, params):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, t0, new = 4, 256, 16
+    prompt = torch.randint(0, cfg.vocab_size, (b, t0), device="cuda",
+                           generator=g)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    tokens = generate.generate(params, prompt, cfg, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t_start
+    launches = {k: f.launches for k, f in kernel_fns().items()}
+    check(all(v > 0 for v in launches.values()),
+          f"main path launches {launches}")
+    check(tokens.shape == (b, t0 + new), f"tokens shape {tokens.shape}")
+    print(f"serve: mixtral_8x7b layers={cfg.num_layers} B={b} T0={t0} "
+          f"new={new}: generate_s={gen_s:.3f} launches={launches}")
+
+    # replay the greedy steps, keeping each step's logits and every
+    # layer's routing
+    cache = generate.init_cache(cfg, b, t0 + new, "cuda")
+    embed = params["embed"].to(cfg.dtype)
+    with RoutingLog() as replay:
+        logits, cache = generate.prefill_batched(params, cfg, prompt, cache)
+        steps = [logits]
+        for i in range(new - 1):
+            tok = tokens[:, t0 + i]
+            logits, cache = generate._decode_step(
+                params, cfg, embed[tok][:, None, :], cache, t0 + i)
+            steps.append(logits)
+    step_logits = torch.stack(steps, 1)  # [B, new, V]
+    check(bool(torch.isfinite(step_logits).all()), "step logits finite")
+    check(torch.equal(step_logits.argmax(-1), tokens[:, t0:]),
+          "generate's tokens are the argmax of the replayed logits")
+    with RoutingLog() as fwd:
+        full, _ = transformer.forward(params, tokens[:, :-1], cfg)
+    want = full[:, t0 - 1:]
+    rows = (torch.linalg.vector_norm(step_logits - want, dim=-1)
+            / torch.linalg.vector_norm(want, dim=-1))
+    excused, n_flips, gap = serve_flips(cfg, replay, fwd, b)
+    excused = excused[:, t0 - 1:]  # step j is computed at position t0-1+j
+    held = rows[~excused]
+    med, worst = float(rows.median()), float(rows.max())
+    worst_held = float(held.max()) if held.numel() else 0.0
+    far = float((rows > SERVE_ROW_TOL).float().mean())
+    agree = float((step_logits.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"serve: step logits vs forward over the full sequence: "
+          f"median_normwise={med:.3g} (tol {SERVE_MEDIAN_TOL}) "
+          f"max_normwise={worst:.3g} max_normwise_without_flip="
+          f"{worst_held:.3g} (tol {SERVE_ROW_TOL}) rows_over_tol={far:.4f} "
+          f"rows_after_a_flip={int(excused.sum())}/{rows.numel()} "
+          f"routing_flips={n_flips} largest_flip_gap={gap:.3g} "
+          f"(tol {SERVE_NEAR_TIE}) argmax_agreement={agree:.3f}")
+    check(med <= SERVE_MEDIAN_TOL,
+          f"step logits vs forward: median normwise {med}")
+    check(worst_held <= SERVE_ROW_TOL,
+          f"step logits vs forward: a row with no routing flip before it is "
+          f"{worst_held} normwise off")
+    check(gap <= SERVE_NEAR_TIE,
+          f"a routing flip between generate and forward is no near-tie "
+          f"(probability gap {gap})")
+
+    profile_breakdown(cfg, params, prompt, tokens)
+
+    # every prefill MoE layer against the dense oracle, on its own input
+    x = embed[prompt]
+    for li, layer in enumerate(params["layers"]):
+        x = x + transformer.attention(layer, transformer.rms_norm(x, layer["attn_norm"]), cfg)
+        f_in = transformer.rms_norm(x, layer["ffn_norm"]).reshape(b * t0, -1)
+        got = moe.moe_layer(layer["moe"], f_in, cfg)
+        want, _ = reference.reference_moe(layer["moe"], f_in, cfg)
+        rk = gate.router_cuda(f_in, layer["moe"]["gate_w"], cfg)
+        _, top_idx, probs, _ = reference.reference_gate(
+            f_in, layer["moe"]["gate_w"], cfg)
+        flips = routing_flips(rk.expert_idx, top_idx, probs)
+        layer_agreement(f"serve: prefill layer {li} vs reference_moe",
+                        got.out, want, flips)
+        x = x + got.out.reshape(x.shape)
+    return launches
+
+
+class RoutingLog:
+    """While active, records every gate call that ``moe_layer`` makes:
+    the top-k ids and the softmax probabilities of its tokens."""
+
+    def __enter__(self):
+        self.calls, self._router = [], moe.router
+
+        def recorded(x, gate_w, cfg, use_kernels=None):
+            out = self._router(x, gate_w, cfg, use_kernels=use_kernels)
+            probs = torch.softmax(reference.dot_f32(x, gate_w), -1)
+            self.calls.append((out.expert_idx, probs))
+            return out
+
+        moe.router = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe.router = self._router
+
+    def per_position(self, n_layers, b):
+        """Layer by layer, ids [B, T, K] and probs [B, T, E] over all the
+        positions the recorded calls covered, in call order: a prefill or
+        forward call covers [B, T] tokens, a decode step [B, 1]."""
+        out = []
+        for li in range(n_layers):
+            calls = self.calls[li::n_layers]
+            out.append(tuple(
+                torch.cat([c[j].reshape(b, -1, c[j].shape[-1])
+                           for c in calls], 1) for j in (0, 1)))
+        return out
+
+
+def serve_flips(cfg, replay, fwd, b):
+    """Compare generate's routing (prefill + decode steps) with forward's,
+    position by position.  Returns ([B, T] true at every position at or
+    after a routing flip in its sequence, the number of (layer, token)
+    flips, the largest gap of forward's k-th and (k+1)-th probabilities
+    at a flip)."""
+    k = cfg.expert_top_k
+    n = len(cfg.moe_layer_indices)
+    check(len(fwd.calls) == n and len(replay.calls) % n == 0,
+          f"routing calls: replay {len(replay.calls)}, forward "
+          f"{len(fwd.calls)}, MoE layers {n}")
+    flipped, gap, n_flips = None, 0.0, 0
+    for (ids_r, _), (ids_f, probs_f) in zip(replay.per_position(n, b),
+                                            fwd.per_position(n, b)):
+        check(ids_r.shape == ids_f.shape,
+              f"routing shapes {tuple(ids_r.shape)} {tuple(ids_f.shape)}")
+        diff = (ids_r.sort(-1).values != ids_f.sort(-1).values).any(-1)
+        if bool(diff.any()):
+            top = probs_f[diff].sort(-1, descending=True).values
+            gap = max(gap, float((top[:, k - 1] - top[:, k]).max()))
+        n_flips += int(diff.sum())
+        flipped = diff if flipped is None else flipped | diff
+    after = flipped.int().cummax(1).values.bool()
+    return after, n_flips, gap
+
+
+def profile_breakdown(cfg, params, prompt, tokens):
+    """Where the serving time goes: host-clock time of a prefill and of a
+    decode step (each ended by a synchronize), and the device time by
+    kernel from torch.profiler over both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, t0 = prompt.shape
+    embed = params["embed"].to(cfg.dtype)
+    tok = embed[tokens[:, t0]][:, None, :]
+
+    def prefill():
+        cache = generate.init_cache(cfg, b, t0 + 2, "cuda")
+        generate.prefill_batched(params, cfg, prompt, cache)
+        return cache
+
+    cache = prefill()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cache = prefill()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    generate._decode_step(params, cfg, tok, cache, t0)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3
+    print(f"serve: prefill_ms={prefill_ms:.3f} decode_step_ms={decode_ms:.3f}")
+    for tag, fn in (("prefill", prefill),
+                    ("decode_step", lambda: generate._decode_step(
+                        params, cfg, tok, cache, t0))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.self_device_time_total > 0]
+        total = sum(r[1] for r in rows)
+        if not rows:
+            print(f"profile {tag}: device time not measured (the profiler "
+                  f"recorded none)")
+            continue
+        rows.sort(key=lambda r: -r[1])
+        top = "; ".join(f"{k[:48]} x{c} {ms:.3f}ms ({ms / total:.0%})"
+                        for k, ms, c in rows[:8])
+        print(f"profile {tag}: device_ms={total:.3f}: {top}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(gpu_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build_s={time.perf_counter() - t0:.2f}")
+
+    cfg = presets.mixtral_8x7b(num_layers=4, param_dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init_params(g, cfg, device="cuda")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"mixtral_8x7b layers={cfg.num_layers}: "
+          f"weights_GB={n_bytes / 1e9:.2f}")
+
+    moe0 = params["layers"][0]["moe"]
+    x = torch.randn(1024, cfg.hidden_size, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    entries = [gate_phase(cfg, x, moe0["gate_w"]),
+               ffn_phase(cfg, moe0, x), flash_phase()]
+    capacity_phase()
+    launches = serve_phase(cfg, params)
+
+    kernels = [dict(e, launches=launches[e["name"]]) for e in entries]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,140 @@
+"""Static configuration of the PyTorch port.
+
+Counterpart of ``flashmoe_tpu/config.py:69-560``.  That ``MoEConfig``
+imports ``jax.numpy`` for its dtype fields, so the port keeps its own
+frozen dataclass with torch dtypes.  It carries only the fields that the
+ported slice reads (one device, inference, both MoE arms, the
+transformer and greedy generation) and validates them with the same
+errors.  Knobs of later slices are absent, and a parallel axis above 1
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+class Activation:
+    """Activation selector, the same names as the JAX package."""
+
+    RELU = "relu"
+    GELU = "gelu"  # tanh approximation, as jax.nn.gelu's default
+    SILU = "silu"
+
+
+# parallel axes of the JAX config that the port does not run yet, with the
+# ROADMAP queue-A item that ports them
+_UNPORTED_AXES = {
+    "dp": "A.8 (trainer and runtime)",
+    "ep": "A.4 (expert parallelism over collectives)",
+    "tp": "A.4 (expert parallelism over collectives)",
+    "sp": "A.7 (ring attention over the sp axis)",
+    "pp": "A.7 (pipeline parallelism)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Frozen model/job configuration (field names as in the JAX package)."""
+
+    # --- expert shape ---
+    num_experts: int = 8
+    expert_top_k: int = 2
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    gated_ffn: bool = False
+    hidden_act: str = Activation.GELU
+    num_shared_experts: int = 0
+
+    # --- tokens and capacity ---
+    sequence_len: int = 128
+    mini_batch: int = 1
+    capacity_factor: float = 1.25
+    drop_tokens: bool = True
+    is_training: bool = False
+
+    # --- model shape ---
+    num_layers: int = 2
+    moe_frequency: int = 1
+    vocab_size: int = 32000
+    num_heads: int = 8
+    num_kv_heads: int = 0  # 0 => num_heads (MHA); < num_heads => GQA
+    head_dim: int = 0  # 0 => hidden_size // num_heads
+    rope_theta: float = 10000.0
+
+    # --- losses ---
+    aux_loss_coef: float = 0.01
+    router_z_loss_coef: float = 0.0
+
+    # --- numerics ---
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    accum_dtype: torch.dtype = torch.float32
+
+    # --- parallel axes (only 1 is ported) ---
+    dp: int = 1
+    ep: int = 1
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+
+    def __post_init__(self):
+        if self.num_experts < 1:
+            raise ValueError("num_experts must be >= 1")
+        if not (1 <= self.expert_top_k <= self.num_experts):
+            raise ValueError("expert_top_k must be in [1, num_experts]")
+        if self.hidden_size % 64:
+            raise ValueError("hidden_size must be a multiple of 64")
+        if self.intermediate_size % 64:
+            raise ValueError("intermediate_size must be a multiple of 64")
+        if self.capacity_factor <= 0:
+            raise ValueError("capacity_factor must be > 0")
+        if self.hidden_act not in (Activation.RELU, Activation.GELU,
+                                   Activation.SILU):
+            raise ValueError(f"hidden_act {self.hidden_act!r} not in "
+                             f"('relu', 'gelu', 'silu')")
+        for axis, item in _UNPORTED_AXES.items():
+            if getattr(self, axis) != 1:
+                raise NotImplementedError(
+                    f"{axis}={getattr(self, axis)}: the PyTorch port runs on "
+                    f"one device; {axis} > 1 waits for ROADMAP {item}")
+        if self.is_training:
+            raise NotImplementedError(
+                "is_training=True: the PyTorch port is inference-only; "
+                "training waits for ROADMAP A.6 (training backward)")
+
+    @property
+    def tokens(self) -> int:
+        """S = sequence_len * mini_batch."""
+        return self.sequence_len * self.mini_batch
+
+    def capacity_for(self, tokens: int) -> int:
+        """Expert capacity: CF * K * ceil(tokens / E) when dropping (floor
+        of 8), else every token."""
+        if not self.drop_tokens:
+            return tokens
+        return max(8, int(math.ceil(
+            self.capacity_factor * self.expert_top_k
+            * math.ceil(tokens / self.num_experts))))
+
+    @property
+    def resolved_num_kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def moe_layer_indices(self) -> tuple[int, ...]:
+        """Which transformer layers carry an MoE FFN (vs dense)."""
+        if self.num_experts <= 1:
+            return ()
+        f = max(1, self.moe_frequency)
+        return tuple(i for i in range(self.num_layers) if (i + 1) % f == 0)
+
+    def replace(self, **kw) -> "MoEConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,146 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``.cu`` source under ``flashmoe_tpu_torch/csrc/`` is compiled by one
+``nvcc`` call for ``sm_90a`` into a shared library with a plain C
+interface, loaded with ``ctypes``.  The build happens at first use, into
+``flashmoe_tpu_torch/kernels/build/<hash>/`` (ignored by git), keyed by a
+hash of the sources and flags, so a fresh checkout builds its kernels the
+first time a CUDA tensor asks for one.  A missing or failing ``nvcc``
+raises: there is no fallback.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build")
+LIB_NAME = "libflashmoe_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+# C signatures: name -> argtypes (restype is always int, a cudaError_t)
+SIGNATURES = {
+    # dtype_is_bf16, x, w, S, H, E, K, top_p, top_i, part_probs,
+    # part_counts, part_z, probs_sum, counts, zsum, stream
+    "fm_gate": [I, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P],
+    # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
+    # w_gate, b_up, w_down, b_down, hidden, out, T, H, I, stream
+    "fm_grouped_ffn": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, I, I, I, P],
+    # dtype_is_bf16, q, k, v, o, B, N, NKV, T, D, scale, causal, stream
+    "fm_flash_attention": [I, P, P, P, P, I, I, I, I, I, ctypes.c_float, I,
+                           P],
+}
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "flashmoe_tpu_torch cannot be built")
+
+
+def _digest(srcs: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the sources unless this exact build exists; return the
+    library's path."""
+    srcs = _sources()
+    out_dir = os.path.join(BUILD_ROOT, _digest(srcs))
+    lib = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    # build under a private name, then rename: a concurrent builder
+    # never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in srcs if s.endswith(".cu")]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one
+    device, 16-byte aligned (the kernels load 16 bytes at a time)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on {dev}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def use_kernels_for(t: torch.Tensor, use_kernels: bool | None) -> bool:
+    """Resolve an entry point's ``use_kernels`` argument: ``None`` means
+    the kernels for a CUDA tensor and the plain versions for a CPU one;
+    ``True`` with a CPU tensor raises."""
+    if use_kernels is None:
+        return t.is_cuda
+    if use_kernels and not t.is_cuda:
+        raise ValueError(
+            f"use_kernels=True needs CUDA tensors, got a tensor on "
+            f"{t.device}: the CUDA kernels have no CPU version")
+    return bool(use_kernels)

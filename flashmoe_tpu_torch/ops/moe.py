@@ -1,0 +1,91 @@
+"""Single-device MoE layer: gate -> dispatch -> grouped FFN -> combine.
+
+Counterpart of ``flashmoe_tpu/ops/moe.py:57-209``.  Two arms, as the JAX
+layer has with ``use_pallas=True``:
+
+* dropless (``drop_tokens=False``): the ragged
+  expert-sorted grouping, the grouped FFN over it, and a gather combine;
+* capacity: the [E, C, H] dispatch buffer, the grouped FFN over it, and a
+  renormalizing combine that zeroes dropped slots.
+
+E == 1 takes the dense FFN.  The gate and the grouped FFN run their CUDA
+kernels on CUDA tensors and their plain versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from flashmoe_tpu_torch.config import MoEConfig
+from flashmoe_tpu_torch.kernels import _build
+from flashmoe_tpu_torch.models.reference import (activation_fn, dot_f32,
+                                                 shared_expert_ffn)
+from flashmoe_tpu_torch.ops import dispatch as dsp
+from flashmoe_tpu_torch.ops import expert as exp
+from flashmoe_tpu_torch.ops import ragged as rag
+from flashmoe_tpu_torch.ops.gate import router
+
+
+class MoEOutput(NamedTuple):
+    out: torch.Tensor  # [S, H]
+    aux_loss: torch.Tensor
+    z_loss: torch.Tensor
+    expert_counts: torch.Tensor  # [E]
+
+
+def dense_ffn(params, x, cfg: MoEConfig):
+    """E == 1 dense FFN (plain torch, as the JAX package's XLA dots)."""
+    act = activation_fn(cfg.hidden_act)
+    dt = x.dtype
+    up = dot_f32(x, params["w_up"][0].to(dt)) + params["b_up"][0].float()
+    if cfg.gated_ffn:
+        hidden = act(dot_f32(x, params["w_gate"][0].to(dt))) * up
+    else:
+        hidden = act(up)
+    down = dot_f32(hidden.to(dt), params["w_down"][0].to(dt)) \
+        + params["b_down"][0].float()
+    return down.to(dt)
+
+
+def moe_layer(params, x, cfg: MoEConfig, *, use_kernels: bool | None = None
+              ) -> MoEOutput:
+    """One MoE layer over a token shard x: [S, H].
+
+    ``use_kernels``: ``None`` runs the CUDA kernels when x is on CUDA and
+    the plain versions when it is on the CPU; ``False`` runs the plain
+    versions anywhere; ``True`` with a CPU tensor raises."""
+    uk = _build.use_kernels_for(x, use_kernels)
+    if cfg.num_experts == 1:
+        zero = torch.zeros((), dtype=cfg.accum_dtype, device=x.device)
+        counts = torch.full((1,), x.shape[0], dtype=torch.long,
+                            device=x.device)
+        return MoEOutput(dense_ffn(params, x, cfg), zero, zero, counts)
+
+    r = router(x, params["gate_w"], cfg, use_kernels=uk)
+    dt = cfg.dtype
+    xs = x.to(dt)
+    ffn = dict(act_name=cfg.hidden_act, gated=cfg.gated_ffn, use_kernels=uk)
+    if not cfg.drop_tokens:
+        bm = exp.ROW_TILE
+        plan = rag.make_ragged_plan(r.expert_idx, cfg, bm)
+        xbuf = rag.ragged_dispatch(xs, plan, cfg, bm)
+        ybuf = exp.grouped_ffn(
+            xbuf, plan.tile_gid, params["w_up"].to(dt), params["b_up"],
+            params["w_down"].to(dt), params["b_down"],
+            params["w_gate"].to(dt) if cfg.gated_ffn else None,
+            block_m=bm, num_rows=plan.num_rows, **ffn)
+        out = rag.ragged_combine(ybuf, plan, r.combine_weights, cfg)
+    else:
+        # capacity from this call's token count, not the config's nominal
+        # sequence length
+        cap = cfg.capacity_for(x.shape[0])
+        plan = dsp.make_plan(r.expert_idx, cfg, cap)
+        xbuf = dsp.dispatch(xs, plan, cfg, cap)
+        ybuf = exp.capacity_buffer_ffn(xbuf, params, cfg, use_kernels=uk)
+        out = dsp.combine(ybuf, plan, r.combine_weights, cfg, cap)
+    if cfg.num_shared_experts:
+        out = out + shared_expert_ffn(xs, params, cfg)
+    return MoEOutput(out.to(dt), r.aux_loss * cfg.aux_loss_coef, r.z_loss,
+                     r.expert_counts)
