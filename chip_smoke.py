@@ -7,16 +7,25 @@ Phases, each of which fails the run on any error:
 
 1. build: compile the CUDA kernels from ``flashmoe_tpu_torch/csrc/``;
 2. kernels: hold each kernel against its plain torch version on the card
-   at the shapes the main path gives it (plus a small f32 case), and time
-   the kernel, the plain version and one PyTorch library call computing
-   the same function;
+   at the shapes its path gives it (plus a small f32 case), and time the
+   kernel, the plain version and one PyTorch library call computing the
+   same function: the gate, grouped FFN and flash attention of serving,
+   and the residual-saving FFN, grouped matmul and transposed grouped
+   matmul of the training step;
 3. capacity arm: one MoE layer of the FlashMoE reference config (E=64,
-   top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain;
+   top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain,
+   forward and the gradients of ``sum(out**2) + aux``;
 4. serve: Mixtral-8x7B at its published widths with 4 of its 32 layers
    and random bf16 weights: 4 prompts of 256 tokens, 16 greedy tokens
-   through ``generate`` (the main path: counts reset before, read after);
-   every step's logits against ``forward`` over the whole sequence, and
-   every prefill MoE layer against the dense oracle ``reference_moe``.
+   through ``generate`` (the serving path: counts reset before, read
+   after); every step's logits against ``forward`` over the whole
+   sequence, and every prefill MoE layer against the dense oracle
+   ``reference_moe``;
+5. train: Mixtral-8x7B's widths with 2 layers, bf16 weights and AdamW:
+   three ``make_train_step`` steps on 4 x 257 tokens (the training path:
+   counts reset before the first step, read after it); every gradient
+   against the plain versions', the loss lower after one SGD step, and the
+   step's device time split into the optimizer and ``value_and_grad``.
 
 The second-to-last line of stdout is the kernels' JSON line, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -26,6 +35,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +53,8 @@ from flashmoe_tpu_torch.models import (generate, presets,  # noqa: E402
                                        reference, transformer)
 from flashmoe_tpu_torch.ops import (attention, expert, gate,  # noqa: E402
                                     moe, ragged)
+from flashmoe_tpu_torch.runtime import trainer  # noqa: E402
+from flashmoe_tpu_torch.tree import tree_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s
@@ -73,6 +85,17 @@ GATE_LOSS_RTOL = 1e-4
 SERVE_MEDIAN_TOL = 2 * BF16_NORMWISE_TOL
 SERVE_ROW_TOL = 5 * BF16_NORMWISE_TOL
 SERVE_NEAR_TIE = 2 * BF16_NORMWISE_TOL
+# f32 outputs of the training kernels against their plain versions: the
+# JAX package's own f32 tolerance (tests/test_expert.py), elementwise
+F32_TOL = 2e-4
+# gradients through the kernels against the plain versions' (which replay
+# the kernel run's routing), per leaf, normwise: bf16 rounding at the same
+# points, f32 sums in another order, compounded through the backward's
+# chain of bf16 GEMMs
+GRAD_NORMWISE_TOL = 2 * BF16_NORMWISE_TOL
+# learning rate of the SGD check: large enough that the update of a
+# 1/64-scale bf16 weight survives rounding (its ulp is 1.2e-4)
+TRAIN_SGD_LR = 0.1
 
 
 def check(ok: bool, what: str) -> None:
@@ -88,6 +111,15 @@ def normwise(a, b) -> float:
 
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def check_f32(tag, got, want) -> float:
+    """An f32 output against its plain version, elementwise at F32_TOL."""
+    err = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), f"{tag}: finite")
+    check(bool((err <= F32_TOL + F32_TOL * want.abs()).all()),
+          f"{tag}: max abs err {float(err.max())} (rtol = atol = {F32_TOL})")
+    return float(err.max())
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -240,13 +272,8 @@ def ffn_phase(cfg, params, x):
     check_ffn("f32", sargs, skw)
 
     # the same function through cuBLAS, one expert segment at a time
-    counts = plan.counts.tolist()
-    bm = expert.ROW_TILE
     xbuf, w_up, b_up, w_down, b_down, w_gate = (args[0], *args[2:])
-    segs, start = [], 0
-    for e, c in enumerate(counts):
-        segs.append((e, start, start + c))
-        start += -(-c // bm) * bm
+    segs = expert_segments(plan, expert.ROW_TILE)
     act = reference.activation_fn(cfg.hidden_act)
 
     def library():
@@ -258,10 +285,10 @@ def ffn_phase(cfg, params, x):
                                    w_down[e])
         return out
 
-    rows = sum(counts)
+    rows = sum(b - a for _, a, b in segs)
     h, i = cfg.hidden_size, cfg.intermediate_size
     n_mats = 3 if cfg.gated_ffn else 2
-    touched = sum(1 for c in counts if c)
+    touched = sum(1 for _, a, b in segs if b > a)
     return dict(
         name="grouped_ffn", route="cuda",
         source="flashmoe_tpu_torch/csrc/grouped_ffn.cu",
@@ -317,6 +344,215 @@ def flash_phase():
                     flops=4 * b * n * d * t * (t + 1) / 2))
 
 
+def expert_segments(plan, bm):
+    """(expert, first row, end row) of each expert's live rows in a
+    ragged plan's buffer."""
+    segs, start = [], 0
+    for e, c in enumerate(plan.counts.tolist()):
+        segs.append((e, start, start + c))
+        start += -(-c // bm) * bm
+    return segs
+
+
+def res_phase(cfg, params, x):
+    """The residual-saving FFN (training forward) at the train step's
+    rows: y, u and g against the plain version."""
+    args, kw, plan = ffn_inputs(cfg, params, x)
+    live = int(plan.num_rows)
+    got = expert.grouped_ffn_res_cuda(*args, **kw)
+    want = expert.grouped_ffn_res_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, b in zip("yug", got, want):
+        nerr = normwise(a, b)
+        check(bool(torch.isfinite(a).all()), f"ffn_res {name}: finite")
+        check(nerr <= BF16_NORMWISE_TOL, f"ffn_res {name}: normwise {nerr}")
+        check(not bool(a[live:].any()), f"ffn_res {name}: ragged tail zero")
+        errs.append((name, nerr, max_abs(a, b)))
+    print(f"grouped_ffn_res train: rows={args[0].shape[0]} live={live} "
+          f"H={cfg.hidden_size} I={cfg.intermediate_size} bf16: " + " ".join(
+              f"{n}_normwise_err={e:.3g} {n}_max_abs_err={m:.3g}"
+              for n, e, m in errs) + f" (tol {BF16_NORMWISE_TOL})")
+    small = config.MoEConfig(
+        num_experts=3, expert_top_k=2, hidden_size=128, intermediate_size=256,
+        gated_ffn=False, hidden_act="gelu", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    sp = reference.init_moe_params(g, small, device="cuda")
+    sp["b_up"] = torch.randn(3, 256, device="cuda", generator=g)
+    sargs, skw, _ = ffn_inputs(small, sp,
+                               torch.randn(64, 128, device="cuda",
+                                           generator=g))
+    sgot = expert.grouped_ffn_res_cuda(*sargs, **skw)
+    swant = expert.grouped_ffn_res_plain(*sargs, **skw)
+    f32 = [check_f32(f"ffn_res f32 {n}", a, b)
+           for n, a, b in zip("yu", sgot, swant)]
+    print(f"grouped_ffn_res f32 gelu: max_abs_err={max(f32):.3g} "
+          f"(rtol = atol = {F32_TOL})")
+
+    xbuf, w_up, b_up, w_down, b_down, w_gate = (args[0], *args[2:])
+    segs = expert_segments(plan, expert.ROW_TILE)
+    act = reference.activation_fn(cfg.hidden_act)
+    shapes = [tuple(t.shape) for t in got]
+    del got, want
+
+    def library():
+        y, u, gg = (torch.empty(sh, device="cuda", dtype=torch.bfloat16)
+                    for sh in shapes)
+        for e, a, b in segs:
+            xe = xbuf[a:b]
+            u[a:b] = torch.addmm(b_up[e], xe, w_up[e])
+            gg[a:b] = xe @ w_gate[e]
+            y[a:b] = torch.addmm(b_down[e], act(gg[a:b]) * u[a:b],
+                                 w_down[e])
+        return y
+
+    rows = sum(b - a for _, a, b in segs)
+    t, h, i = xbuf.shape[0], cfg.hidden_size, cfg.intermediate_size
+    touched = sum(1 for _, a, b in segs if b > a)
+    rec = dict(
+        name="grouped_ffn_res", route="cuda",
+        source="flashmoe_tpu_torch/csrc/grouped_ffn.cu",
+        replaces="flashmoe_tpu/ops/expert.py:665",
+        max_abs_err=max(m for _, _, m in errs),
+        ms=cuda_ms(lambda: expert.grouped_ffn_res_cuda(*args, **kw), 10),
+        plain_ms=cuda_ms(lambda: expert.grouped_ffn_res_plain(*args, **kw),
+                         3),
+        library_ms=cuda_ms(library, 10),
+        **bound(bytes_=rows * h * 2 + touched * (3 * h * i * 2
+                                                 + 4 * (i + h))
+                + t * (h + 2 * i) * 2,
+                flops=2 * rows * h * i * 3))
+    print(f"grouped_ffn_res train: ms={rec['ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+          f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f}")
+    return rec
+
+
+def gmm_phase(cfg, params, x):
+    """The grouped matmul at the train step's two shapes: dHidden = dy @
+    w_down^T (reported) and dX = d_up @ w_up^T, f32 out."""
+    args, _, plan = ffn_inputs(cfg, params, x)
+    gid, nrow = plan.tile_gid, plan.num_rows
+    t, h, i = args[0].shape[0], cfg.hidden_size, cfg.intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dy = torch.randn(t, h, device="cuda", generator=g, dtype=torch.bfloat16)
+    d_up = torch.randn(t, i, device="cuda", generator=g,
+                       dtype=torch.bfloat16)
+    kw = dict(transpose_w=True, out_dtype=torch.float32, num_rows=nrow)
+    calls = {"d_hidden": (dy, params["w_down"]),
+             "d_x": (d_up, params["w_up"])}
+    segs = expert_segments(plan, expert.ROW_TILE)
+    rows = sum(b - a for _, a, b in segs)
+    touched = sum(1 for _, a, b in segs if b > a)
+    rec = None
+    for tag, (a_in, w) in calls.items():
+        got = expert.grouped_matmul_cuda(a_in, gid, w, **kw)
+        want = expert.grouped_matmul_plain(a_in, gid, w, **kw)
+        torch.cuda.synchronize()
+        err = check_f32(f"grouped_matmul {tag}", got, want)
+        k, n = a_in.shape[1], w.shape[1]
+
+        def library(a_in=a_in, w=w):
+            out = torch.empty((t, n), device="cuda", dtype=torch.bfloat16)
+            for e, lo, hi in segs:
+                out[lo:hi] = a_in[lo:hi] @ w[e].T
+            return out
+
+        ms = cuda_ms(lambda: expert.grouped_matmul_cuda(a_in, gid, w, **kw),
+                     20)
+        b = bound(bytes_=rows * k * 2 + touched * k * n * 2 + t * n * 4,
+                  flops=2 * rows * k * n)
+        lib_ms = cuda_ms(library, 20)
+        print(f"grouped_matmul {tag}: x [{t}, {k}] bf16 @ w^T [{n}, {k}] "
+              f"per expert -> f32, live rows {rows}: max_abs_err={err:.3g} "
+              f"(rtol = atol = {F32_TOL}) ms={ms:.4f} "
+              f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}) "
+              f"library_ms={lib_ms:.4f}")
+        if rec is None:
+            rec = dict(
+                name="grouped_matmul", route="cuda",
+                source="flashmoe_tpu_torch/csrc/grouped_matmul.cu",
+                replaces="flashmoe_tpu/ops/expert.py:490", max_abs_err=err,
+                ms=ms, library_ms=lib_ms, plain_ms=cuda_ms(
+                    lambda: expert.grouped_matmul_plain(a_in, gid, w, **kw),
+                    3), **b)
+    sg = torch.Generator(device="cuda").manual_seed(10)
+    sx = torch.randn(192, 128, device="cuda", generator=sg)
+    sgid = torch.tensor([0, 2, 2], device="cuda")
+    for tw in (False, True):
+        sw = torch.randn(3, 128, 64, device="cuda", generator=sg)
+        sw = sw.transpose(1, 2).contiguous() if tw else sw
+        check_f32(f"grouped_matmul f32 transpose_w={tw}",
+                  expert.grouped_matmul_cuda(sx, sgid, sw, transpose_w=tw),
+                  expert.grouped_matmul_plain(sx, sgid, sw, transpose_w=tw))
+    print("grouped_matmul f32 (both layouts): within "
+          f"rtol = atol = {F32_TOL}")
+    return rec
+
+
+def tgmm_phase(cfg, params, x):
+    """The transposed grouped matmul at the train step's two shapes:
+    d_wu/d_wg = x^T d_up (reported) and d_wd = hidden^T dy."""
+    args, _, plan = ffn_inputs(cfg, params, x)
+    gid, nrow = plan.tile_gid, plan.num_rows
+    xbuf = args[0]
+    t, h, i = xbuf.shape[0], cfg.hidden_size, cfg.intermediate_size
+    e = cfg.num_experts
+    g = torch.Generator(device="cuda").manual_seed(11)
+    d_up = torch.randn(t, i, device="cuda", generator=g,
+                       dtype=torch.bfloat16)
+    hidden = torch.randn(t, i, device="cuda", generator=g,
+                         dtype=torch.bfloat16)
+    dy = torch.randn(t, h, device="cuda", generator=g, dtype=torch.bfloat16)
+    segs = expert_segments(plan, expert.ROW_TILE)
+    rows = sum(b - a for _, a, b in segs)
+    rec = None
+    for tag, (a_in, b_in) in {"d_w_up": (xbuf, d_up),
+                              "d_w_down": (hidden, dy)}.items():
+        got = expert.tgmm_cuda(a_in, b_in, gid, e, num_rows=nrow)
+        want = expert.tgmm_plain(a_in, b_in, gid, e, num_rows=nrow)
+        torch.cuda.synchronize()
+        err = check_f32(f"tgmm {tag}", got, want)
+        del got, want
+        k, n = a_in.shape[1], b_in.shape[1]
+
+        def library(a_in=a_in, b_in=b_in):
+            out = torch.empty((e, k, n), device="cuda", dtype=torch.bfloat16)
+            for ex, lo, hi in segs:
+                out[ex] = a_in[lo:hi].T @ b_in[lo:hi]
+            return out
+
+        ms = cuda_ms(lambda: expert.tgmm_cuda(a_in, b_in, gid, e,
+                                              num_rows=nrow), 10)
+        b = bound(bytes_=rows * (k + n) * 2 + e * k * n * 4,
+                  flops=2 * rows * k * n)
+        lib_ms = cuda_ms(library, 10)
+        print(f"tgmm {tag}: [{t}, {k}]^T @ [{t}, {n}] bf16 per expert -> "
+              f"f32 [{e}, {k}, {n}], live rows {rows}: max_abs_err={err:.3g} "
+              f"(rtol = atol = {F32_TOL}) ms={ms:.4f} "
+              f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}) "
+              f"library_ms={lib_ms:.4f}")
+        if rec is None:
+            rec = dict(
+                name="tgmm", route="cuda",
+                source="flashmoe_tpu_torch/csrc/tgmm.cu",
+                replaces="flashmoe_tpu/ops/expert.py:574", max_abs_err=err,
+                ms=ms, library_ms=lib_ms, plain_ms=cuda_ms(
+                    lambda: expert.tgmm_plain(a_in, b_in, gid, e,
+                                              num_rows=nrow), 3), **b)
+    # an expert that owns no row comes back exactly zero
+    sg = torch.Generator(device="cuda").manual_seed(12)
+    sx = torch.randn(192, 64, device="cuda", generator=sg)
+    sdy = torch.randn(192, 128, device="cuda", generator=sg)
+    sgid = torch.tensor([0, 0, 2], device="cuda")
+    sw = expert.tgmm_cuda(sx, sdy, sgid, 3)
+    check_f32("tgmm f32", sw, expert.tgmm_plain(sx, sdy, sgid, 3))
+    check(not bool(sw[1].any()), "tgmm: an expert with no rows gets 0")
+    print(f"tgmm f32 with an expert of no rows: within rtol = atol = "
+          f"{F32_TOL}, that expert exactly 0")
+    return rec
+
+
 # ----------------------------------------------------------------------
 # layer and model phases
 # ----------------------------------------------------------------------
@@ -346,10 +582,21 @@ def reset_counts():
         fn.launches = 0
 
 
+SERVE_KERNELS = ("gate", "grouped_ffn", "flash_attention")
+TRAIN_KERNELS = ("grouped_ffn_res", "grouped_matmul", "tgmm")
+
+
 def kernel_fns():
     return {"gate": gate.router_cuda,
             "grouped_ffn": expert.grouped_ffn_cuda,
-            "flash_attention": attention.flash_attention_cuda}
+            "flash_attention": attention.flash_attention_cuda,
+            "grouped_ffn_res": expert.grouped_ffn_res_cuda,
+            "grouped_matmul": expert.grouped_matmul_cuda,
+            "tgmm": expert.tgmm_cuda}
+
+
+def launch_counts():
+    return {k: f.launches for k, f in kernel_fns().items()}
 
 
 def capacity_phase():
@@ -361,7 +608,7 @@ def capacity_phase():
     reset_counts()
     out = moe.moe_layer(params, x, cfg)
     torch.cuda.synchronize()
-    counts = {k: f.launches for k, f in kernel_fns().items()}
+    counts = launch_counts()
     check(counts["gate"] > 0 and counts["grouped_ffn"] > 0,
           f"capacity arm launches {counts}")
     plain = moe.moe_layer(params, x, cfg, use_kernels=False)
@@ -376,7 +623,56 @@ def capacity_phase():
     layer_agreement("capacity arm vs plain", out.out, plain.out, flips)
     ms = cuda_ms(lambda: moe.moe_layer(params, x, cfg), 5)
     print(f"capacity arm layer_ms={ms:.4f}")
-    del params
+
+    # the backward: residual-saving forward, grouped matmul, tgmm (E=64)
+    def layer_grads(use_kernels):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        xx = x.detach().requires_grad_(True)
+        o = moe.moe_layer(leaves, xx, cfg, use_kernels=use_kernels)
+        loss = (o.out.float() ** 2).sum() + o.aux_loss
+        return dict(zip(["x", *leaves],
+                        torch.autograd.grad(loss, [xx, *leaves.values()])))
+
+    # a near-tie flip moves a token's whole contribution, so the plain run
+    # replays the kernel run's expert choices (its own are only counted)
+    reset_counts()
+    with RoutingLog() as rk:
+        got = layer_grads(None)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(all(counts[k] > 0 for k in ("gate", *TRAIN_KERNELS)),
+          f"capacity arm backward launches {counts}")
+    with ReplayRouting(rk.calls, cfg.expert_top_k, forward_calls=1) as rp:
+        want = layer_grads(False)
+    check(rp.n == len(rk.calls) == 1,
+          f"capacity arm backward: {len(rk.calls)} router calls with the "
+          f"kernels, {rp.n} replayed")
+    check(rp.gap <= NEAR_TIE and rp.flips <= MAX_FLIP_SHARE * cfg.tokens + 1,
+          f"capacity arm backward: {rp.flips} routing flips, largest gap "
+          f"{rp.gap} (near tie {NEAR_TIE})")
+    errs = grad_agreement("capacity arm backward", got, want)
+    print(f"capacity arm backward: d(sum(out**2) + aux) per leaf vs plain "
+          f"with the kernel run's routing replayed: "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+          + f" (normwise tol {GRAD_NORMWISE_TOL}); plain routing would have "
+          f"flipped {rp.flips} tokens, largest gap {rp.gap:.3g} (tol "
+          f"{NEAR_TIE}) launches={counts}")
+    del params, got, want
+
+
+def grad_agreement(tag, got, want) -> dict:
+    """Gradients through the kernels against the plain versions' with the
+    same routing, leaf by leaf: finite, and normwise within
+    GRAD_NORMWISE_TOL."""
+    errs = {}
+    for k, a in got.items():
+        check(a is not None and bool(torch.isfinite(a).all()),
+              f"{tag}: gradient {k} finite")
+        errs[k] = normwise(a, want[k])
+        check(errs[k] <= GRAD_NORMWISE_TOL,
+              f"{tag}: gradient {k} normwise {errs[k]}")
+    return errs
 
 
 def serve_phase(cfg, params):
@@ -391,9 +687,10 @@ def serve_phase(cfg, params):
     tokens = generate.generate(params, prompt, cfg, max_new_tokens=new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t_start
-    launches = {k: f.launches for k, f in kernel_fns().items()}
-    check(all(v > 0 for v in launches.values()),
-          f"main path launches {launches}")
+    launches = launch_counts()
+    check(all(launches[k] > 0 for k in SERVE_KERNELS)
+          and not any(launches[k] for k in TRAIN_KERNELS),
+          f"serving path launches {launches}")
     check(tokens.shape == (b, t0 + new), f"tokens shape {tokens.shape}")
     print(f"serve: mixtral_8x7b layers={cfg.num_layers} B={b} T0={t0} "
           f"new={new}: generate_s={gen_s:.3f} launches={launches}")
@@ -461,6 +758,217 @@ def serve_phase(cfg, params):
     return launches
 
 
+def train_phase():
+    """Mixtral-8x7B widths, 2 layers, bf16 weights, AdamW.  At the initial
+    weights: every gradient through the kernels against the plain
+    versions', and one SGD step lowering the loss; then three train steps
+    (the training path) and a device-time breakdown of one step."""
+    cfg = presets.mixtral_8x7b(num_layers=2, param_dtype=torch.bfloat16,
+                               is_training=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    opt = trainer.make_optimizer(cfg, warmup_steps=1, total_steps=3)
+    state = trainer.init_state(g, cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 257), device="cuda",
+                           generator=g)
+    batch = {"tokens": tokens}
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves((state.params, state.opt_state)))
+    print(f"train: mixtral_8x7b layers={cfg.num_layers} B=4 T=257 bf16 "
+          f"AdamW: weights+moments_GB={n_bytes / 1e9:.2f}")
+    train_gradients(cfg, state.params, batch)
+
+    # one SGD step on the same batch lowers the loss
+    with torch.no_grad():
+        before, _ = transformer.loss_fn(state.params, batch, cfg)
+    new, _, _ = transformer.sgd_train_step(state.params, batch, cfg,
+                                           lr=TRAIN_SGD_LR)
+    with torch.no_grad():
+        after, _ = transformer.loss_fn(new, batch, cfg)
+    del new
+    print(f"train: loss_fn {float(before):.5f} -> {float(after):.5f} after "
+          f"one sgd_train_step (lr {TRAIN_SGD_LR}) on the same batch")
+    check(float(after) < float(before), "train: SGD step did not lower "
+          "the loss")
+
+    step = trainer.make_train_step(cfg, opt)
+    losses, step_ms = [], []
+    for i in range(3):
+        if i == 0:
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = launch_counts()
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]), f"train step {i}: loss {m['loss']}")
+    check(all(launches[k] > 0 for k in ("gate", *TRAIN_KERNELS))
+          and launches["grouped_ffn"] == 0
+          and launches["flash_attention"] == 0,
+          f"training path launches {launches}")
+    print(f"train: losses={[round(x, 5) for x in losses]} "
+          f"train_step_ms={[round(x, 3) for x in step_ms]} ({gpu_line()}) "
+          f"launches_per_step={launches} attention=plain "
+          f"(flash_attention_cuda launches 0 under autograd: the kernel has "
+          f"no backward)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train: peak_memory_GB={peak:.2f} (since the start of the run)")
+    step_dev = device_breakdown("train_step", lambda: step(state, batch),
+                                top_n=12)[0]
+    optimizer_share(cfg, opt, state, batch, step_dev)
+    return launches
+
+
+def optimizer_share(cfg, opt, state, batch, step_device_ms):
+    """The step's two parts by themselves, each against the whole step's
+    device time: the optimizer (``opt.update`` + ``apply_updates`` on the
+    train state and one step's gradients: CUDA-event time, device time and
+    kernel launches) and ``value_and_grad`` (forward, remat and backward)."""
+    _, _, grads = transformer.value_and_grad(state.params, batch, cfg)
+
+    def update():
+        updates, _ = opt.update(grads, state.opt_state, state.params)
+        return trainer.apply_updates(state.params, updates)
+
+    ms = cuda_ms(update, 3)
+    opt_dev, n_opt = device_breakdown("optimizer_update", update, top_n=4)
+    del grads
+    grad_dev, n_grad = device_breakdown(
+        "value_and_grad",
+        lambda: transformer.value_and_grad(state.params, batch, cfg),
+        top_n=8)
+    if not (step_device_ms and opt_dev and grad_dev):
+        print("train: optimizer share not measured (the profiler recorded "
+              "no device time)")
+        return
+    print(f"train: optimizer update+apply_updates ms={ms:.3f} (CUDA events) "
+          f"device_ms={opt_dev:.3f} kernels={n_opt} "
+          f"({opt_dev / step_device_ms:.1%} of the step's device_ms="
+          f"{step_device_ms:.3f}); value_and_grad device_ms={grad_dev:.3f} "
+          f"kernels={n_grad} ({grad_dev / step_device_ms:.1%}) "
+          f"({gpu_line()})")
+
+
+def train_gradients(cfg, params, batch):
+    """Every gradient leaf through the kernels: present, finite, non-zero
+    where the loss reaches, and within GRAD_NORMWISE_TOL of the plain
+    versions' with the same routing.  Layer 1's input differs between the
+    two runs by bf16 rounding, so its routing may flip at near ties, and a
+    flipped token's whole gradient changes; the plain run therefore
+    replays the kernel run's expert choices (its own are only counted)."""
+    with RoutingLog() as rk:
+        _, _, gk = transformer.value_and_grad(params, batch, cfg)
+    with ReplayRouting(rk.calls, cfg.expert_top_k,
+                       len(cfg.moe_layer_indices)) as rp:
+        _, _, gp = transformer.value_and_grad(params, batch, cfg,
+                                              use_kernels=False)
+    torch.cuda.synchronize()
+    check(rp.n == len(rk.calls), f"train: {len(rk.calls)} router calls "
+          f"with the kernels, {rp.n} replayed")
+    check(rp.gap <= SERVE_NEAR_TIE,
+          f"train: a routing flip between kernels and plain is no near tie "
+          f"(probability gap {rp.gap})")
+    flips, gap = rp.flips, rp.gap
+    names = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for key, v in tree.items():
+                walk(v, f"{path}.{key}" if path else key)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{path}[{i}]")
+        else:
+            names.append(path)
+
+    walk(params, "")
+    got = dict(zip(names, tree_leaves(gk)))
+    want = dict(zip(names, tree_leaves(gp)))
+    reached = ["embed", "lm_head", "final_norm"] + [
+        f"layers[{li}].{leaf}" for li in range(cfg.num_layers)
+        for leaf in ("wq", "wk", "wv", "wo", "attn_norm", "ffn_norm",
+                     "moe.gate_w", "moe.w_gate", "moe.w_up", "moe.w_down")]
+    for name in reached:
+        check(float(got[name].float().abs().max()) > 0,
+              f"train: gradient {name} is zero")
+    errs = grad_agreement("train gradients", got, want)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
+    print(f"train: {len(errs)} gradient leaves present and finite, "
+          f"{len(reached)} checked non-zero; vs plain versions with the "
+          f"kernels' routing replayed, normwise max "
+          + " ".join(f"{name}={v:.3g}" for name, v in worst)
+          + f" (tol {GRAD_NORMWISE_TOL}); plain routing would have flipped "
+          f"{flips} (layer, token) choices, largest gap {gap:.3g} "
+          f"(tol {SERVE_NEAR_TIE})")
+
+
+class ReplayRouting:
+    """While active, ``moe_layer``'s router is the plain one made to route
+    as recorded calls did (``RoutingLog.calls``), call by call, so that a
+    plain run differentiates the same function as the kernel run:
+
+    - forward: the plain router's probabilities, combine weights and losses
+      at the recorded expert ids;
+    - backward: through the plain router's own ids on the recorded call's
+      input (the top-k of its recorded probabilities), which is what the
+      kernel's ``_RouterAD`` back-propagates through (it recomputes
+      ``router_plain``, whose top-k may differ from the kernel's at a near
+      tie).
+
+    Over the first ``forward_calls`` calls (one per MoE layer; the remat's
+    recompute repeats them) it counts the (layer, token) choices where this
+    run's own top-k differs from the replayed ids (``flips``) and the
+    largest gap of its k-th and (k+1)-th probabilities there (``gap``)."""
+
+    def __init__(self, calls, k, forward_calls):
+        self.calls = calls
+        self.k = k
+        self.forward_calls = forward_calls
+
+    def __enter__(self):
+        self.n, self.flips, self.gap, self._router = 0, 0, 0.0, moe.router
+
+        def replayed(x, gate_w, cfg, use_kernels=None):
+            ids, rec_probs = self.calls[self.n]
+            back_ids = reference.top_k_lowest_index(rec_probs, self.k)[1]
+            self.n += 1
+            logits = reference.dot_f32(x, gate_w)
+            probs = torch.softmax(logits, -1)
+            own = reference.top_k_lowest_index(probs, self.k)[1]
+            diff = (own.sort(-1).values != ids.sort(-1).values).any(-1)
+            if self.n <= self.forward_calls and bool(diff.any()):
+                top = probs.detach()[diff].sort(-1, descending=True).values
+                self.gap = max(self.gap, float(
+                    (top[:, self.k - 1] - top[:, self.k]).max()))
+                self.flips += int(diff.sum())
+            zsum = torch.sum(torch.square(torch.logsumexp(logits, -1)))
+
+            def at(i):
+                counts = torch.bincount(i.reshape(-1),
+                                        minlength=cfg.num_experts)
+                return gate._finish(cfg, probs.gather(-1, i), i,
+                                    probs.sum(0), counts, zsum, x.shape[0])
+
+            fwd, back = at(ids), at(back_ids)
+
+            def value_of_fwd_grad_of_back(f, b):
+                return b + (f - b).detach()
+
+            return fwd._replace(
+                combine_weights=value_of_fwd_grad_of_back(
+                    fwd.combine_weights, back.combine_weights),
+                aux_loss=value_of_fwd_grad_of_back(fwd.aux_loss,
+                                                   back.aux_loss))
+
+        moe.router = replayed
+        return self
+
+    def __exit__(self, *exc):
+        moe.router = self._router
+
+
 class RoutingLog:
     """While active, records every gate call that ``moe_layer`` makes:
     the top-k ids and the softmax probabilities of its tokens."""
@@ -471,7 +979,7 @@ class RoutingLog:
         def recorded(x, gate_w, cfg, use_kernels=None):
             out = self._router(x, gate_w, cfg, use_kernels=use_kernels)
             probs = torch.softmax(reference.dot_f32(x, gate_w), -1)
-            self.calls.append((out.expert_idx, probs))
+            self.calls.append((out.expert_idx, probs.detach()))
             return out
 
         moe.router = recorded
@@ -523,8 +1031,6 @@ def profile_breakdown(cfg, params, prompt, tokens):
     """Where the serving time goes: host-clock time of a prefill and of a
     decode step (each ended by a synchronize), and the device time by
     kernel from torch.profiler over both."""
-    from torch.profiler import ProfilerActivity, profile
-
     b, t0 = prompt.shape
     embed = params["embed"].to(cfg.dtype)
     tok = embed[tokens[:, t0]][:, None, :]
@@ -545,25 +1051,50 @@ def profile_breakdown(cfg, params, prompt, tokens):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3
     print(f"serve: prefill_ms={prefill_ms:.3f} decode_step_ms={decode_ms:.3f}")
-    for tag, fn in (("prefill", prefill),
-                    ("decode_step", lambda: generate._decode_step(
-                        params, cfg, tok, cache, t0))):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.self_device_time_total > 0]
-        total = sum(r[1] for r in rows)
-        if not rows:
-            print(f"profile {tag}: device time not measured (the profiler "
-                  f"recorded none)")
-            continue
-        rows.sort(key=lambda r: -r[1])
-        top = "; ".join(f"{k[:48]} x{c} {ms:.3f}ms ({ms / total:.0%})"
-                        for k, ms, c in rows[:8])
-        print(f"profile {tag}: device_ms={total:.3f}: {top}")
+    device_breakdown("prefill", prefill)
+    device_breakdown("decode_step", lambda: generate._decode_step(
+        params, cfg, tok, cache, t0))
+
+
+def device_breakdown(tag, fn, top_n=8):
+    """Device time by kernel of one call of ``fn``, from torch.profiler.
+    Only the kernels' own rows count: an operator's row repeats the time
+    of the kernels it launched.  Returns (device ms, kernel launches), or
+    (None, 0) when the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(r[1] for r in rows)
+    if not rows:
+        print(f"profile {tag}: device time not measured (the profiler "
+              f"recorded none)")
+        return None, 0
+    rows.sort(key=lambda r: -r[1])
+    launches = sum(r[2] for r in rows)
+    top = "; ".join(f"{k[:48]} x{c} {ms:.3f}ms ({ms / total:.0%})"
+                    for k, ms, c in rows[:top_n])
+    print(f"profile {tag}: device_ms={total:.3f} kernels={launches}: {top}")
+    classes = {}
+    for k, ms, _ in rows:
+        name = ("port kernels" if "fm::" in k else
+                "library GEMMs" if any(w in k.lower() for w in (
+                    "gemm", "cutlass", "xmma", "nvjet", "cublas")) else
+                "elementwise" if any(w in k for w in (
+                    "elementwise", "vectorized", "unrolled")) else
+                "reductions" if "reduce" in k.lower() else "other")
+        classes[name] = classes.get(name, 0.0) + ms
+    print(f"profile {tag} by class: " + "; ".join(
+        f"{n} {ms:.3f}ms ({ms / total:.0%})"
+        for n, ms in sorted(classes.items(), key=lambda kv: -kv[1])))
+    return total, launches
 
 
 def main() -> int:
@@ -582,7 +1113,7 @@ def main() -> int:
     cfg = presets.mixtral_8x7b(num_layers=4, param_dtype=torch.bfloat16)
     g = torch.Generator(device="cuda").manual_seed(0)
     params = transformer.init_params(g, cfg, device="cuda")
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     print(f"mixtral_8x7b layers={cfg.num_layers}: "
           f"weights_GB={n_bytes / 1e9:.2f}")
 
@@ -590,9 +1121,15 @@ def main() -> int:
     x = torch.randn(1024, cfg.hidden_size, device="cuda", generator=g,
                     dtype=torch.bfloat16)
     entries = [gate_phase(cfg, x, moe0["gate_w"]),
-               ffn_phase(cfg, moe0, x), flash_phase()]
+               ffn_phase(cfg, moe0, x), flash_phase(),
+               res_phase(cfg, moe0, x), gmm_phase(cfg, moe0, x),
+               tgmm_phase(cfg, moe0, x)]
     capacity_phase()
     launches = serve_phase(cfg, params)
+    del params, moe0, x
+    torch.cuda.empty_cache()
+    train_launches = train_phase()
+    launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
 
     kernels = [dict(e, launches=launches[e["name"]]) for e in entries]
     print(json.dumps({"kernels": kernels}))
@@ -600,17 +1137,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

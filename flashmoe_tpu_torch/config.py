@@ -3,10 +3,11 @@
 Counterpart of ``flashmoe_tpu/config.py:69-560``.  That ``MoEConfig``
 imports ``jax.numpy`` for its dtype fields, so the port keeps its own
 frozen dataclass with torch dtypes.  It carries only the fields that the
-ported slice reads (one device, inference, both MoE arms, the
-transformer and greedy generation) and validates them with the same
-errors.  Knobs of later slices are absent, and a parallel axis above 1
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+ported slices read (one device, both MoE arms, the transformer, greedy
+generation and training) and validates them with the same errors.  Knobs
+of later slices are absent (among them ``expert_quant``, whose refusal
+with ``is_training`` comes with it), and a parallel axis above 1 raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -101,10 +102,6 @@ class MoEConfig:
                 raise NotImplementedError(
                     f"{axis}={getattr(self, axis)}: the PyTorch port runs on "
                     f"one device; {axis} > 1 waits for ROADMAP {item}")
-        if self.is_training:
-            raise NotImplementedError(
-                "is_training=True: the PyTorch port is inference-only; "
-                "training waits for ROADMAP A.6 (training backward)")
 
     @property
     def tokens(self) -> int:

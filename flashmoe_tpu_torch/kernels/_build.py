@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``.cu`` source under ``flashmoe_tpu_torch/csrc/`` is compiled by one
-``nvcc`` call for ``sm_90a`` into a shared library with a plain C
-interface, loaded with ``ctypes``.  The build happens at first use, into
+Every ``.cu`` source under ``flashmoe_tpu_torch/csrc/`` is compiled for
+``sm_90a`` by its own ``nvcc -c``, all started together, and one more
+``nvcc`` links the objects into a shared library with a plain C interface,
+loaded with ``ctypes``.  The build happens at first use, into
 ``flashmoe_tpu_torch/kernels/build/<hash>/`` (ignored by git), keyed by a
 hash of the sources and flags, so a fresh checkout builds its kernels the
 first time a CUDA tensor asks for one.  A missing or failing ``nvcc``
@@ -30,7 +31,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build")
 LIB_NAME = "libflashmoe_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -43,6 +44,15 @@ SIGNATURES = {
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
     # w_gate, b_up, w_down, b_down, hidden, out, T, H, I, stream
     "fm_grouped_ffn": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, I, I, I, P],
+    # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
+    # w_gate, b_up, w_down, b_down, u, g, hidden, out, T, H, I, stream
+    "fm_grouped_ffn_res": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, I,
+                           I, I, P],
+    # dtype_is_bf16, transpose_w, out_f32, x, tile_gid, block_m, num_rows,
+    # w, out, T, K, N, stream
+    "fm_grouped_matmul": [I, I, I, P, P, I, P, P, P, I, I, I, P],
+    # dtype_is_bf16, x, dy, row_start, row_end, dw, E, K, N, stream
+    "fm_tgmm": [I, P, P, P, P, P, I, I, I, P],
     # dtype_is_bf16, q, k, v, o, B, N, NKV, T, D, scale, causal, stream
     "fm_flash_attention": [I, P, P, P, P, I, I, I, I, I, ctypes.c_float, I,
                            P],
@@ -82,20 +92,41 @@ def build() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    # build under a private name, then rename: a concurrent builder
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
+    # build in a private directory, then rename the library into place: a
+    # concurrent build never loads a half-written one
+    work = tempfile.mkdtemp(dir=out_dir)
+    objs, procs = [], []
+    try:
+        nvcc = _nvcc()
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, proc in procs:
+            _finish(cmd, proc)
+        tmp = os.path.join(work, LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+        os.replace(tmp, lib)
+    finally:
+        for _, proc in procs:  # after a failure, stop the other compiles
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
     return lib
+
+
+def _finish(cmd: list[str], proc: subprocess.Popen) -> None:
+    """Wait for one nvcc; raise with its output if it failed."""
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}\n{err}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,6 +162,21 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when ``name`` is called with grad enabled on an input that
+    requires grad: a kernel's output carries no ``grad_fn``, so the
+    gradient would be cut without a word.  Under autograd the kernels are
+    reached through their ``torch.autograd.Function``s (``grouped_ffn_ad``,
+    ``router``), whose forward and backward run with grad disabled."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: called under autograd on an input that requires "
+            f"grad; the kernel's output would carry no gradient.  "
+            f"Differentiate through grouped_ffn_ad / router, or call it "
+            f"under torch.no_grad()")
 
 
 def use_kernels_for(t: torch.Tensor, use_kernels: bool | None) -> bool:

@@ -1,13 +1,15 @@
-"""The MoE transformer, inference only.
+"""The MoE transformer: forward, loss and a plain SGD step.
 
-Counterpart of ``flashmoe_tpu/models/transformer.py:44-276``: pre-norm
+Counterpart of ``flashmoe_tpu/models/transformer.py:44-317``: pre-norm
 blocks with RoPE (half-split) and GQA attention, an MoE FFN on every
 ``moe_frequency``-th layer (a dense FFN elsewhere), final RMS norm and an
-lm head whose logits are f32.  Parameters are nested dicts of tensors in
-the JAX layout.  One device: the config refuses the mesh axes, and there
-is no remat and no expert-parallel branch.  Causal self-attention runs the
-flash kernel on CUDA tensors and the MoE layers run the gate and grouped
-FFN kernels.
+lm head whose logits are f32; next-token cross-entropy plus the MoE
+losses.  Parameters are nested dicts of tensors in the JAX layout.  One
+device: the config refuses the mesh axes, and there is no expert-parallel
+branch.  With ``cfg.is_training`` every block is rematerialised in the
+backward.  Causal self-attention runs the flash kernel on CUDA tensors
+(outside autograd) and the MoE layers run the gate and grouped FFN
+kernels, forward and backward.
 """
 
 from __future__ import annotations
@@ -15,12 +17,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import dot_f32, init_moe_params
 from flashmoe_tpu_torch.ops.attention import flash_attention
 from flashmoe_tpu_torch.ops.moe import moe_layer
+from flashmoe_tpu_torch.tree import tree_leaves, tree_map
 
 
 def init_params(generator: torch.Generator, cfg: MoEConfig,
@@ -111,7 +115,13 @@ def qkv(layer, x, cfg: MoEConfig, positions):
 
 def attention(layer, x, cfg: MoEConfig, positions=None,
               use_kernels: bool | None = None):
-    """Causal self-attention with RoPE and GQA.  x: [B, T, H]."""
+    """Causal self-attention with RoPE and GQA.  x: [B, T, H].
+
+    The flash kernel runs on CUDA tensors outside autograd.  With grad
+    enabled and an input of the attention requiring grad (a training step)
+    the plain version runs instead, differentiated by torch: the kernel
+    has no backward, as the JAX package's has none
+    (:func:`flashmoe_tpu_torch.ops.attention.flash_attention`)."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
@@ -147,11 +157,72 @@ def lm_head(params, cfg: MoEConfig, x):
 
 
 def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None):
-    """tokens: [B, T] int -> (logits [B, T, V] f32, summed MoE losses)."""
+    """tokens: [B, T] int -> (logits [B, T, V] f32, summed MoE losses).
+
+    With ``cfg.is_training`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are not
+    kept, and the backward recomputes the block, the counterpart of
+    ``jax.checkpoint(block, policy=nothing_saveable)``.  The recompute
+    reruns the gate and the grouped FFN's forward; the gate kernel's
+    block-ordered sums give it the same routing."""
     uk = _build.use_kernels_for(tokens, use_kernels)
     x = params["embed"].to(cfg.dtype)[tokens]
     total_aux = torch.zeros((), dtype=cfg.accum_dtype, device=x.device)
     for li, layer in enumerate(params["layers"]):
-        x, moe_loss = block(layer, x, cfg, li, use_kernels=uk)
+        if cfg.is_training:
+            # the block draws no random numbers: no RNG state to replay
+            x, moe_loss = torch.utils.checkpoint.checkpoint(
+                block, layer, x, cfg, li, uk, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, moe_loss = block(layer, x, cfg, li, use_kernels=uk)
         total_aux = total_aux + moe_loss
     return lm_head(params, cfg, x), total_aux
+
+
+def loss_fn(params, batch, cfg: MoEConfig, use_kernels: bool | None = None):
+    """Next-token cross-entropy + MoE aux losses.
+
+    batch: dict with "tokens" [B, T] (inputs are tokens[:, :-1], targets
+    tokens[:, 1:]) and optionally "mask" [B, T - 1] weighting each target.
+    Returns ``(loss, {"ce": ce, "aux": aux})``."""
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = forward(params, inp, cfg, use_kernels)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def value_and_grad(params, batch, cfg: MoEConfig,
+                   use_kernels: bool | None = None):
+    """``(loss, metrics, grads)`` of :func:`loss_fn`: grads in the nesting
+    of ``params``, one tensor for every floating-point leaf, None for the
+    others.  A leaf the loss does not reach (a dense layer's ``gate_w``)
+    gets zeros, as ``jax.grad`` gives it."""
+    leaves = tree_map(
+        lambda p: p.detach().requires_grad_(True)
+        if p.is_floating_point() else p, params)
+    wrt = [p for p in tree_leaves(leaves) if p.requires_grad]
+    loss, metrics = loss_fn(leaves, batch, cfg, use_kernels)
+    flat = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                    materialize_grads=True))
+    grads = tree_map(lambda p: next(flat) if p.requires_grad else None,
+                     leaves)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def sgd_train_step(params, batch, cfg: MoEConfig, lr: float = 1e-3,
+                   use_kernels: bool | None = None):
+    """Minimal train step (plain SGD); the full optimizer path lives in
+    :mod:`flashmoe_tpu_torch.runtime.trainer`.  Returns ``(params, loss,
+    metrics)``."""
+    loss, metrics, grads = value_and_grad(params, batch, cfg, use_kernels)
+    params = tree_map(
+        lambda p, g: (p - lr * g.to(p.dtype)).to(p.dtype)
+        if g is not None else p, params, grads)
+    return params, loss, metrics

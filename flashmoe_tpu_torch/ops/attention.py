@@ -70,6 +70,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda takes bf16 or f32 q/k/v of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _build.refuse_autograd("flash_attention_cuda", q, k, v)
     _build.require_cuda("flash_attention_cuda", q, k, v)
     o = torch.empty_like(q)
     lib = _build.library()
@@ -90,7 +91,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     use_kernels: bool | None = None):
     """Blockwise attention, q: [B, N, T, D], k/v: [B, NKV, T, D].  The
     kernel on CUDA tensors, the plain version on CPU ones (or with
-    ``use_kernels=False``)."""
-    fn = flash_attention_cuda if _build.use_kernels_for(q, use_kernels) \
-        else flash_attention_plain
+    ``use_kernels=False``).
+
+    Under autograd (grad enabled and q, k or v requiring grad) the plain
+    version runs, differentiated by torch: the kernel has no backward, as
+    the JAX package's ``_flash_kernel`` has none."""
+    uk = _build.use_kernels_for(q, use_kernels) and not (
+        torch.is_grad_enabled()
+        and any(t.requires_grad for t in (q, k, v)))
+    fn = flash_attention_cuda if uk else flash_attention_plain
     return fn(q, k, v, causal=causal)

@@ -10,6 +10,11 @@ function:
 
 The JAX package's two-pass expert-tiled gate (``_gate_pass1_kernel`` /
 ``_gate_pass2_kernel``) is not ported yet: E above 256 raises on CUDA.
+
+:func:`router` reaches the kernel through a ``torch.autograd.Function``
+(the counterpart of ``_router_pallas_ad``): its backward recomputes
+:func:`router_plain` under autograd and back-propagates the cotangents
+through it, as the kernel has no backward of its own.
 """
 
 from __future__ import annotations
@@ -101,6 +106,7 @@ def router_cuda(x, gate_w, cfg: MoEConfig) -> RouterOutput:
     if h % 32 or s < 1:
         raise ValueError(f"router_cuda needs S >= 1 and H % 32 == 0, got "
                          f"S={s}, H={h}")
+    _build.refuse_autograd("router_cuda", x, gate_w)
     dt = x.dtype if x.dtype == gate_w.dtype else torch.float32
     x = x.to(dt).contiguous()
     gate_w = gate_w.to(dt).contiguous()
@@ -139,10 +145,43 @@ def apply_replicas(out: RouterOutput, cfg: MoEConfig) -> RouterOutput:
     return out
 
 
+class _RouterAD(torch.autograd.Function):
+    """Forward: the gate kernel.  Backward: :func:`router_plain` recomputed
+    under autograd on the saved inputs, the cotangents pulled back through
+    it.  The ids and counts are integers and carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gate_w, cfg):
+        out = router_cuda(x, gate_w, cfg)
+        ctx.save_for_backward(x, gate_w)
+        ctx.cfg = cfg
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(out.expert_idx, out.expert_counts)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        x, gate_w = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(True)
+            ws = gate_w.detach().requires_grad_(True)
+            outs, grads = [], []
+            for o, ct in zip(router_plain(xs, ws, ctx.cfg), cts):
+                if ct is not None and o.requires_grad:
+                    outs.append(o)
+                    grads.append(ct)
+            dx, dw = torch.autograd.grad(outs, (xs, ws), grads,
+                                         allow_unused=True)
+        return dx, dw, None
+
+
 def router(x, gate_w, cfg: MoEConfig, use_kernels: bool | None = None
            ) -> RouterOutput:
-    """The gate kernel on CUDA tensors, the plain version on CPU ones (or
-    when ``use_kernels=False``)."""
-    fn = router_cuda if _build.use_kernels_for(x, use_kernels) \
-        else router_plain
-    return apply_replicas(fn(x, gate_w, cfg), cfg)
+    """The gate kernel on CUDA tensors, differentiable through
+    ``_RouterAD``; the plain version on CPU ones (or when
+    ``use_kernels=False``)."""
+    if _build.use_kernels_for(x, use_kernels):
+        out = RouterOutput(*_RouterAD.apply(x, gate_w, cfg))
+    else:
+        out = router_plain(x, gate_w, cfg)
+    return apply_replicas(out, cfg)

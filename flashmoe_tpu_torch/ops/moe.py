@@ -9,7 +9,11 @@ layer has with ``use_pallas=True``:
   renormalizing combine that zeroes dropped slots.
 
 E == 1 takes the dense FFN.  The gate and the grouped FFN run their CUDA
-kernels on CUDA tensors and their plain versions on CPU tensors.
+kernels on CUDA tensors and their plain versions on CPU tensors.  Both
+arms are differentiable: the gate through its recompute backward
+(``ops/gate.py``), the grouped FFN through :func:`grouped_ffn_ad` /
+:func:`capacity_buffer_ffn_ad` (residual-saving forward, grouped-matmul
+backward), and the plans, gathers and combines through torch autograd.
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ def moe_layer(params, x, cfg: MoEConfig, *, use_kernels: bool | None = None
         bm = exp.ROW_TILE
         plan = rag.make_ragged_plan(r.expert_idx, cfg, bm)
         xbuf = rag.ragged_dispatch(xs, plan, cfg, bm)
-        ybuf = exp.grouped_ffn(
+        ybuf = exp.grouped_ffn_ad(
             xbuf, plan.tile_gid, params["w_up"].to(dt), params["b_up"],
             params["w_down"].to(dt), params["b_down"],
             params["w_gate"].to(dt) if cfg.gated_ffn else None,
@@ -83,7 +87,8 @@ def moe_layer(params, x, cfg: MoEConfig, *, use_kernels: bool | None = None
         cap = cfg.capacity_for(x.shape[0])
         plan = dsp.make_plan(r.expert_idx, cfg, cap)
         xbuf = dsp.dispatch(xs, plan, cfg, cap)
-        ybuf = exp.capacity_buffer_ffn(xbuf, params, cfg, use_kernels=uk)
+        ybuf = exp.capacity_buffer_ffn_ad(xbuf, params, cfg,
+                                          use_kernels=uk)
         out = dsp.combine(ybuf, plan, r.combine_weights, cfg, cap)
     if cfg.num_shared_experts:
         out = out + shared_expert_ffn(xs, params, cfg)

@@ -108,3 +108,120 @@ def test_moe_layer_kernels_match_plain(gen, drop):
     want = moe_layer(p, x, cfg, use_kernels=False)
     assert _normwise(got.out, want.out) <= BF16_TOL
     assert torch.equal(got.expert_counts, want.expert_counts)
+
+
+def _ragged_rows(gen, dtype, e, rows, h):
+    """Expert-sorted rows of a ragged plan (expert 1 routed nothing),
+    with its tile ids and live-row count."""
+    cfg = MoEConfig(num_experts=e, expert_top_k=2, hidden_size=h,
+                    drop_tokens=False, dtype=dtype)
+    ids = torch.randint(0, e, (rows, 2), device="cuda", generator=gen)
+    ids[ids == 1] = 0
+    plan = ragged.make_ragged_plan(ids, cfg, expert.ROW_TILE)
+    x = torch.randn(rows, h, device="cuda", generator=gen, dtype=dtype)
+    return ragged.ragged_dispatch(x, plan, cfg, expert.ROW_TILE), plan
+
+
+@pytest.mark.parametrize("dtype,gated,act", [(torch.bfloat16, True, "silu"),
+                                             (torch.float32, False, "gelu")],
+                         ids=["bf16_swiglu", "f32_gelu"])
+def test_grouped_ffn_res_kernel_matches_plain(gen, dtype, gated, act):
+    """y, u and g against the plain version; the ragged tail is zero."""
+    e, h, i = 4, 128, 192
+    xbuf, plan = _ragged_rows(gen, dtype, e, 70, h)
+    w = lambda *s: (torch.randn(*s, device="cuda", generator=gen)
+                    / s[-2] ** 0.5).to(dtype)
+    args = (xbuf, plan.tile_gid, w(e, h, i),
+            torch.randn(e, i, device="cuda", generator=gen), w(e, i, h),
+            torch.randn(e, h, device="cuda", generator=gen),
+            w(e, h, i) if gated else None)
+    kw = dict(act_name=act, gated=gated, block_m=expert.ROW_TILE,
+              num_rows=plan.num_rows)
+    got = expert.grouped_ffn_res_cuda(*args, **kw)
+    want = expert.grouped_ffn_res_plain(*args, **kw)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+    live = int(plan.num_rows)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _normwise(a, b) <= tol
+            assert not a[live:].any()
+
+
+@pytest.mark.parametrize("dtype,transpose_w", [
+    (torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, True),
+    (torch.float32, False)], ids=["bf16_wT", "bf16_w", "f32_wT", "f32_w"])
+def test_grouped_matmul_kernel_matches_plain(gen, dtype, transpose_w):
+    e, k, n = 4, 192, 128
+    xbuf, plan = _ragged_rows(gen, dtype, e, 70, k)
+    w = torch.randn(*((e, n, k) if transpose_w else (e, k, n)),
+                    device="cuda", generator=gen).to(dtype)
+    for out_dtype in (torch.float32, dtype):
+        kw = dict(transpose_w=transpose_w, out_dtype=out_dtype,
+                  num_rows=plan.num_rows)
+        got = expert.grouped_matmul_cuda(xbuf, plan.tile_gid, w, **kw)
+        want = expert.grouped_matmul_plain(xbuf, plan.tile_gid, w, **kw)
+        assert got.dtype == out_dtype
+        tol = 1e-5 if out_dtype == torch.float32 else BF16_TOL
+        assert _normwise(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_tgmm_kernel_matches_plain(gen, dtype):
+    """f32 dW against the plain version; the expert with no rows gets
+    exactly 0 (the kernel writes it), the padded tail adds nothing."""
+    e = 4
+    xbuf, plan = _ragged_rows(gen, dtype, e, 70, 128)
+    dy = torch.randn(xbuf.shape[0], 192, device="cuda", generator=gen,
+                     dtype=dtype)
+    got = expert.tgmm_cuda(xbuf, dy, plan.tile_gid, e,
+                           num_rows=plan.num_rows)
+    want = expert.tgmm_plain(xbuf, dy, plan.tile_gid, e,
+                             num_rows=plan.num_rows)
+    assert got.dtype == torch.float32
+    assert _normwise(got, want) <= 1e-5
+    assert torch.isfinite(got).all() and not got[1].any()
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["dropless", "capacity"])
+def test_moe_layer_grads_kernels_match_plain(gen, drop):
+    """Every gradient of sum(out**2) + aux through the kernels (gate, B6,
+    B7, B8) against the same layer on the plain versions."""
+    cfg = MoEConfig(num_experts=8, expert_top_k=2, hidden_size=128,
+                    intermediate_size=128, gated_ffn=not drop,
+                    hidden_act="silu" if not drop else "gelu",
+                    drop_tokens=drop, capacity_factor=1.0,
+                    dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    p = init_moe_params(gen, cfg, device="cuda")
+    x = torch.randn(96, 128, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+
+    def grads(use_kernels):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xx = x.detach().requires_grad_(True)
+        o = moe_layer(leaves, xx, cfg, use_kernels=use_kernels)
+        loss = (o.out.float() ** 2).sum() + o.aux_loss
+        return torch.autograd.grad(loss, [xx, *leaves.values()])
+
+    before = (expert.grouped_ffn_res_cuda.launches,
+              expert.grouped_matmul_cuda.launches, expert.tgmm_cuda.launches)
+    got = grads(None)
+    after = (expert.grouped_ffn_res_cuda.launches,
+             expert.grouped_matmul_cuda.launches, expert.tgmm_cuda.launches)
+    assert all(b > a for a, b in zip(before, after))
+    want = grads(False)
+    for name, a, b in zip(["x", *p], got, want):
+        assert torch.isfinite(a).all(), name
+        assert _normwise(a, b) <= 2 * BF16_TOL, name
+
+
+def test_kernel_wrappers_refuse_autograd_on_cuda(gen):
+    x = torch.randn(64, 64, device="cuda", generator=gen,
+                    requires_grad=True)
+    w = torch.randn(1, 64, 64, device="cuda", generator=gen)
+    gid = torch.zeros(1, dtype=torch.long, device="cuda")
+    with pytest.raises(RuntimeError, match="autograd"):
+        expert.grouped_matmul_cuda(x, gid, w)
+    with torch.no_grad():
+        assert expert.grouped_matmul_cuda(x, gid, w).shape == (64, 64)

@@ -255,8 +255,7 @@ def test_config_validation_matches_jax(kw):
 
 
 def test_config_refuses_unported_knobs_and_matches_capacity():
-    for kw in (dict(ep=2), dict(tp=2), dict(sp=2), dict(pp=2),
-               dict(is_training=True)):
+    for kw in (dict(ep=2), dict(tp=2), dict(sp=2), dict(pp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TorchConfig(**kw)
     for s in (1, 4, 100, 8192):
