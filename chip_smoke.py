@@ -10,18 +10,30 @@ Phases, each of which fails the run on any error:
    at the shapes its path gives it (plus a small f32 case), and time the
    kernel, the plain version and one PyTorch library call computing the
    same function: the gate, grouped FFN and flash attention of serving,
-   and the residual-saving FFN, grouped matmul and transposed grouped
-   matmul of the training step;
+   the residual-saving FFN, grouped matmul and transposed grouped matmul
+   of the training step, the two-pass gate's passes at the many-expert
+   layer's widths (with pass 2 and without; f32 and K = 64 cases too),
+   and the gather-fused FFN at Mixtral prefill (also against the grouped
+   FFN on the dispatched buffer);
 3. capacity arm: one MoE layer of the FlashMoE reference config (E=64,
    top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain,
-   forward and the gradients of ``sum(out**2) + aux``;
+   forward (explicit dispatch and gather-fused) and the gradients of
+   ``sum(out**2) + aux``;
 4. serve: Mixtral-8x7B at its published widths with 4 of its 32 layers
    and random bf16 weights: 4 prompts of 256 tokens, 16 greedy tokens
    through ``generate`` (the serving path: counts reset before, read
-   after); every step's logits against ``forward`` over the whole
-   sequence, and every prefill MoE layer against the dense oracle
-   ``reference_moe``;
-5. train: Mixtral-8x7B's widths with 2 layers, bf16 weights and AdamW:
+   after), with the explicit dispatch and again gather-fused (the same
+   tokens but at a near-tie routing flip); every step's logits against
+   ``forward`` over the whole sequence, and every prefill MoE layer
+   against the dense oracle ``reference_moe``;
+5. many-expert layer: one MoE layer at Qwen3-Next-80B-A3B's MoE widths
+   (E 512, top-10, H 2048, I 512, one shared expert, 8192 tokens, bf16):
+   inference with the gather-fused FFN off, on, and on with
+   ``collect_stats`` (the many-expert path: counts reset before each,
+   read after), each against the plain versions and ``reference_moe``,
+   the stats against the plain run's; then forward and backward in
+   training against a plain run replaying its routing;
+6. train: Mixtral-8x7B's widths with 2 layers, bf16 weights and AdamW:
    three ``make_train_step`` steps on 4 x 257 tokens (the training path:
    counts reset before the first step, read after it); every gradient
    against the plain versions', the loss lower after one SGD step, and the
@@ -57,9 +69,10 @@ from flashmoe_tpu_torch.runtime import trainer  # noqa: E402
 from flashmoe_tpu_torch.tree import tree_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
-# tensor-core FLOP/s
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 # bf16 kernels against f32 plain versions: normwise relative error
 # (||kernel - plain|| / ||plain||).  Outputs are rounded to bf16 (2^-8 =
 # 3.9e-3 relative per element) and the f32 sums run in another order, so
@@ -223,8 +236,8 @@ def gate_phase(cfg, x, w):
                     flops=2 * s * h * e))
 
 
-def bound(bytes_: float, flops: float) -> dict:
-    tb, tf = bytes_ / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+def bound(bytes_: float, flops: float, peak: float = BF16_FLOPS) -> dict:
+    tb, tf = bytes_ / HBM_BPS * 1e3, flops / peak * 1e3
     return {"bound_ms": max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
 
@@ -553,6 +566,195 @@ def tgmm_phase(cfg, params, x):
     return rec
 
 
+def check_tiled_gate(tag, x, w, cfg, need_stats):
+    """The two-pass gate's kernels (``router_tiled_cuda``) against their
+    plain version, as ``check_gate``; without pass 2, the counts from the
+    ids and aux and z exactly 0.  Returns the combine weights' error."""
+    cfg = cfg.replace(router_z_loss_coef=1e-3)
+    got = gate.router_tiled_cuda(x, w, cfg, need_stats)
+    want = gate.router_tiled_plain(x, w, cfg, need_stats)
+    probs = torch.softmax(reference.dot_f32(x, w), -1)
+    torch.cuda.synchronize()
+    flips = routing_flips(got.expert_idx, want.expert_idx, probs)
+    same = (got.expert_idx == want.expert_idx).all(-1)
+    err = max_abs(got.combine_weights[same], want.combine_weights[same])
+    check(err <= GATE_ABS_TOL, f"gate_tiled {tag}: combine weights err {err}")
+    own = torch.bincount(got.expert_idx.reshape(-1),
+                         minlength=cfg.num_experts)
+    check(torch.equal(own, got.expert_counts), f"gate_tiled {tag}: counts")
+    dc = int((got.expert_counts - want.expert_counts).abs().sum())
+    check(dc <= 2 * flips, f"gate_tiled {tag}: counts differ from plain by "
+          f"{dc} with {flips} routing flips")
+    losses = {}
+    if need_stats:
+        pm = max_abs(got.probs_mean, want.probs_mean) \
+            / float(want.probs_mean.abs().max())
+        check(pm <= GATE_LOSS_RTOL, f"gate_tiled {tag}: probs_mean rel err "
+              f"{pm}")
+        for name in ("aux_loss", "z_loss"):
+            a, b = float(getattr(got, name)), float(getattr(want, name))
+            losses[name] = abs(a - b) / abs(b)
+            check(b != 0 and losses[name] <= GATE_LOSS_RTOL,
+                  f"gate_tiled {tag}: {name} {a} vs plain {b}")
+    else:
+        check(not got.probs_mean.any() and float(got.aux_loss) == 0
+              and float(got.z_loss) == 0,
+              f"gate_tiled {tag}: without pass 2 probs_mean, aux and z are 0")
+        pm = 0.0
+    print(f"gate_tiled {tag}: S={x.shape[0]} H={x.shape[1]} "
+          f"E={cfg.num_experts} K={cfg.expert_top_k} {x.dtype} "
+          f"pass2={need_stats}: max_abs_err={err:.3g} (tol {GATE_ABS_TOL}) "
+          f"routing_flips={flips} counts_diff={dc} probs_mean_rel_err="
+          f"{pm:.3g} " + " ".join(f"{k}_rel_err={v:.3g}"
+                                  for k, v in losses.items())
+          + f" (tol {GATE_LOSS_RTOL})")
+    return err
+
+
+def gate_tiled_phase():
+    """The two-pass gate (B4a, B4b) at the many-expert layer's widths (S
+    8192, H 2048, E 512, K 10, bf16), with pass 2 and without; the JAX
+    tests' f32 case (E 1280, K 2, H 128) and K = 64.  B4b is also held
+    alone against its plain version on the kernel's pass-1 outputs."""
+    cfg = many_expert_cfg()
+    s, h, e, k = cfg.tokens, cfg.hidden_size, cfg.num_experts, \
+        cfg.expert_top_k
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(s, h, device="cuda", generator=g, dtype=torch.bfloat16)
+    w = (torch.randn(h, e, device="cuda", generator=g)
+         / math.sqrt(h)).to(torch.bfloat16)
+    err = check_tiled_gate("many_expert", x, w, cfg, True)
+    check_tiled_gate("many_expert", x, w, cfg, False)
+    f32 = config.MoEConfig(num_experts=1280, expert_top_k=2, hidden_size=128,
+                           dtype=torch.float32)
+    check_tiled_gate("f32", torch.randn(1000, 128, device="cuda",
+                                        generator=g),
+                     torch.randn(128, 1280, device="cuda", generator=g)
+                     / math.sqrt(128), f32, True)
+    check_tiled_gate("k64", x[:1024].contiguous(), w,
+                     cfg.replace(expert_top_k=64), True)
+
+    logits, m, se, _, top_i = gate.gate_pass1_cuda(x, w, k, True)
+    got = gate.gate_pass2_cuda(logits, m, se, top_i, e)
+    want = gate.gate_pass2_plain(logits, m, se, top_i, e)
+    torch.cuda.synchronize()
+    p2_err = max_abs(got[0], want[0])
+    check(p2_err <= 1e-5 * float(want[0].abs().max())
+          and torch.equal(got[1].long(), want[1])
+          and abs(float(got[2]) - float(want[2])) <= 1e-5 * float(want[2]),
+          f"gate_pass2 alone: probs_sum err {p2_err}, zsum {float(got[2])} "
+          f"vs {float(want[2])}, counts equal "
+          f"{torch.equal(got[1].long(), want[1])}")
+    print(f"gate_pass2 alone on the kernel's pass-1 outputs: probs_sum "
+          f"max_abs_err={p2_err:.3g} (rtol 1e-5) counts exact zsum_rel_err="
+          f"{abs(float(got[2]) - float(want[2])) / float(want[2]):.3g}")
+
+    def library1():
+        torch.topk(torch.softmax(torch.matmul(x, w).float(), -1), k)
+
+    def library2():
+        torch.softmax(logits, -1).sum(0)
+        torch.bincount(top_i.reshape(-1), minlength=e)
+        torch.logsumexp(logits, -1).square().sum()
+
+    pass1 = dict(
+        name="gate_pass1", route="cuda",
+        source="flashmoe_tpu_torch/csrc/gate_tiled.cu",
+        replaces="flashmoe_tpu/ops/gate.py:223", max_abs_err=err,
+        ms=cuda_ms(lambda: gate.gate_pass1_cuda(x, w, k, True), 20),
+        plain_ms=cuda_ms(lambda: gate.gate_pass1_plain(x, w, k, True), 5),
+        library_ms=cuda_ms(library1, 20),
+        **bound(bytes_=2 * s * h + 2 * h * e + 4 * s * e + 8 * s + 8 * s * k,
+                flops=2 * s * h * e))
+    pass2 = dict(
+        name="gate_pass2", route="cuda",
+        source="flashmoe_tpu_torch/csrc/gate_tiled.cu",
+        replaces="flashmoe_tpu/ops/gate.py:308", max_abs_err=p2_err,
+        ms=cuda_ms(lambda: gate.gate_pass2_cuda(logits, m, se, top_i, e), 20),
+        plain_ms=cuda_ms(
+            lambda: gate.gate_pass2_plain(logits, m, se, top_i, e), 5),
+        library_ms=cuda_ms(library2, 20),
+        **bound(bytes_=4 * s * e + 8 * s + 4 * s * k + 8 * e + 4,
+                flops=4 * s * e, peak=F32_FLOPS))
+    for rec in (pass1, pass2):
+        print(f"{rec['name']}: S={s} H={h} E={e} K={k} bf16: "
+              f"ms={rec['ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}) plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms={rec['library_ms']:.4f}")
+    return [pass1, pass2]
+
+
+def gather_phase(cfg, params, x):
+    """The gather-fused FFN (B3) at the rows and ragged plan of B2's
+    prefill check: against its plain version at the populated rows, and
+    against B2 on the dispatched buffer there (the same tile code: 0
+    expected); a small f32 case."""
+    args, kw, plan = ffn_inputs(cfg, params, x)
+    targs = (x, plan.src_tok, *args[1:])
+    live = plan.present
+    got = expert.grouped_ffn_tokens_cuda(*targs, **kw)
+    want = expert.grouped_ffn_tokens_plain(*targs, **kw)
+    b2 = expert.grouped_ffn_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    nerr, err = normwise(got[live], want[live]), max_abs(got[live],
+                                                         want[live])
+    vs_b2 = max_abs(got[live], b2[live])
+    check(bool(torch.isfinite(got).all()), "grouped_ffn_tokens: finite")
+    check(nerr <= BF16_NORMWISE_TOL, f"grouped_ffn_tokens: normwise {nerr}")
+    check(vs_b2 <= err, f"grouped_ffn_tokens: {vs_b2} from B2 on the "
+          f"dispatched buffer, more than from the plain version")
+    print(f"grouped_ffn_tokens prefill: tokens={x.shape[0]} "
+          f"rows={args[0].shape[0]} live={int(live.sum())} "
+          f"H={cfg.hidden_size} I={cfg.intermediate_size} bf16: "
+          f"normwise_err={nerr:.3g} (tol {BF16_NORMWISE_TOL}) "
+          f"max_abs_err={err:.3g} max_abs_diff_from_b2={vs_b2:.3g}")
+    del b2
+    small = config.MoEConfig(
+        num_experts=3, expert_top_k=2, hidden_size=128, intermediate_size=256,
+        gated_ffn=True, hidden_act="gelu", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    sp = reference.init_moe_params(g, small, device="cuda")
+    sp["b_up"] = torch.randn(3, 256, device="cuda", generator=g)
+    sx = torch.randn(64, 128, device="cuda", generator=g)
+    sargs, skw, splan = ffn_inputs(small, sp, sx)
+    sl = splan.present
+    sgot = expert.grouped_ffn_tokens_cuda(sx, splan.src_tok, *sargs[1:],
+                                          **skw)
+    check_f32("grouped_ffn_tokens f32", sgot[sl],
+              expert.grouped_ffn_tokens_plain(sx, splan.src_tok, *sargs[1:],
+                                              **skw)[sl])
+
+    w_up, b_up, w_down, b_down, w_gate = args[2:]
+    segs = expert_segments(plan, expert.ROW_TILE)
+    act = reference.activation_fn(cfg.hidden_act)
+    src = plan.src_tok
+
+    def library():
+        xbuf = x.index_select(0, src)
+        out = torch.empty_like(xbuf)
+        for e, a, b in segs:
+            xe = xbuf[a:b]
+            u = torch.addmm(b_up[e], xe, w_up[e])
+            out[a:b] = torch.addmm(b_down[e], act(xe @ w_gate[e]) * u,
+                                   w_down[e])
+        return out
+
+    rows = sum(b - a for _, a, b in segs)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    touched = sum(1 for _, a, b in segs if b > a)
+    return dict(
+        name="grouped_ffn_tokens", route="cuda",
+        source="flashmoe_tpu_torch/csrc/grouped_ffn.cu",
+        replaces="flashmoe_tpu/ops/expert.py:196", max_abs_err=err,
+        ms=cuda_ms(lambda: expert.grouped_ffn_tokens_cuda(*targs, **kw), 10),
+        plain_ms=cuda_ms(
+            lambda: expert.grouped_ffn_tokens_plain(*targs, **kw), 3),
+        library_ms=cuda_ms(library, 10),
+        **bound(bytes_=2 * rows * h * 2 + 4 * rows
+                + touched * (3 * h * i * 2 + 4 * (i + h)),
+                flops=2 * rows * h * i * 3))
+
+
 # ----------------------------------------------------------------------
 # layer and model phases
 # ----------------------------------------------------------------------
@@ -584,6 +786,7 @@ def reset_counts():
 
 SERVE_KERNELS = ("gate", "grouped_ffn", "flash_attention")
 TRAIN_KERNELS = ("grouped_ffn_res", "grouped_matmul", "tgmm")
+MANY_EXPERT_KERNELS = ("gate_pass1", "gate_pass2", "grouped_ffn_tokens")
 
 
 def kernel_fns():
@@ -592,7 +795,10 @@ def kernel_fns():
             "flash_attention": attention.flash_attention_cuda,
             "grouped_ffn_res": expert.grouped_ffn_res_cuda,
             "grouped_matmul": expert.grouped_matmul_cuda,
-            "tgmm": expert.tgmm_cuda}
+            "tgmm": expert.tgmm_cuda,
+            "gate_pass1": gate.gate_pass1_cuda,
+            "gate_pass2": gate.gate_pass2_cuda,
+            "grouped_ffn_tokens": expert.grouped_ffn_tokens_cuda}
 
 
 def launch_counts():
@@ -624,7 +830,35 @@ def capacity_phase():
     ms = cuda_ms(lambda: moe.moe_layer(params, x, cfg), 5)
     print(f"capacity arm layer_ms={ms:.4f}")
 
+    # the same layer at inference through the gather-fused FFN (B3)
+    gcfg = cfg.replace(gather_fused=True)
+    reset_counts()
+    gout = moe.moe_layer(params, x, gcfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["grouped_ffn_tokens"] > 0 and counts["grouped_ffn"] == 0,
+          f"capacity gather arm launches {counts}")
+    gplain = moe.moe_layer(params, x, gcfg, use_kernels=False)
+    layer_agreement("capacity gather arm vs plain", gout.out, gplain.out,
+                    flips)
+    layer_agreement("capacity gather arm vs explicit dispatch", gout.out,
+                    out.out, 0)
+    print(f"capacity gather arm: max_abs_diff_from_explicit="
+          f"{max_abs(gout.out, out.out):.3g} layer_ms="
+          f"{cuda_ms(lambda: moe.moe_layer(params, x, gcfg), 5):.4f} "
+          f"launches={counts}")
+
     # the backward: residual-saving forward, grouped matmul, tgmm (E=64)
+    layer_backward("capacity arm backward", cfg, params, x, ("gate",))
+    del params
+
+
+def layer_backward(tag, cfg, params, x, gate_kernels):
+    """Gradients of ``sum(out**2) + aux`` of one MoE layer through the
+    kernels (the gate's and B6, B7, B8) against a plain run that replays
+    the kernel run's routing (a near-tie flip moves a token's whole
+    contribution, so the plain run's own choices are only counted), every
+    leaf within GRAD_NORMWISE_TOL."""
     def layer_grads(use_kernels):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
@@ -634,31 +868,138 @@ def capacity_phase():
         return dict(zip(["x", *leaves],
                         torch.autograd.grad(loss, [xx, *leaves.values()])))
 
-    # a near-tie flip moves a token's whole contribution, so the plain run
-    # replays the kernel run's expert choices (its own are only counted)
     reset_counts()
     with RoutingLog() as rk:
         got = layer_grads(None)
     torch.cuda.synchronize()
     counts = launch_counts()
-    check(all(counts[k] > 0 for k in ("gate", *TRAIN_KERNELS)),
-          f"capacity arm backward launches {counts}")
+    check(all(counts[k] > 0 for k in (*gate_kernels, *TRAIN_KERNELS)),
+          f"{tag} launches {counts}")
     with ReplayRouting(rk.calls, cfg.expert_top_k, forward_calls=1) as rp:
         want = layer_grads(False)
     check(rp.n == len(rk.calls) == 1,
-          f"capacity arm backward: {len(rk.calls)} router calls with the "
-          f"kernels, {rp.n} replayed")
-    check(rp.gap <= NEAR_TIE and rp.flips <= MAX_FLIP_SHARE * cfg.tokens + 1,
-          f"capacity arm backward: {rp.flips} routing flips, largest gap "
-          f"{rp.gap} (near tie {NEAR_TIE})")
-    errs = grad_agreement("capacity arm backward", got, want)
-    print(f"capacity arm backward: d(sum(out**2) + aux) per leaf vs plain "
-          f"with the kernel run's routing replayed: "
+          f"{tag}: {len(rk.calls)} router calls with the kernels, {rp.n} "
+          f"replayed")
+    check(rp.gap <= NEAR_TIE and rp.flips <= MAX_FLIP_SHARE * x.shape[0] + 1,
+          f"{tag}: {rp.flips} routing flips, largest gap {rp.gap} (near tie "
+          f"{NEAR_TIE})")
+    errs = grad_agreement(tag, got, want)
+    print(f"{tag}: d(sum(out**2) + aux) per leaf vs plain with the kernel "
+          f"run's routing replayed: "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
           + f" (normwise tol {GRAD_NORMWISE_TOL}); plain routing would have "
           f"flipped {rp.flips} tokens, largest gap {rp.gap:.3g} (tol "
           f"{NEAR_TIE}) launches={counts}")
-    del params, got, want
+
+
+def many_expert_cfg(**kw):
+    """One MoE layer at Qwen3-Next-80B-A3B's MoE widths
+    (Qwen/Qwen3-Next-80B-A3B-Instruct config.json: num_experts 512,
+    num_experts_per_tok 10, hidden_size 2048, moe_intermediate_size 512,
+    shared_expert_intermediate_size 512, SiLU gated, norm_topk_prob), as
+    the FlashMoE reference layer is run: 8192 tokens, dropless, bf16."""
+    base = dict(num_experts=512, expert_top_k=10, hidden_size=2048,
+                intermediate_size=512, num_shared_experts=1, gated_ffn=True,
+                hidden_act="silu", drop_tokens=False, sequence_len=8192,
+                dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    base.update(kw)
+    return config.MoEConfig(**base)
+
+
+# the many-expert layer against the dense oracle on its first tokens: the
+# oracle evaluates all 512 experts on every token it is given (in f32)
+ORACLE_TOKENS = 128
+
+
+def many_expert_phase():
+    """The many-expert layer at inference with the gather-fused FFN off,
+    on, and on with collect_stats (the two-pass gate with pass 2 each
+    time: JAX's single-tile gate would compute the statistics here), each
+    against the plain versions and the dense oracle, the three against
+    each other, the stats against the plain run's; then training, forward
+    and backward.  Returns the launches of the gather-fused inference."""
+    cfg = many_expert_cfg()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    params = reference.init_moe_params(g, cfg, device="cuda")
+    x = torch.randn(cfg.tokens, cfg.hidden_size, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    n_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    print(f"many_expert layer: E={cfg.num_experts} K={cfg.expert_top_k} "
+          f"H={cfg.hidden_size} I={cfg.intermediate_size} shared=1 "
+          f"S={cfg.tokens} bf16: weights_GB={n_bytes / 1e9:.3f}")
+    rk = gate.router_tiled_cuda(x, params["gate_w"], cfg, True)
+    rp = gate.router_tiled_plain(x, params["gate_w"], cfg, True)
+    flips = routing_flips(rk.expert_idx, rp.expert_idx, torch.softmax(
+        reference.dot_f32(x, params["gate_w"]), -1))
+    xo = x[:ORACLE_TOKENS]
+    oracle, _ = reference.reference_moe(params, xo, cfg)
+    _, oracle_idx, oracle_probs, _ = reference.reference_gate(
+        xo, params["gate_w"], cfg)
+    oracle_flips = routing_flips(rk.expert_idx[:ORACLE_TOKENS], oracle_idx,
+                                 oracle_probs)
+    outs, launches = {}, None
+    for tag, kw in (("gather_off", dict(gather_fused=False)),
+                    ("gather_on", dict(gather_fused=True)),
+                    ("gather_on_stats", dict(gather_fused=True,
+                                             collect_stats=True))):
+        lcfg = many_expert_cfg(**kw)
+        reset_counts()
+        out = moe.moe_layer(params, x, lcfg)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        b3 = kw["gather_fused"]
+        check(counts["gate_pass1"] == counts["gate_pass2"] == 1
+              and counts["gate"] == 0
+              and (counts["grouped_ffn_tokens"] > 0) == b3
+              and (counts["grouped_ffn"] > 0) != b3,
+              f"many_expert {tag} launches {counts}")
+        if tag == "gather_on":
+            launches = counts
+        plain = moe.moe_layer(params, x, lcfg, use_kernels=False)
+        layer_agreement(f"many_expert {tag} vs plain", out.out, plain.out,
+                        flips)
+        layer_agreement(f"many_expert {tag} vs reference_moe "
+                        f"(first {ORACLE_TOKENS} tokens)",
+                        out.out[:ORACLE_TOKENS], oracle, oracle_flips)
+        ms = cuda_ms(lambda: moe.moe_layer(params, x, lcfg), 3)
+        print(f"many_expert {tag}: layer_ms={ms:.4f} launches={counts} "
+              f"({gpu_line()})")
+        outs[tag] = (out, plain)
+    for a, b in (("gather_off", "gather_on"), ("gather_on", "gather_on_stats")):
+        d = max_abs(outs[a][0].out, outs[b][0].out)
+        check(d <= BF16_NORMWISE_TOL * float(outs[a][0].out.abs().max()),
+              f"many_expert {a} vs {b}: max abs diff {d}")
+        print(f"many_expert {a} vs {b}: max_abs_diff={d:.3g}")
+    stats, pstats = outs["gather_on_stats"][0].stats, \
+        outs["gather_on_stats"][1].stats
+    check(outs["gather_on"][0].stats is None and stats is not None,
+          "many_expert: stats only with collect_stats")
+    load_diff = float((stats.expert_load - pstats.expert_load).abs().sum())
+    check(load_diff <= 2 * flips, f"many_expert stats: load differs from "
+          f"plain by {load_diff} with {flips} flips")
+    rel = {}
+    for name in ("imbalance", "router_entropy", "topk_confidence"):
+        a, b = float(getattr(stats, name)), float(getattr(pstats, name))
+        rel[name] = abs(a - b) / abs(b)
+        check(rel[name] <= 1e-3, f"many_expert stats {name}: {a} vs {b}")
+    check(float(stats.dropped_fraction) == 0
+          and float(stats.capacity_utilization) == 1,
+          "many_expert stats: dropless")
+    print(f"many_expert stats vs plain: load_abs_diff={load_diff:.0f} "
+          + " ".join(f"{k}_rel_err={v:.3g}" for k, v in rel.items())
+          + f" (tol 1e-3) router_entropy={float(stats.router_entropy):.5f} "
+          f"imbalance={float(stats.imbalance):.4f} routing_flips={flips}")
+    del outs, oracle
+    device_breakdown(
+        "many_expert gather_on",
+        lambda: moe.moe_layer(params, x, many_expert_cfg(gather_fused=True)),
+        top_n=8)
+    layer_backward("many_expert training backward",
+                   cfg.replace(is_training=True), params, x,
+                   ("gate_pass1", "gate_pass2"))
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def grad_agreement(tag, got, want) -> dict:
@@ -675,12 +1016,12 @@ def grad_agreement(tag, got, want) -> dict:
     return errs
 
 
-def serve_phase(cfg, params):
-    g = torch.Generator(device="cuda").manual_seed(2)
-    b, t0, new = 4, 256, 16
-    prompt = torch.randint(0, cfg.vocab_size, (b, t0), device="cuda",
-                           generator=g)
-
+def serve_run(tag, cfg, params, prompt, new):
+    """One ``generate`` (the serving path: counts reset before, read
+    after), then its greedy steps replayed with every layer's routing
+    recorded, every step's logits held against ``forward`` over the whole
+    sequence.  Returns (tokens, launches, the replay's RoutingLog)."""
+    b, t0 = prompt.shape
     reset_counts()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -688,12 +1029,16 @@ def serve_phase(cfg, params):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t_start
     launches = launch_counts()
-    check(all(launches[k] > 0 for k in SERVE_KERNELS)
-          and not any(launches[k] for k in TRAIN_KERNELS),
-          f"serving path launches {launches}")
+    ffn = "grouped_ffn_tokens" if cfg.gather_fused else "grouped_ffn"
+    other = "grouped_ffn" if cfg.gather_fused else "grouped_ffn_tokens"
+    check(all(launches[k] > 0 for k in ("gate", ffn, "flash_attention"))
+          and not any(launches[k] for k in (*TRAIN_KERNELS, other,
+                                            "gate_pass1", "gate_pass2")),
+          f"{tag} path launches {launches}")
     check(tokens.shape == (b, t0 + new), f"tokens shape {tokens.shape}")
-    print(f"serve: mixtral_8x7b layers={cfg.num_layers} B={b} T0={t0} "
-          f"new={new}: generate_s={gen_s:.3f} launches={launches}")
+    print(f"{tag}: mixtral_8x7b layers={cfg.num_layers} B={b} T0={t0} "
+          f"new={new} gather_fused={bool(cfg.gather_fused)}: "
+          f"generate_s={gen_s:.3f} launches={launches}")
 
     # replay the greedy steps, keeping each step's logits and every
     # layer's routing
@@ -723,7 +1068,7 @@ def serve_phase(cfg, params):
     worst_held = float(held.max()) if held.numel() else 0.0
     far = float((rows > SERVE_ROW_TOL).float().mean())
     agree = float((step_logits.argmax(-1) == want.argmax(-1)).float().mean())
-    print(f"serve: step logits vs forward over the full sequence: "
+    print(f"{tag}: step logits vs forward over the full sequence: "
           f"median_normwise={med:.3g} (tol {SERVE_MEDIAN_TOL}) "
           f"max_normwise={worst:.3g} max_normwise_without_flip="
           f"{worst_held:.3g} (tol {SERVE_ROW_TOL}) rows_over_tol={far:.4f} "
@@ -731,15 +1076,29 @@ def serve_phase(cfg, params):
           f"routing_flips={n_flips} largest_flip_gap={gap:.3g} "
           f"(tol {SERVE_NEAR_TIE}) argmax_agreement={agree:.3f}")
     check(med <= SERVE_MEDIAN_TOL,
-          f"step logits vs forward: median normwise {med}")
+          f"{tag} step logits vs forward: median normwise {med}")
     check(worst_held <= SERVE_ROW_TOL,
-          f"step logits vs forward: a row with no routing flip before it is "
-          f"{worst_held} normwise off")
+          f"{tag} step logits vs forward: a row with no routing flip before "
+          f"it is {worst_held} normwise off")
     check(gap <= SERVE_NEAR_TIE,
-          f"a routing flip between generate and forward is no near-tie "
-          f"(probability gap {gap})")
+          f"{tag}: a routing flip between generate and forward is no "
+          f"near-tie (probability gap {gap})")
+    return tokens, launches, replay
+
+
+def serve_phase(cfg, params):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, t0, new = 4, 256, 16
+    prompt = torch.randint(0, cfg.vocab_size, (b, t0), device="cuda",
+                           generator=g)
+    tokens, launches, replay = serve_run("serve", cfg, params, prompt, new)
+    gtokens, _, greplay = serve_run("serve gather_fused",
+                                    cfg.replace(gather_fused=True), params,
+                                    prompt, new)
+    serve_gather_tokens(cfg, tokens, gtokens, replay, greplay, t0)
 
     profile_breakdown(cfg, params, prompt, tokens)
+    embed = params["embed"].to(cfg.dtype)
 
     # every prefill MoE layer against the dense oracle, on its own input
     x = embed[prompt]
@@ -1001,6 +1360,36 @@ class RoutingLog:
         return out
 
 
+def serve_gather_tokens(cfg, tokens, gtokens, replay, greplay, t0):
+    """The greedy tokens of generate with and without gather_fused: equal,
+    or a sequence differs only after the two runs' routing flipped at a
+    near tie (the serve check's rule: the replays' probabilities at a
+    flip within SERVE_NEAR_TIE), before its first differing token."""
+    b = tokens.shape[0]
+    n = len(cfg.moe_layer_indices)
+    k = cfg.expert_top_k
+    diff_tok = (tokens != gtokens).any(-1)
+    flips, gap, first = 0, 0.0, None
+    for (ids, probs), (gids, _) in zip(replay.per_position(n, b),
+                                       greplay.per_position(n, b)):
+        d = (ids.sort(-1).values != gids.sort(-1).values).any(-1)  # [B, T]
+        flips += int(d.sum())
+        if bool(d.any()):
+            top = probs[d].sort(-1, descending=True).values
+            gap = max(gap, float((top[:, k - 1] - top[:, k]).max()))
+        first = d if first is None else first | d
+    for bi in torch.nonzero(diff_tok).reshape(-1).tolist():
+        at = int(torch.nonzero(tokens[bi] != gtokens[bi])[0])
+        check(bool(first[bi, :at].any()) and gap <= SERVE_NEAR_TIE,
+              f"serve gather_fused: sequence {bi} differs at position {at} "
+              f"without a near-tie routing flip before it (gap {gap})")
+    print(f"serve gather_fused vs explicit dispatch: sequences_differing="
+          f"{int(diff_tok.sum())}/{b} tokens_differing="
+          f"{int((tokens[:, t0:] != gtokens[:, t0:]).sum())} "
+          f"routing_flips={flips} largest_flip_gap={gap:.3g} "
+          f"(tol {SERVE_NEAR_TIE})")
+
+
 def serve_flips(cfg, replay, fwd, b):
     """Compare generate's routing (prefill + decode steps) with forward's,
     position by position.  Returns ([B, T] true at every position at or
@@ -1123,11 +1512,14 @@ def main() -> int:
     entries = [gate_phase(cfg, x, moe0["gate_w"]),
                ffn_phase(cfg, moe0, x), flash_phase(),
                res_phase(cfg, moe0, x), gmm_phase(cfg, moe0, x),
-               tgmm_phase(cfg, moe0, x)]
+               tgmm_phase(cfg, moe0, x), *gate_tiled_phase(),
+               gather_phase(cfg, moe0, x)]
     capacity_phase()
     launches = serve_phase(cfg, params)
     del params, moe0, x
     torch.cuda.empty_cache()
+    many = many_expert_phase()
+    launches.update({k: many[k] for k in MANY_EXPERT_KERNELS})
     train_launches = train_phase()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
 

@@ -3,10 +3,13 @@
 Counterpart of ``flashmoe_tpu/config.py:69-560``.  That ``MoEConfig``
 imports ``jax.numpy`` for its dtype fields, so the port keeps its own
 frozen dataclass with torch dtypes.  It carries only the fields that the
-ported slices read (one device, both MoE arms, the transformer, greedy
-generation and training) and validates them with the same errors.  Knobs
-of later slices are absent (among them ``expert_quant``, whose refusal
-with ``is_training`` comes with it), and a parallel axis above 1 raises
+ported slices read (one device, both MoE arms with their gather-fused
+inference form, routing statistics, tier-0 degradation and hot-expert
+replicas, the transformer, greedy generation and training) and validates
+them with the same errors.  Knobs of later slices are absent:
+``expert_quant`` (whose refusal with ``is_training`` comes with it), the
+wire dtypes, ``a2a_chunks``, ``moe_backend``, ``serving_mode`` and
+``profile_phases``; a parallel axis above 1 raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -66,6 +69,16 @@ class MoEConfig:
     head_dim: int = 0  # 0 => hidden_size // num_heads
     rope_theta: float = 10000.0
 
+    # --- layer options (ops/stats.py, ops/health.py, ops/gate.py) ---
+    collect_stats: bool = False
+    degrade_unhealthy_experts: bool = False
+    # (hot, slot) pairs: tokens routed to ``hot`` alternate with its
+    # value-identical replica ``slot`` by token parity
+    expert_replicas: tuple = ()
+    # inference through the gather-fused FFN; None follows
+    # FLASHMOE_GATHER_FUSED=1 (ops/moe.py)
+    gather_fused: bool | None = None
+
     # --- losses ---
     aux_loss_coef: float = 0.01
     router_z_loss_coef: float = 0.0
@@ -97,11 +110,54 @@ class MoEConfig:
                                    Activation.SILU):
             raise ValueError(f"hidden_act {self.hidden_act!r} not in "
                              f"('relu', 'gelu', 'silu')")
+        if self.expert_replicas:
+            self._check_replicas()
         for axis, item in _UNPORTED_AXES.items():
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
                     f"{axis}={getattr(self, axis)}: the PyTorch port runs on "
                     f"one device; {axis} > 1 waits for ROADMAP {item}")
+
+    def _check_replicas(self) -> None:
+        """The JAX package's checks of the replica map, with its errors."""
+        if not isinstance(self.expert_replicas, tuple):
+            raise ValueError(
+                f"expert_replicas must be a tuple of (hot, slot) "
+                f"pairs, got {type(self.expert_replicas).__name__}")
+        seen_slots: set = set()
+        hots = set()
+        for pair in self.expert_replicas:
+            if (not isinstance(pair, tuple) or len(pair) != 2
+                    or not all(isinstance(v, int) for v in pair)):
+                raise ValueError(
+                    f"expert_replicas entries must be (hot, slot) "
+                    f"int pairs, got {pair!r}")
+            hot, slot = pair
+            if hot == slot:
+                raise ValueError(
+                    f"expert_replicas pair {pair} replicates an "
+                    f"expert onto its own slot")
+            for v in pair:
+                if not 0 <= v < self.num_experts:
+                    raise ValueError(
+                        f"expert_replicas id {v} out of range "
+                        f"[0, {self.num_experts})")
+            if slot in seen_slots:
+                raise ValueError(
+                    f"expert_replicas slot {slot} used as a replica "
+                    f"target twice")
+            if hot in hots:
+                raise ValueError(
+                    f"expert_replicas replicates expert {hot} "
+                    f"twice; the parity split supports exactly one "
+                    f"replica per hot expert")
+            seen_slots.add(slot)
+            hots.add(hot)
+        if hots & seen_slots:
+            raise ValueError(
+                f"expert_replicas chains a replica "
+                f"({sorted(hots & seen_slots)} appear as both hot "
+                f"expert and replica slot)")
 
     @property
     def tokens(self) -> int:

@@ -146,7 +146,8 @@ gate_main(const T* __restrict__ x, const T* __restrict__ w, int S, int H,
   }
 }
 
-// Adds the per-block partials in block order (deterministic).
+// Adds the per-block partials in block order (deterministic); the
+// two-pass gate's pass 2 (gate_tiled.cu) reduces its partials here too.
 __global__ void gate_reduce(const float* __restrict__ part_probs,
                             const int* __restrict__ part_cnt,
                             const float* __restrict__ part_z, int nb, int E,
@@ -171,6 +172,14 @@ __global__ void gate_reduce(const float* __restrict__ part_probs,
   }
 }
 
+int gate_reduce_launch(const float* part_probs, const int* part_cnt,
+                       const float* part_z, int nb, int E, float* probs_sum,
+                       int* counts, float* zsum, cudaStream_t stream) {
+  gate_reduce<<<1, 256, 0, stream>>>(part_probs, part_cnt, part_z, nb, E,
+                                     probs_sum, counts, zsum);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace fm
 
 // Scratch: part_probs f32 [nb, E], part_counts i32 [nb, E], part_z f32
@@ -192,7 +201,6 @@ extern "C" int fm_gate(int is_bf16, const void* x, const void* w, int S,
         part_probs, part_cnt, part_z);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fm::gate_reduce<<<1, 256, 0, stream>>>(part_probs, part_cnt, part_z, nb, E,
-                                         probs_sum, counts, zsum);
-  return (int)cudaGetLastError();
+  return fm::gate_reduce_launch(part_probs, part_cnt, part_z, nb, E,
+                                probs_sum, counts, zsum, stream);
 }

@@ -1,7 +1,9 @@
 // One 64 x 64 output tile of a GEMM C = A @ B for the grouped kernels
 // (grouped_ffn.cu, grouped_matmul.cu): A [rows, K] row-major, B either
 // [K, N] row-major or, with TRANS, [N, K] contracted on its last dim (the
-// weight read in its forward layout, never transposed in memory).
+// weight read in its forward layout, never transposed in memory).  With
+// GATHER, row r of the A tile is row arow[r] of A (the gather-fused FFN
+// reads token rows by their source index); otherwise row r.
 //
 // A block of 4 warps (FTHREADS) owns the tile.  Operand tiles arrive by
 // 16-byte cp.async copies, two stages deep.  bf16 goes through tensor
@@ -47,9 +49,9 @@ struct FfnSmem {
 
 // B[m] points at the tile's first output column: w_e + n0 for a [K, N]
 // weight, w_e + n0 * K for an [N, K] one.
-template <typename T, int NB, bool TRANS>
+template <typename T, int NB, bool TRANS, bool GATHER>
 __device__ __forceinline__ void ffn_load(FfnSmem<T, NB, TRANS>& sm, int st,
-                                         const T* A, int K,
+                                         const T* A, const int* arow, int K,
                                          const T* const* B, int N, int k0) {
   using TL = FfnTile<T>;
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
@@ -58,7 +60,8 @@ __device__ __forceinline__ void ffn_load(FfnSmem<T, NB, TRANS>& sm, int st,
   const int tid = threadIdx.x;
   for (int c = tid; c < FBM * ACPR; c += FTHREADS) {
     const int r = c / ACPR, cc = (c % ACPR) * EPC;
-    cp_async16(&sm.As[st][r][cc], A + (size_t)r * K + k0 + cc);
+    const size_t ra = GATHER ? (size_t)arow[r] : (size_t)r;
+    cp_async16(&sm.As[st][r][cc], A + ra * K + k0 + cc);
   }
 #pragma unroll
   for (int m = 0; m < NB; ++m) {
@@ -78,9 +81,9 @@ __device__ __forceinline__ void ffn_load(FfnSmem<T, NB, TRANS>& sm, int st,
 }
 
 // bf16: tensor cores.
-template <int NB, bool TRANS>
+template <int NB, bool TRANS, bool GATHER = false>
 __device__ void ffn_mainloop(const bf16* A, int K, const bf16* const* B,
-                             int N, float* Cs) {
+                             int N, float* Cs, const int* arow = nullptr) {
   using namespace nvcuda;
   using TL = FfnTile<bf16>;
   FfnSmem<bf16, NB, TRANS>& sm =
@@ -95,11 +98,11 @@ __device__ void ffn_mainloop(const bf16* A, int K, const bf16* const* B,
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[m][i][j], 0.f);
 
   const int nk = K / TL::BK;
-  ffn_load<bf16, NB, TRANS>(sm, 0, A, K, B, N, 0);
+  ffn_load<bf16, NB, TRANS, GATHER>(sm, 0, A, arow, K, B, N, 0);
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
-      ffn_load<bf16, NB, TRANS>(sm, (kt + 1) & 1, A, K, B, N,
-                                (kt + 1) * TL::BK);
+      ffn_load<bf16, NB, TRANS, GATHER>(sm, (kt + 1) & 1, A, arow, K, B,
+                                        N, (kt + 1) * TL::BK);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -152,9 +155,9 @@ __device__ void ffn_mainloop(const bf16* A, int K, const bf16* const* B,
 }
 
 // f32: SIMT FMA.
-template <int NB, bool TRANS>
+template <int NB, bool TRANS, bool GATHER = false>
 __device__ void ffn_mainloop(const float* A, int K, const float* const* B,
-                             int N, float* Cs) {
+                             int N, float* Cs, const int* arow = nullptr) {
   using TL = FfnTile<float>;
   FfnSmem<float, NB, TRANS>& sm =
       *reinterpret_cast<FfnSmem<float, NB, TRANS>*>(Cs);
@@ -168,11 +171,11 @@ __device__ void ffn_mainloop(const float* A, int K, const float* const* B,
       for (int c = 0; c < 8; ++c) acc[m][r][c] = 0.f;
 
   const int nk = K / TL::BK;
-  ffn_load<float, NB, TRANS>(sm, 0, A, K, B, N, 0);
+  ffn_load<float, NB, TRANS, GATHER>(sm, 0, A, arow, K, B, N, 0);
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
-      ffn_load<float, NB, TRANS>(sm, (kt + 1) & 1, A, K, B, N,
-                                 (kt + 1) * TL::BK);
+      ffn_load<float, NB, TRANS, GATHER>(sm, (kt + 1) & 1, A, arow, K, B,
+                                         N, (kt + 1) * TL::BK);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();

@@ -44,6 +44,16 @@ SIGNATURES = {
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
     # w_gate, b_up, w_down, b_down, hidden, out, T, H, I, stream
     "fm_grouped_ffn": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, I, I, I, P],
+    # dtype_is_bf16, x, w, S, H, E, PX, K, logits, m, se, top_p, top_i,
+    # stream
+    "fm_gate_pass1": [I, P, P, I, I, I, I, I, P, P, P, P, P, P],
+    # logits, m, se, top_i, S, E, K, part_probs, part_counts, part_z,
+    # probs_sum, counts, zsum, stream
+    "fm_gate_pass2": [P, P, P, P, I, I, I, P, P, P, P, P, P, P],
+    # dtype_is_bf16, gated, act, x, src_tok, tile_gid, block_m, num_rows,
+    # w_up, w_gate, b_up, w_down, b_down, hidden, out, T, H, I, stream
+    "fm_grouped_ffn_tokens": [I, I, I, P, P, P, I, P, P, P, P, P, P, P, P,
+                              I, I, I, P],
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
     # w_gate, b_up, w_down, b_down, u, g, hidden, out, T, H, I, stream
     "fm_grouped_ffn_res": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, I,
@@ -169,7 +179,8 @@ def refuse_autograd(name: str, *tensors) -> None:
     requires grad: a kernel's output carries no ``grad_fn``, so the
     gradient would be cut without a word.  Under autograd the kernels are
     reached through their ``torch.autograd.Function``s (``grouped_ffn_ad``,
-    ``router``), whose forward and backward run with grad disabled."""
+    ``grouped_ffn_tokens_ad``, ``router``), whose forward and backward run
+    with grad disabled."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -133,21 +133,25 @@ def attention(layer, x, cfg: MoEConfig, positions=None,
 
 
 def _ffn(layer, x, cfg: MoEConfig, li: int, use_kernels: bool | None):
-    """FFN sub-block: MoE or dense.  Returns (out, aux + z losses)."""
+    """FFN sub-block: MoE or dense.  Returns (out, aux + z losses, the
+    layer's MoEStats or None)."""
     b, t, h = x.shape
     o = moe_layer(layer["moe"], x.reshape(b * t, h), layer_cfg(cfg, li),
                   use_kernels=use_kernels)
-    return o.out.reshape(b, t, h).to(x.dtype), o.aux_loss + o.z_loss
+    return (o.out.reshape(b, t, h).to(x.dtype), o.aux_loss + o.z_loss,
+            o.stats)
 
 
 def block(layer, x, cfg: MoEConfig, li: int,
           use_kernels: bool | None = None):
-    """One pre-norm block.  Returns (x, moe_losses)."""
+    """One pre-norm block.  Returns (x, moe_losses, moe_stats), the stats
+    the layer's MoEStats when ``cfg.collect_stats`` and it is an MoE
+    layer, else None."""
     x = x + attention(layer, rms_norm(x, layer["attn_norm"]), cfg,
                       use_kernels=use_kernels)
-    f, moe_loss = _ffn(layer, rms_norm(x, layer["ffn_norm"]), cfg, li,
-                       use_kernels)
-    return x + f, moe_loss
+    f, moe_loss, moe_stats = _ffn(layer, rms_norm(x, layer["ffn_norm"]),
+                                  cfg, li, use_kernels)
+    return x + f, moe_loss, moe_stats
 
 
 def lm_head(params, cfg: MoEConfig, x):
@@ -158,6 +162,8 @@ def lm_head(params, cfg: MoEConfig, x):
 
 def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None):
     """tokens: [B, T] int -> (logits [B, T, V] f32, summed MoE losses).
+    With ``cfg.collect_stats`` a third element: the tuple of the MoE
+    layers' :class:`MoEStats`, in layer order.
 
     With ``cfg.is_training`` each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are not
@@ -168,15 +174,20 @@ def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None):
     uk = _build.use_kernels_for(tokens, use_kernels)
     x = params["embed"].to(cfg.dtype)[tokens]
     total_aux = torch.zeros((), dtype=cfg.accum_dtype, device=x.device)
+    layer_stats = []
     for li, layer in enumerate(params["layers"]):
         if cfg.is_training:
             # the block draws no random numbers: no RNG state to replay
-            x, moe_loss = torch.utils.checkpoint.checkpoint(
+            x, moe_loss, moe_stats = torch.utils.checkpoint.checkpoint(
                 block, layer, x, cfg, li, uk, use_reentrant=False,
                 preserve_rng_state=False)
         else:
-            x, moe_loss = block(layer, x, cfg, li, use_kernels=uk)
+            x, moe_loss, moe_stats = block(layer, x, cfg, li, use_kernels=uk)
         total_aux = total_aux + moe_loss
+        if moe_stats is not None:
+            layer_stats.append(moe_stats)
+    if cfg.collect_stats:
+        return lm_head(params, cfg, x), total_aux, tuple(layer_stats)
     return lm_head(params, cfg, x), total_aux
 
 
@@ -185,17 +196,21 @@ def loss_fn(params, batch, cfg: MoEConfig, use_kernels: bool | None = None):
 
     batch: dict with "tokens" [B, T] (inputs are tokens[:, :-1], targets
     tokens[:, 1:]) and optionally "mask" [B, T - 1] weighting each target.
-    Returns ``(loss, {"ce": ce, "aux": aux})``."""
+    Returns ``(loss, {"ce": ce, "aux": aux})``, and with
+    ``cfg.collect_stats`` ``"moe_stats"``, the MoE layers' stats."""
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(params, inp, cfg, use_kernels)
+    logits, aux, *stats = forward(params, inp, cfg, use_kernels)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(nll)
     ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return ce + aux, {"ce": ce, "aux": aux}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.collect_stats:
+        metrics["moe_stats"] = stats[0]
+    return ce + aux, metrics
 
 
 def value_and_grad(params, batch, cfg: MoEConfig,
@@ -213,7 +228,7 @@ def value_and_grad(params, batch, cfg: MoEConfig,
                                     materialize_grads=True))
     grads = tree_map(lambda p: next(flat) if p.requires_grad else None,
                      leaves)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    return loss.detach(), tree_map(torch.Tensor.detach, metrics), grads
 
 
 def sgd_train_step(params, batch, cfg: MoEConfig, lr: float = 1e-3,

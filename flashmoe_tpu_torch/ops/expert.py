@@ -9,6 +9,13 @@ Counterpart of ``flashmoe_tpu/ops/expert.py``:
   kernel of ``csrc/grouped_ffn.cu`` (the port of ``_ffn_kernel``), and
   :func:`grouped_ffn_plain` is its plain torch version;
 * :func:`capacity_buffer_ffn`, the grouped FFN over a capacity buffer;
+* the gather-fused inference FFN: :func:`grouped_ffn_tokens` reads each
+  row of the grouped layout from the token matrix by its source token:
+  :func:`grouped_ffn_tokens_cuda` launches ``fm_grouped_ffn_tokens``
+  (``csrc/grouped_ffn.cu``, the port of ``_ffn_gather_kernel``) and
+  :func:`grouped_ffn_tokens_plain` is its plain version;
+  :func:`grouped_ffn_tokens_ad` differentiates it by re-gathering, and
+  :func:`capacity_ffn_gather` runs it over a capacity plan;
 * the training path: :func:`grouped_ffn_ad`, a ``torch.autograd.Function``
   whose forward is the residual-saving FFN (:func:`grouped_ffn_res_cuda`,
   the port of ``_ffn_res_kernel``) and whose backward,
@@ -34,6 +41,7 @@ import torch
 from flashmoe_tpu_torch.config import Activation, MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import activation_fn, dot_f32
+from flashmoe_tpu_torch.ops import dispatch as dsp
 
 #: row tile of the CUDA kernels (csrc/gemm_tile.cuh FBM); the plans' block
 #: must be a multiple of it
@@ -72,8 +80,11 @@ def _auto_block(dim: int, cap: int) -> int:
 
 
 def _check_ffn_args(x, tile_gid, w_up, b_up, w_down, b_down, w_gate, gated,
-                    block_m):
+                    block_m, rows=None):
+    """Shapes of a grouped FFN call; ``rows``, the rows of the grouped
+    layout, defaults to x's (the gather-fused FFN has one per src_tok)."""
     t, h = x.shape
+    t = t if rows is None else rows
     e, h2, i = w_up.shape
     if h2 != h or w_down.shape != (e, i, h) or b_up.shape != (e, i) \
             or b_down.shape != (e, h):
@@ -147,13 +158,16 @@ def grouped_ffn_plain(x, tile_gid, w_up, b_up, w_down, b_down, w_gate=None,
 
 
 def _ffn_kernel(name, res, x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
-                act_name, gated, block_m, num_rows):
-    """Launch ``fm_grouped_ffn`` (res False) or ``fm_grouped_ffn_res``
-    (res True); returns ``(out, u, g)``, u and g None unless res."""
+                act_name, gated, block_m, num_rows, src_tok=None):
+    """Launch ``fm_grouped_ffn`` (res False), ``fm_grouped_ffn_res`` (res
+    True) or, given ``src_tok``, ``fm_grouped_ffn_tokens``; returns
+    ``(out, u, g)``, u and g None unless res."""
+    rows = None if src_tok is None else src_tok.numel()
     _check_ffn_args(x, tile_gid, w_up, b_up, w_down, b_down, w_gate, gated,
-                    block_m)
+                    block_m, rows)
     _build.refuse_autograd(name, x, w_up, b_up, w_down, b_down, w_gate)
-    t, h = x.shape
+    s, h = x.shape
+    t = s if rows is None else rows
     i = w_up.shape[2]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} takes bf16 or f32, got {x.dtype}")
@@ -167,24 +181,38 @@ def _ffn_kernel(name, res, x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
     b_up32 = b_up.float().contiguous()
     b_down32 = b_down.float().contiguous()
     tensors = [x, gid, b_up32, b_down32, *weights]
+    if src_tok is not None:
+        src_tok = src_tok.to(torch.int32).contiguous()
+        tensors.append(src_tok)
     nrow = None
     if num_rows is not None:
         nrow = num_rows.reshape(1).to(torch.int32).contiguous()
         tensors.append(nrow)
     _build.require_cuda(name, *tensors)
+    if src_tok is not None and t:
+        lo, hi = torch.aminmax(src_tok)
+        if int(lo) < 0 or int(hi) >= s:
+            raise ValueError(f"{name}: src_tok must lie in [0, {s}), got "
+                             f"[{int(lo)}, {int(hi)}]")
     dev = dict(dtype=x.dtype, device=x.device)
     hidden = torch.empty((t, i), **dev)
     out = torch.empty((t, h), **dev)
     u = torch.empty((t, i), **dev) if res else None
     g = torch.empty((t, i), **dev) if res and gated else None
-    common = (int(x.dtype == torch.bfloat16), int(gated), _ACT_CODE[act_name],
-              x.data_ptr(), gid.data_ptr(), block_m,
+    head = (int(x.dtype == torch.bfloat16), int(gated), _ACT_CODE[act_name],
+            x.data_ptr())
+    common = (*head, gid.data_ptr(), block_m,
               None if nrow is None else nrow.data_ptr(), w_up.data_ptr(),
               w_gate.data_ptr() if gated else None, b_up32.data_ptr(),
               w_down.data_ptr(), b_down32.data_ptr())
     lib = _build.library()
     with torch.cuda.device(x.device):
-        if res:
+        if src_tok is not None:
+            err = lib.fm_grouped_ffn_tokens(
+                *head, src_tok.data_ptr(), *common[len(head):],
+                hidden.data_ptr(), out.data_ptr(), t, h, i,
+                _build.stream_of(x))
+        elif res:
             err = lib.fm_grouped_ffn_res(
                 *common, u.data_ptr(), None if g is None else g.data_ptr(),
                 hidden.data_ptr(), out.data_ptr(), t, h, i,
@@ -193,7 +221,8 @@ def _ffn_kernel(name, res, x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
             err = lib.fm_grouped_ffn(*common, hidden.data_ptr(),
                                      out.data_ptr(), t, h, i,
                                      _build.stream_of(x))
-    _build.check(err, "fm_grouped_ffn_res" if res else "fm_grouped_ffn")
+    _build.check(err, "fm_grouped_ffn_tokens" if src_tok is not None
+                 else "fm_grouped_ffn_res" if res else "fm_grouped_ffn")
     return out, u, g
 
 
@@ -249,6 +278,58 @@ def grouped_ffn(x, tile_gid, w_up, b_up, w_down, b_down, w_gate=None, *,
     fn = grouped_ffn_cuda if _build.use_kernels_for(x, use_kernels) \
         else grouped_ffn_plain
     return fn(x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
+              act_name=act_name, gated=gated, block_m=block_m,
+              num_rows=num_rows)
+
+
+# ----------------------------------------------------------------------
+# the gather-fused FFN: rows read from the token matrix by source token
+# ----------------------------------------------------------------------
+
+def grouped_ffn_tokens_plain(x, src_tok, tile_gid, w_up, b_up, w_down,
+                             b_down, w_gate=None, *, act_name: str,
+                             gated: bool = False, block_m: int,
+                             num_rows=None):
+    """Plain torch version of the gather-fused grouped FFN:
+    :func:`grouped_ffn_plain` over the gathered rows ``x[src_tok]``."""
+    return grouped_ffn_plain(
+        x[src_tok.long()], tile_gid, w_up, b_up, w_down, b_down, w_gate,
+        act_name=act_name, gated=gated, block_m=block_m, num_rows=num_rows)
+
+
+def grouped_ffn_tokens_cuda(x, src_tok, tile_gid, w_up, b_up, w_down,
+                            b_down, w_gate=None, *, act_name: str,
+                            gated: bool = False, block_m: int,
+                            num_rows=None):
+    """The gather-fused grouped FFN kernel (``fm_grouped_ffn_tokens`` in
+    ``csrc/grouped_ffn.cu``) on CUDA tensors: :func:`grouped_ffn_cuda` on
+    ``x[src_tok]``, without that buffer.  x: [S, H]; src_tok: [T] integer,
+    each in [0, S) (checked); the rest as :func:`grouped_ffn_cuda`, with
+    T, H, I and block_m multiples of 64."""
+    out, _, _ = _ffn_kernel("grouped_ffn_tokens_cuda", False, x, tile_gid,
+                            w_up, b_up, w_down, b_down, w_gate, act_name,
+                            gated, block_m, num_rows, src_tok=src_tok)
+    grouped_ffn_tokens_cuda.launches += 1
+    return out
+
+
+grouped_ffn_tokens_cuda.launches = 0
+
+
+def grouped_ffn_tokens(x, src_tok, tile_gid, w_up, b_up, w_down, b_down,
+                       w_gate=None, *, act_name: str, gated: bool = False,
+                       block_m: int = ROW_TILE, num_rows=None,
+                       use_kernels: bool | None = None):
+    """Grouped FFN reading token rows directly (``grouped_ffn_tokens``):
+    x [S, H] in token order, src_tok [T] the source token of each row of
+    the grouped layout, tile_gid [T // block_m]; returns [T, H] in layout
+    order.  Rows whose slot is unpopulated compute their src_tok (token 0)
+    and the combine never reads them; rows at or past ``num_rows`` come
+    back zero.  The kernel on CUDA tensors, the plain version on CPU ones
+    (or with ``use_kernels=False``)."""
+    fn = grouped_ffn_tokens_cuda if _build.use_kernels_for(x, use_kernels) \
+        else grouped_ffn_tokens_plain
+    return fn(x, src_tok, tile_gid, w_up, b_up, w_down, b_down, w_gate,
               act_name=act_name, gated=gated, block_m=block_m,
               num_rows=num_rows)
 
@@ -538,6 +619,72 @@ def grouped_ffn_ad(x, tile_gid, w_up, b_up, w_down, b_down, w_gate=None, *,
                        num_rows=num_rows, use_kernels=uk)
 
 
+class _GroupedFFNTokensAD(torch.autograd.Function):
+    """Forward: the gather-fused FFN (kernel or plain), which keeps no
+    residuals.  Backward (``_gft_bwd``): the layout's rows re-gathered from
+    x, the cotangent pulled back through :func:`grouped_ffn_ad` (the
+    residual-saving forward again, then its grouped-matmul backward), and
+    dX scatter-added to token order in f32 before the cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, src_tok, tile_gid, w_up, b_up, w_down, b_down,
+                w_gate, act_name, gated, block_m, num_rows, use_kernels):
+        fn = grouped_ffn_tokens_cuda if use_kernels \
+            else grouped_ffn_tokens_plain
+        y = fn(x, src_tok, tile_gid, w_up, b_up, w_down, b_down, w_gate,
+               act_name=act_name, gated=gated, block_m=block_m,
+               num_rows=num_rows)
+        ctx.save_for_backward(x, src_tok, tile_gid, w_up, b_up, w_down,
+                              b_down, w_gate, num_rows)
+        ctx.conf = (act_name, gated, block_m, use_kernels)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x, src_tok, tile_gid, w_up, b_up, w_down, b_down, w_gate,
+         num_rows) = ctx.saved_tensors
+        act_name, gated, block_m, use_kernels = ctx.conf
+        src = src_tok.long()
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(True)
+                      for t in (x[src], w_up, b_up, w_down, b_down, w_gate)]
+            y = grouped_ffn_ad(
+                leaves[0], tile_gid, *leaves[1:], act_name=act_name,
+                gated=gated, block_m=block_m, num_rows=num_rows,
+                use_kernels=use_kernels)
+            wrt = [t for t in leaves if t is not None]
+            grads = list(torch.autograd.grad(y, wrt, dy))
+        dxb, d_wu, d_bu, d_wd, d_bd = grads[:5]
+        d_wg = grads[5] if gated else None
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx.index_add_(0, src, dxb.float())
+        return (dx.to(x.dtype), None, None, d_wu, d_bu, d_wd, d_bd, d_wg,
+                None, None, None, None, None)
+
+
+def grouped_ffn_tokens_ad(x, src_tok, tile_gid, w_up, b_up, w_down, b_down,
+                          w_gate=None, *, act_name: str, gated: bool = False,
+                          block_m: int = ROW_TILE, num_rows=None,
+                          use_kernels: bool | None = None):
+    """Differentiable gather-fused FFN (:func:`grouped_ffn_tokens`'s
+    arguments).  With grad enabled and an input requiring grad, a
+    ``torch.autograd.Function`` whose backward re-gathers and reuses
+    :func:`grouped_ffn_ad` (one forward recomputed, paid only by whoever
+    differentiates the inference path); otherwise plain
+    :func:`grouped_ffn_tokens`."""
+    uk = _build.use_kernels_for(x, use_kernels)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w_up, b_up, w_down, b_down, w_gate)):
+        return _GroupedFFNTokensAD.apply(x, src_tok, tile_gid, w_up, b_up,
+                                         w_down, b_down, w_gate, act_name,
+                                         gated, block_m, num_rows, uk)
+    return grouped_ffn_tokens(x, src_tok, tile_gid, w_up, b_up, w_down,
+                              b_down, w_gate, act_name=act_name, gated=gated,
+                              block_m=block_m, num_rows=num_rows,
+                              use_kernels=uk)
+
+
 def _capacity_tiling(c: int) -> tuple[int, int]:
     """``(block_m, padded_capacity)`` for a capacity buffer: the kernel's
     row tile, and the capacity rounded up to it.  (The JAX version
@@ -579,3 +726,26 @@ def capacity_buffer_ffn_ad(xs, params, cfg: MoEConfig,
     """The differentiable grouped FFN (:func:`grouped_ffn_ad`) on an
     [E, C, H] capacity buffer; autograd flows through the reshapes."""
     return _capacity_grouped(grouped_ffn_ad, xs, params, cfg, use_kernels)
+
+
+def capacity_ffn_gather(x, plan, cfg: MoEConfig, capacity: int, params, *,
+                        use_kernels: bool | None = None):
+    """The capacity arm's FFN with the dispatch gather fused into the
+    kernel (differentiable through :func:`grouped_ffn_tokens_ad`): the
+    capacity padded to the row tile, each slot's source token from the
+    plan.  Returns ``([E, Cp, H], Cp)``; the combine must take the padded
+    capacity Cp so that flat slot indices line up.  Cp is the port's own
+    (:func:`_capacity_tiling`), so it may differ from the JAX package's."""
+    e, h = cfg.num_experts, x.shape[1]
+    bm, cp = _capacity_tiling(capacity)
+    src_tok, _ = dsp.dispatch_indices(plan, cfg, cp)
+    tiles_per_e = cp // bm
+    tile_gid = torch.arange(e * tiles_per_e, device=x.device) // tiles_per_e
+    dt = x.dtype
+    y = grouped_ffn_tokens_ad(
+        x, src_tok.reshape(-1), tile_gid, params["w_up"].to(dt),
+        params["b_up"], params["w_down"].to(dt), params["b_down"],
+        params["w_gate"].to(dt) if cfg.gated_ffn else None,
+        act_name=cfg.hidden_act, gated=cfg.gated_ffn, block_m=bm,
+        use_kernels=use_kernels)
+    return y.reshape(e, cp, h), cp

@@ -1,27 +1,32 @@
 """MoE gate (router): GEMM + softmax + top-k + routing statistics.
 
-Counterpart of ``flashmoe_tpu/ops/gate.py``.  Two implementations of one
-function:
+Counterpart of ``flashmoe_tpu/ops/gate.py``.  Two gates, each a
+hand-written Hopper kernel with its plain torch version beside it:
 
-* :func:`router_plain`, plain torch, the counterpart of ``router_xla``
-  (the oracle, and what a CPU tensor gets);
-* :func:`router_cuda`, the hand-written Hopper kernel in
-  ``csrc/gate.cu``, the port of ``_gate_kernel`` (the single-tile gate).
+* the single-tile gate: :func:`router_cuda` (``csrc/gate.cu``, the port of
+  ``_gate_kernel``) and :func:`router_plain` (the counterpart of
+  ``router_xla``, the oracle), for E <= 256 and K <= 32;
+* the two-pass expert-tiled gate: :func:`router_tiled_cuda` runs
+  :func:`gate_pass1_cuda` (``fm_gate_pass1`` in ``csrc/gate_tiled.cu``, the
+  port of ``_gate_pass1_kernel``) and, when the statistics are needed,
+  :func:`gate_pass2_cuda` (``fm_gate_pass2``, the port of
+  ``_gate_pass2_kernel``); :func:`router_tiled_plain` is their plain
+  version.
 
-The JAX package's two-pass expert-tiled gate (``_gate_pass1_kernel`` /
-``_gate_pass2_kernel``) is not ported yet: E above 256 raises on CUDA.
-
-:func:`router` reaches the kernel through a ``torch.autograd.Function``
-(the counterpart of ``_router_pallas_ad``): its backward recomputes
-:func:`router_plain` under autograd and back-propagates the cotangents
-through it, as the kernel has no backward of its own.
+:func:`router` chooses among them from the configuration alone, as the JAX
+``router`` does (gate.py:532-558), and reaches a kernel through a
+``torch.autograd.Function`` whose backward recomputes :func:`router_plain`
+under autograd, as ``_router_pallas_ad`` and ``_router_tiled_ad`` do.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
@@ -30,6 +35,17 @@ from flashmoe_tpu_torch.models.reference import dot_f32, top_k_lowest_index
 #: limits of the single-pass gate kernel (csrc/gate.cu GEMAX, GKMAX)
 GATE_MAX_EXPERTS = 256
 GATE_MAX_TOP_K = 32
+#: the two-pass gate merges the carried top-k with a tile's K candidates,
+#: 2K entries: at most 128 (one lane row on the TPU, gate.py:397-400;
+#: csrc/gate_tiled.cu TILED_KMAX = 64).  Beyond that the plain router
+#: runs, as JAX runs router_xla.
+TILED_MAX_MERGE = 128
+#: token rows and expert columns of a pass-1 tile (csrc/gate_tiled.cu)
+GATE_TILE = 64
+#: the JAX package's single-tile gate budget and lane width: JAX router
+#: takes its single-tile gate while gate_vmem_bytes stays within it
+_GATE_VMEM_BUDGET = 12 * 2**20
+_LANE = 128
 
 
 class RouterOutput(NamedTuple):
@@ -99,10 +115,10 @@ def router_cuda(x, gate_w, cfg: MoEConfig) -> RouterOutput:
         if t.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"router_cuda takes bf16 or f32, got {t.dtype}")
     if e > GATE_MAX_EXPERTS or k > GATE_MAX_TOP_K:
-        raise NotImplementedError(
+        raise ValueError(
             f"E={e}, K={k}: the single-pass gate kernel takes E <= "
-            f"{GATE_MAX_EXPERTS}, K <= {GATE_MAX_TOP_K}; larger E waits for "
-            f"the two-pass gate kernels (ROADMAP B.4)")
+            f"{GATE_MAX_EXPERTS}, K <= {GATE_MAX_TOP_K}; larger ones take "
+            f"the two-pass gate (router_tiled_cuda)")
     if h % 32 or s < 1:
         raise ValueError(f"router_cuda needs S >= 1 and H % 32 == 0, got "
                          f"S={s}, H={h}")
@@ -138,21 +154,215 @@ def router_cuda(x, gate_w, cfg: MoEConfig) -> RouterOutput:
 router_cuda.launches = 0
 
 
+# ----------------------------------------------------------------------
+# the two-pass expert-tiled gate
+# ----------------------------------------------------------------------
+
+def gate_pass1_plain(x, gate_w, k: int, need_logits: bool):
+    """Plain torch version of pass 1: ``(logits [S, E] f32 or None, m [S],
+    se [S], top_p [S, K], top_i [S, K])``, m the max logit, se the sum of
+    exp(logit - m), top_i the K largest logits (lowest id first on
+    ties) and top_p = exp(top_logit - m) / max(se, 1e-30)."""
+    logits = dot_f32(x, gate_w)
+    m = logits.max(-1).values
+    se = torch.exp(logits - m[:, None]).sum(-1)
+    top_l, top_i = top_k_lowest_index(logits, k)
+    top_p = torch.exp(top_l - m[:, None]) \
+        / torch.clamp(se, min=1e-30)[:, None]
+    return logits if need_logits else None, m, se, top_p, top_i
+
+
+def gate_pass2_plain(logits, m, se, top_i, num_experts: int):
+    """Plain torch version of pass 2: ``(probs_sum [E], counts [E],
+    zsum [])`` from the logits and pass 1's (m, se) and ids."""
+    den = torch.clamp(se, min=1e-30)
+    probs = torch.exp(logits - m[:, None]) / den[:, None]
+    counts = torch.bincount(top_i.reshape(-1).long(), minlength=num_experts)
+    lse = m + torch.log(den)
+    return probs.sum(0), counts, torch.sum(lse * lse)
+
+
+def _router_tiled(pass1, pass2, x, gate_w, cfg: MoEConfig,
+                  need_stats: bool) -> RouterOutput:
+    """Both passes; without ``need_stats`` the counts come from the ids,
+    and the probability sums and the z-loss sum are zero, so aux_loss is
+    0 (JAX's choice, gate.py:437-444)."""
+    e = cfg.num_experts
+    logits, m, se, top_p, top_i = pass1(x, gate_w, cfg.expert_top_k,
+                                        need_stats)
+    if need_stats:
+        probs_sum, counts, zsum = pass2(logits, m, se, top_i, e)
+    else:
+        counts = torch.bincount(top_i.reshape(-1).long(), minlength=e)
+        probs_sum = torch.zeros((e,), dtype=torch.float32, device=x.device)
+        zsum = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _finish(cfg, top_p, top_i, probs_sum, counts, zsum, x.shape[0])
+
+
+def router_tiled_plain(x, gate_w, cfg: MoEConfig,
+                       need_stats: bool) -> RouterOutput:
+    """The two-pass gate in plain torch (``router_pallas_tiled``'s
+    function).  x: [S, H], gate_w: [H, E]."""
+    return _router_tiled(gate_pass1_plain, gate_pass2_plain, x, gate_w, cfg,
+                         need_stats)
+
+
+def gate_pass1_cuda(x, gate_w, k: int, need_logits: bool):
+    """Pass 1 of the two-pass gate (``fm_gate_pass1``) on CUDA tensors:
+    :func:`gate_pass1_plain`'s outputs, top_i int32.  x: [S, H] and
+    gate_w: [H, E], bf16 or f32 (mixed dtypes are upcast to f32, which is
+    exact); H % 64 == 0 and 1 <= K <= min(E, 64).  Rows are padded to the
+    64-token tile and columns to the 64-expert tile here, where needed."""
+    s, h = x.shape
+    e = gate_w.shape[1]
+    if gate_w.shape[0] != h:
+        raise ValueError(f"gate_w {tuple(gate_w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    for t in (x, gate_w):
+        if t.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"gate_pass1_cuda takes bf16 or f32, got "
+                             f"{t.dtype}")
+    if s < 1 or h % GATE_TILE or not 1 <= k <= min(e, TILED_MAX_MERGE // 2):
+        raise ValueError(f"gate_pass1_cuda needs S >= 1, H % {GATE_TILE} "
+                         f"== 0 and 1 <= K <= min(E, "
+                         f"{TILED_MAX_MERGE // 2}), got S={s}, H={h}, E={e}, "
+                         f"K={k}")
+    _build.refuse_autograd("gate_pass1_cuda", x, gate_w)
+    dt = x.dtype if x.dtype == gate_w.dtype else torch.float32
+    sp = -(-s // GATE_TILE) * GATE_TILE
+    px = -(-e // GATE_TILE) * GATE_TILE
+    x, gate_w = x.to(dt), gate_w.to(dt)
+    if sp != s:
+        x = F.pad(x, (0, 0, 0, sp - s))
+    if px != e:
+        gate_w = F.pad(gate_w, (0, px - e))
+    x, gate_w = x.contiguous(), gate_w.contiguous()
+    _build.require_cuda("gate_pass1_cuda", x, gate_w)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    logits = torch.empty((s, e), **f32) if need_logits else None
+    m = torch.empty((s,), **f32)
+    se = torch.empty((s,), **f32)
+    top_p = torch.empty((s, k), **f32)
+    top_i = torch.empty((s, k), dtype=torch.int32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.fm_gate_pass1(
+            int(dt == torch.bfloat16), x.data_ptr(), gate_w.data_ptr(), s, h,
+            e, px, k, None if logits is None else logits.data_ptr(),
+            m.data_ptr(), se.data_ptr(), top_p.data_ptr(), top_i.data_ptr(),
+            _build.stream_of(x))
+    _build.check(err, "fm_gate_pass1")
+    gate_pass1_cuda.launches += 1
+    return logits, m, se, top_p, top_i
+
+
+gate_pass1_cuda.launches = 0
+
+
+def gate_pass2_cuda(logits, m, se, top_i, num_experts: int):
+    """Pass 2 of the two-pass gate (``fm_gate_pass2``) on CUDA tensors:
+    :func:`gate_pass2_plain`'s outputs, counts int32.  logits f32 [S, E],
+    m and se f32 [S], top_i [S, K] with K <= 64."""
+    s, e = logits.shape
+    k = top_i.shape[1]
+    if e != num_experts or m.shape != (s,) or se.shape != (s,) \
+            or top_i.shape[0] != s or not 1 <= k <= TILED_MAX_MERGE // 2:
+        raise ValueError(
+            f"gate_pass2_cuda shapes: logits {tuple(logits.shape)}, m "
+            f"{tuple(m.shape)}, se {tuple(se.shape)}, top_i "
+            f"{tuple(top_i.shape)}, E={num_experts}")
+    if any(t.dtype != torch.float32 for t in (logits, m, se)):
+        raise ValueError("gate_pass2_cuda takes f32 logits, m and se")
+    _build.refuse_autograd("gate_pass2_cuda", logits, m, se)
+    top_i = top_i.to(torch.int32).contiguous()
+    _build.require_cuda("gate_pass2_cuda", logits, m, se, top_i)
+    nb = -(-s // 32)  # csrc/gate_tiled.cu P2_ROWS
+    f32 = dict(dtype=torch.float32, device=logits.device)
+    i32 = dict(dtype=torch.int32, device=logits.device)
+    part_p = torch.empty((nb, e), **f32)
+    part_c = torch.empty((nb, e), **i32)
+    part_z = torch.empty((nb,), **f32)
+    probs_sum = torch.empty((e,), **f32)
+    counts = torch.empty((e,), **i32)
+    zsum = torch.empty((), **f32)
+    lib = _build.library()
+    with torch.cuda.device(logits.device):
+        err = lib.fm_gate_pass2(
+            logits.data_ptr(), m.data_ptr(), se.data_ptr(), top_i.data_ptr(),
+            s, e, k, part_p.data_ptr(), part_c.data_ptr(), part_z.data_ptr(),
+            probs_sum.data_ptr(), counts.data_ptr(), zsum.data_ptr(),
+            _build.stream_of(logits))
+    _build.check(err, "fm_gate_pass2")
+    gate_pass2_cuda.launches += 1
+    return probs_sum, counts, zsum
+
+
+gate_pass2_cuda.launches = 0
+
+
+def router_tiled_cuda(x, gate_w, cfg: MoEConfig,
+                      need_stats: bool) -> RouterOutput:
+    """The two-pass gate's kernels on CUDA tensors: pass 1, then pass 2
+    when ``need_stats``."""
+    return _router_tiled(gate_pass1_cuda, gate_pass2_cuda, x, gate_w, cfg,
+                         need_stats)
+
+
+def gate_vmem_bytes(s: int, h: int, e: int, dtype: torch.dtype) -> int:
+    """The JAX package's static VMEM estimate of its single-tile gate
+    (gate.py:484-495), the arithmetic copied: :func:`tiled_need_stats`
+    needs to know where JAX router takes that gate."""
+    px = max(_LANE, ((e + _LANE - 1) // _LANE) * _LANE)
+    bm = next(b for b in (128, 64, 32, 16, 8) if s % b == 0) if s % 8 == 0 \
+        else 128
+    item = dtype.itemsize
+    return h * px * item + bm * h * item + 4 * bm * px * 4 + 8 * px * 4
+
+
+def tiled_need_stats(cfg: MoEConfig, s: int, h: int,
+                     dtype: torch.dtype) -> bool:
+    """Whether the two-pass gate runs pass 2 for S tokens of width H.
+
+    Wherever JAX router would compute the statistics itself, the port
+    does too, since its cut-over (E > 256) is not JAX's (a VMEM budget):
+    JAX takes ``router_xla`` when S % 8 != 0, and its single-tile gate
+    while :func:`gate_vmem_bytes` stays within the budget, and both always
+    compute them.  Elsewhere, as ``router_pallas_tiled`` (gate.py:351-356):
+    training, a z-loss, ``collect_stats`` or ``FLASHMOE_GATE_STATS=1``."""
+    if s % 8 or gate_vmem_bytes(s, h, cfg.num_experts, dtype) \
+            <= _GATE_VMEM_BUDGET:
+        return True
+    return bool(cfg.is_training or cfg.router_z_loss_coef > 0
+                or cfg.collect_stats
+                or os.environ.get("FLASHMOE_GATE_STATS") == "1")
+
+
 def apply_replicas(out: RouterOutput, cfg: MoEConfig) -> RouterOutput:
-    """Hot-expert replica routing.  The port's config carries no replica
-    map yet (ROADMAP A.3), so this is the identity, as the JAX function
-    is with its map empty."""
-    return out
+    """Hot-expert replica routing (``cfg.expert_replicas``): for each
+    (hot, slot) pair, the odd-numbered tokens that selected ``hot`` go to
+    its value-identical replica ``slot`` instead, and ``expert_counts`` is
+    recounted over the remapped ids; ``aux_loss`` and ``probs_mean`` keep
+    the router's view.  An empty map is the identity."""
+    if not cfg.expert_replicas:
+        return out
+    idx = out.expert_idx
+    odd = (torch.arange(idx.shape[0], device=idx.device) % 2 == 1)[:, None]
+    for hot, slot in cfg.expert_replicas:
+        idx = torch.where((idx == hot) & odd,
+                          torch.full_like(idx, slot), idx)
+    counts = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+    return out._replace(expert_idx=idx, expert_counts=counts)
 
 
 class _RouterAD(torch.autograd.Function):
-    """Forward: the gate kernel.  Backward: :func:`router_plain` recomputed
-    under autograd on the saved inputs, the cotangents pulled back through
-    it.  The ids and counts are integers and carry no gradient."""
+    """Forward: ``fn`` (a gate kernel, or the two-pass gate's plain
+    version).  Backward: :func:`router_plain` recomputed under autograd on
+    the saved inputs, the cotangents pulled back through it.  The ids and
+    counts are integers and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, gate_w, cfg):
-        out = router_cuda(x, gate_w, cfg)
+    def forward(ctx, x, gate_w, cfg, fn):
+        out = fn(x, gate_w, cfg)
         ctx.save_for_backward(x, gate_w)
         ctx.cfg = cfg
         ctx.set_materialize_grads(False)
@@ -172,16 +382,30 @@ class _RouterAD(torch.autograd.Function):
                     grads.append(ct)
             dx, dw = torch.autograd.grad(outs, (xs, ws), grads,
                                          allow_unused=True)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def router(x, gate_w, cfg: MoEConfig, use_kernels: bool | None = None
            ) -> RouterOutput:
-    """The gate kernel on CUDA tensors, differentiable through
-    ``_RouterAD``; the plain version on CPU ones (or when
-    ``use_kernels=False``)."""
-    if _build.use_kernels_for(x, use_kernels):
-        out = RouterOutput(*_RouterAD.apply(x, gate_w, cfg))
+    """Route x: [S, H] through gate_w: [H, E], differentiably.
+
+    E <= 256 and K <= 32: the single-tile gate kernel (through
+    ``_RouterAD``) on CUDA tensors, :func:`router_plain` on CPU ones (or
+    with ``use_kernels=False``).  Otherwise, while 2K <= 128: the two-pass
+    gate, kernels on CUDA tensors and their plain version on CPU ones, with
+    pass 2 as :func:`tiled_need_stats` decides.  Beyond that,
+    :func:`router_plain`, as JAX takes ``router_xla`` (gate.py:554-557): a
+    choice made from the configuration alone."""
+    uk = _build.use_kernels_for(x, use_kernels)
+    e, k = cfg.num_experts, cfg.expert_top_k
+    if e <= GATE_MAX_EXPERTS and k <= GATE_MAX_TOP_K:
+        out = RouterOutput(*_RouterAD.apply(x, gate_w, cfg, router_cuda)) \
+            if uk else router_plain(x, gate_w, cfg)
+    elif 2 * k <= TILED_MAX_MERGE:
+        fn = functools.partial(
+            router_tiled_cuda if uk else router_tiled_plain,
+            need_stats=tiled_need_stats(cfg, *x.shape, x.dtype))
+        out = RouterOutput(*_RouterAD.apply(x, gate_w, cfg, fn))
     else:
         out = router_plain(x, gate_w, cfg)
     return apply_replicas(out, cfg)

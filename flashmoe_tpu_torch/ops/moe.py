@@ -1,6 +1,6 @@
 """Single-device MoE layer: gate -> dispatch -> grouped FFN -> combine.
 
-Counterpart of ``flashmoe_tpu/ops/moe.py:57-209``.  Two arms, as the JAX
+Counterpart of ``flashmoe_tpu/ops/moe.py:35-209``.  Two arms, as the JAX
 layer has with ``use_pallas=True``:
 
 * dropless (``drop_tokens=False``): the ragged
@@ -8,17 +8,26 @@ layer has with ``use_pallas=True``:
 * capacity: the [E, C, H] dispatch buffer, the grouped FFN over it, and a
   renormalizing combine that zeroes dropped slots.
 
+At inference with ``gather_fused`` (or ``FLASHMOE_GATHER_FUSED=1``) both
+arms skip the dispatch buffer: the gather-fused FFN reads each row from
+the tokens through the plan's map (``ops/expert.py``).  With
+``collect_stats`` the output carries the layer's :class:`MoEStats`, and
+with ``degrade_unhealthy_experts`` a non-finite expert's contribution is
+masked before the combine (``ops/health.py``).
+
 E == 1 takes the dense FFN.  The gate and the grouped FFN run their CUDA
 kernels on CUDA tensors and their plain versions on CPU tensors.  Both
 arms are differentiable: the gate through its recompute backward
 (``ops/gate.py``), the grouped FFN through :func:`grouped_ffn_ad` /
 :func:`capacity_buffer_ffn_ad` (residual-saving forward, grouped-matmul
-backward), and the plans, gathers and combines through torch autograd.
+backward) or, on the gather-fused path, through its re-gathering
+backward, and the plans, gathers and combines through torch autograd.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+from typing import Any, NamedTuple
 
 import torch
 
@@ -28,8 +37,18 @@ from flashmoe_tpu_torch.models.reference import (activation_fn, dot_f32,
                                                  shared_expert_ffn)
 from flashmoe_tpu_torch.ops import dispatch as dsp
 from flashmoe_tpu_torch.ops import expert as exp
+from flashmoe_tpu_torch.ops import health as hlt
 from flashmoe_tpu_torch.ops import ragged as rag
 from flashmoe_tpu_torch.ops.gate import router
+from flashmoe_tpu_torch.ops.stats import moe_stats
+
+
+def _gather_fused(cfg: MoEConfig) -> bool:
+    """Whether inference takes the gather-fused FFN: the config field, or
+    when it is None, ``FLASHMOE_GATHER_FUSED=1`` (``ops/moe.py:35-43``)."""
+    if cfg.gather_fused is not None:
+        return cfg.gather_fused
+    return os.environ.get("FLASHMOE_GATHER_FUSED") == "1"
 
 
 class MoEOutput(NamedTuple):
@@ -37,6 +56,7 @@ class MoEOutput(NamedTuple):
     aux_loss: torch.Tensor
     z_loss: torch.Tensor
     expert_counts: torch.Tensor  # [E]
+    stats: Any = None  # MoEStats with cfg.collect_stats, else None
 
 
 def dense_ffn(params, x, cfg: MoEConfig):
@@ -70,27 +90,55 @@ def moe_layer(params, x, cfg: MoEConfig, *, use_kernels: bool | None = None
     r = router(x, params["gate_w"], cfg, use_kernels=uk)
     dt = cfg.dtype
     xs = x.to(dt)
+    gather = not cfg.is_training and _gather_fused(cfg)
+    stats = None
+    if cfg.collect_stats:
+        stats = moe_stats(r, cfg, None if not cfg.drop_tokens
+                          else cfg.capacity_for(x.shape[0]))
+    combine_w = r.combine_weights
     ffn = dict(act_name=cfg.hidden_act, gated=cfg.gated_ffn, use_kernels=uk)
     if not cfg.drop_tokens:
         bm = exp.ROW_TILE
         plan = rag.make_ragged_plan(r.expert_idx, cfg, bm)
-        xbuf = rag.ragged_dispatch(xs, plan, cfg, bm)
-        ybuf = exp.grouped_ffn_ad(
-            xbuf, plan.tile_gid, params["w_up"].to(dt), params["b_up"],
-            params["w_down"].to(dt), params["b_down"],
-            params["w_gate"].to(dt) if cfg.gated_ffn else None,
-            block_m=bm, num_rows=plan.num_rows, **ffn)
-        out = rag.ragged_combine(ybuf, plan, r.combine_weights, cfg)
+        tail = (params["w_up"].to(dt), params["b_up"],
+                params["w_down"].to(dt), params["b_down"],
+                params["w_gate"].to(dt) if cfg.gated_ffn else None)
+        if gather:
+            ybuf = exp.grouped_ffn_tokens_ad(
+                xs, plan.src_tok, plan.tile_gid, *tail, block_m=bm,
+                num_rows=plan.num_rows, **ffn)
+        else:
+            xbuf = rag.ragged_dispatch(xs, plan, cfg, bm)
+            ybuf = exp.grouped_ffn_ad(xbuf, plan.tile_gid, *tail, block_m=bm,
+                                      num_rows=plan.num_rows, **ffn)
+        if cfg.degrade_unhealthy_experts:
+            # ragged_combine does not renormalize: the mask does
+            healthy = hlt.expert_health_tiles(ybuf, plan.tile_gid,
+                                              cfg.num_experts, bm)
+            ybuf, combine_w = hlt.degrade_outputs(
+                ybuf, combine_w, r.expert_idx, healthy, renormalize=True)
+        out = rag.ragged_combine(ybuf, plan, combine_w, cfg)
     else:
         # capacity from this call's token count, not the config's nominal
         # sequence length
         cap = cfg.capacity_for(x.shape[0])
         plan = dsp.make_plan(r.expert_idx, cfg, cap)
-        xbuf = dsp.dispatch(xs, plan, cfg, cap)
-        ybuf = exp.capacity_buffer_ffn_ad(xbuf, params, cfg,
-                                          use_kernels=uk)
-        out = dsp.combine(ybuf, plan, r.combine_weights, cfg, cap)
+        if gather:
+            ybuf, cap = exp.capacity_ffn_gather(xs, plan, cfg, cap, params,
+                                                use_kernels=uk)
+        else:
+            xbuf = dsp.dispatch(xs, plan, cfg, cap)
+            ybuf = exp.capacity_buffer_ffn_ad(xbuf, params, cfg,
+                                              use_kernels=uk)
+        if cfg.degrade_unhealthy_experts:
+            # dsp.combine renormalizes the surviving weights itself
+            healthy = hlt.expert_health_capacity(ybuf)
+            ybuf, combine_w = hlt.degrade_outputs(ybuf, combine_w,
+                                                  r.expert_idx, healthy)
+        out = dsp.combine(ybuf, plan, combine_w, cfg, cap)
+    if cfg.degrade_unhealthy_experts and stats is not None:
+        stats = hlt.attach_degradation(stats, healthy, r.expert_idx)
     if cfg.num_shared_experts:
         out = out + shared_expert_ffn(xs, params, cfg)
     return MoEOutput(out.to(dt), r.aux_loss * cfg.aux_loss_coef, r.z_loss,
-                     r.expert_counts)
+                     r.expert_counts, stats)

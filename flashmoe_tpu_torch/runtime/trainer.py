@@ -23,6 +23,7 @@ import torch
 
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.models import transformer
+from flashmoe_tpu_torch.ops.stats import stats_to_host
 from flashmoe_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -236,6 +237,25 @@ def make_train_step(cfg: MoEConfig, optimizer: Optimizer,
     return step_fn
 
 
+def host_metrics(step_metrics: dict, moe_layers=None) -> dict:
+    """A step's metrics as one JSON-ready dict (``host_metrics``): scalars
+    to floats, and the MoE layers' stats (``moe_stats``, present with
+    ``cfg.collect_stats``) to a ``moe`` list of flight-recorder dicts,
+    each with its transformer ``layer`` from ``moe_layers`` (by default
+    its position)."""
+    out: dict = {}
+    for k, v in step_metrics.items():
+        if k == "moe_stats":
+            out["moe"] = [
+                dict(layer=(moe_layers[i] if moe_layers is not None
+                            and i < len(moe_layers) else i),
+                     **stats_to_host(st))
+                for i, st in enumerate(v)]
+        else:
+            out[k] = float(v)
+    return out
+
+
 def train(cfg: MoEConfig, data_iter, num_steps: int,
           generator: torch.Generator | None = None, log_every: int = 10,
           state: TrainState | None = None,
@@ -259,7 +279,7 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         if i % log_every == 0 or i == num_steps - 1:
-            rec = {k: float(v) for k, v in metrics.items()}
+            rec = host_metrics(metrics, cfg.moe_layer_indices)
             rec["step_ms"] = (time.perf_counter() - t0) * 1e3
             history.append(rec)
     return state, history

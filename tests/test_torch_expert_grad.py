@@ -200,7 +200,8 @@ def test_router_recompute_backward_matches_plain_autograd(monkeypatch):
         assert not out.expert_counts.requires_grad
         return torch.autograd.grad(loss, (x, w))
 
-    got = grads(lambda x, w: gate._RouterAD.apply(x, w, cfg))
+    got = grads(lambda x, w: gate._RouterAD.apply(x, w, cfg,
+                                                  gate.router_cuda))
     want = grads(lambda x, w: gate.router_plain(x, w, cfg))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

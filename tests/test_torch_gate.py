@@ -158,5 +158,5 @@ def test_gate_kernel_refuses_cpu_tensors():
         router_cuda(x, w, tc)
     _, big = _cfgs(num_experts=300, expert_top_k=2, hidden_size=64)
     x, w = (torch.from_numpy(a) for a in _inputs(16, 64, 300))
-    with pytest.raises(NotImplementedError, match="two-pass"):
+    with pytest.raises(ValueError, match="two-pass"):
         router_cuda(x, w, big)
