@@ -26,14 +26,25 @@ Phases, each of which fails the run on any error:
    tokens but at a near-tie routing flip); every step's logits against
    ``forward`` over the whole sequence, and every prefill MoE layer
    against the dense oracle ``reference_moe``;
-5. many-expert layer: one MoE layer at Qwen3-Next-80B-A3B's MoE widths
+5. ep: expert parallelism over 8 virtual ranks of a local mesh: the ep
+   path, ``forward`` at Mixtral widths (4 layers, 4 x 256 tokens) with
+   the fused backend (counts reset before, read after) and the
+   collective one, each against the one-device forward; the fused
+   kernel (B5) at that path's shapes against its plain version, timed
+   with the library yardstick; then one Mixtral-width MoE layer at 8192
+   tokens (dropless) and the FlashMoE reference layer (capacity 32 a
+   rank and expert): B5 against its plain version, the fused layer
+   against its plain version, the collective layer and (dropless) the
+   single-device layer, the in-kernel combine against the layer's, each
+   timed, one fused layer profiled;
+6. many-expert layer: one MoE layer at Qwen3-Next-80B-A3B's MoE widths
    (E 512, top-10, H 2048, I 512, one shared expert, 8192 tokens, bf16):
    inference with the gather-fused FFN off, on, and on with
    ``collect_stats`` (the many-expert path: counts reset before each,
    read after), each against the plain versions and ``reference_moe``,
    the stats against the plain run's; then forward and backward in
    training against a plain run replaying its routing;
-6. train: Mixtral-8x7B's widths with 2 layers, bf16 weights and AdamW:
+7. train: Mixtral-8x7B's widths with 2 layers, bf16 weights and AdamW:
    three ``make_train_step`` steps on 4 x 257 tokens (the training path:
    counts reset before the first step, read after it); every gradient
    against the plain versions', the loss lower after one SGD step, and the
@@ -65,6 +76,7 @@ from flashmoe_tpu_torch.models import (generate, presets,  # noqa: E402
                                        reference, transformer)
 from flashmoe_tpu_torch.ops import (attention, expert, gate,  # noqa: E402
                                     moe, ragged)
+from flashmoe_tpu_torch.parallel import ep, fused, mesh  # noqa: E402
 from flashmoe_tpu_torch.runtime import trainer  # noqa: E402
 from flashmoe_tpu_torch.tree import tree_leaves  # noqa: E402
 
@@ -755,6 +767,224 @@ def gather_phase(cfg, params, x):
                 flops=2 * rows * h * i * 3))
 
 
+def fused_kernel_row(tag, cfg, params, x, m, iters):
+    """B5 on the shard inputs the fused layer builds for tokens x: against
+    its plain version at populated rows (or on the combined output),
+    timed beside the plain version and the library yardstick (the
+    exchange as a transpose, then the per-expert ``addmm`` loop over each
+    owner's slabs).  The kernel's other processing order (``stream``
+    against ``batched``) is checked and timed beside the one the layer
+    chose.  Returns the kernels-line entry."""
+    fi = fused.fused_inputs(params, x, cfg, m)
+    kw = {k: v for k, v in fi.kw.items() if k != "use_kernels"}
+    send_cnt, _, x_send, w_up, b_up, w_down, b_down, w_gate = fi.args
+    other = "stream" if kw["schedule"] in ("batched", "rowwin") else "batched"
+    okw = dict(kw, schedule=other)
+    got = fused.fused_shard_cuda(*fi.args, **kw)
+    alt = fused.fused_shard_cuda(*fi.args, **okw)
+    want = fused.fused_shard_plain(*fi.args, **kw)
+    torch.cuda.synchronize()
+    d, _, nlx, c, h = x_send.shape
+    i = w_down.shape[1]
+    if "recv_pos" not in kw:
+        live = torch.arange(c, device=x.device) < send_cnt[..., None]
+        got, alt, want = got[live], alt[live], want[live]
+    check(bool(torch.isfinite(got).all()), f"fused_ep {tag}: finite")
+    err, nerr = max_abs(got, want), normwise(got, want)
+    check(nerr <= BF16_NORMWISE_TOL, f"fused_ep {tag}: normwise err {nerr}")
+    alt_err = normwise(alt, want)
+    check(alt_err <= BF16_NORMWISE_TOL,
+          f"fused_ep {tag} {other}: normwise err {alt_err}")
+    dt = x_send.dtype
+    act = reference.activation_fn(cfg.hidden_act)
+
+    def library():
+        x_recv = x_send.transpose(0, 1).contiguous()  # [owner, src, ...]
+        y = torch.empty_like(x_recv)
+        for r in range(d):
+            for e in range(nlx):
+                g = r * nlx + e
+                xe = x_recv[r, :, e].reshape(d * c, h)
+                u = torch.addmm(b_up[g].to(dt), xe, w_up[g])
+                hid = act(xe @ w_gate[g]) * u if cfg.gated_ffn else act(u)
+                y[r, :, e] = torch.addmm(b_down[g].to(dt), hid,
+                                         w_down[g]).reshape(d, c, h)
+        return y.transpose(0, 1).contiguous()
+
+    rows = int(send_cnt.sum())
+    touched = int((send_cnt.sum(0) > 0).sum())  # (owner, expert) pairs
+    n_mats = 3 if cfg.gated_ffn else 2
+    entry = dict(
+        name="fused_ep", route="cuda",
+        source="flashmoe_tpu_torch/csrc/fused_ep.cu",
+        replaces="flashmoe_tpu/parallel/fused.py:115", max_abs_err=err,
+        ms=cuda_ms(lambda: fused.fused_shard_cuda(*fi.args, **kw), iters),
+        plain_ms=cuda_ms(lambda: fused.fused_shard_plain(*fi.args, **kw),
+                         1),
+        library_ms=cuda_ms(library, iters),
+        **bound(bytes_=2 * rows * h * dt.itemsize + 4 * d * d * nlx
+                + touched * (n_mats * h * i * dt.itemsize + 4 * (i + h)),
+                flops=2 * rows * h * i * n_mats))
+    other_ms = cuda_ms(lambda: fused.fused_shard_cuda(*fi.args, **okw),
+                       iters)
+    print(f"fused_ep {tag}: D={d} nLx={nlx} C={c} H={h} I={i} {dt} "
+          f"gated={cfg.gated_ffn} schedule={kw['schedule']} "
+          f"combine={'recv_pos' in kw} live_rows={rows}: normwise_err="
+          f"{nerr:.3g} (tol {BF16_NORMWISE_TOL}) max_abs_err={err:.3g} "
+          f"{other}_normwise_err={alt_err:.3g} "
+          f"ms={entry['ms']:.4f} {other}_ms={other_ms:.4f} "
+          f"plain_ms={entry['plain_ms']:.4f} "
+          f"library_ms={entry['library_ms']:.4f} bound_ms="
+          f"{entry['bound_ms']:.4f} ({entry['bound_by']}) ({gpu_line()})")
+    return entry
+
+
+def ep_layer_phase(tag, cfg, params, x, iters):
+    """One MoE layer over 8 virtual ranks of a local mesh: the fused
+    layer (B5; counts reset before, read after) against its plain
+    version, the collective layer (B2 on each rank), the in-kernel
+    combine against the layer's, and, dropless, the single-device layer:
+    the same routing, so the same tokens meet the same experts.  Timed on
+    CUDA events; one fused and one collective layer profiled."""
+    m = mesh.local_mesh(cfg.ep, "cuda")
+    fcfg = cfg.replace(moe_backend="fused")
+    rk = gate.router_cuda(x, params["gate_w"], cfg)
+    rp = gate.router_plain(x, params["gate_w"], cfg)
+    flips = routing_flips(rk.expert_idx, rp.expert_idx, torch.softmax(
+        reference.dot_f32(x, params["gate_w"]), -1))
+    fused_row = fused_kernel_row(tag, fcfg, params, x, m, iters)
+    reset_counts()
+    got = fused.fused_ep_moe_layer(params, x, fcfg, m)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["fused_ep"] == 1 and counts["grouped_ffn"] == 0
+          and counts["gate"] == cfg.ep, f"{tag} fused launches {counts}")
+    plain = fused.fused_ep_moe_layer(params, x, fcfg, m, use_kernels=False)
+    layer_agreement(f"{tag} fused vs plain", got.out, plain.out, flips)
+    reset_counts()
+    coll = ep.ep_moe_layer(params, x, cfg, m)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["grouped_ffn"] == cfg.ep and counts["fused_ep"] == 0,
+          f"{tag} collective launches {counts}")
+    layer_agreement(f"{tag} fused vs collective", got.out, coll.out, 0)
+    check(torch.equal(got.expert_counts, coll.expert_counts),
+          f"{tag}: expert counts")
+    os.environ["FLASHMOE_FUSED_COMBINE"] = "1"
+    try:
+        comb = fused.fused_ep_moe_layer(params, x, fcfg, m)
+        layer_agreement(f"{tag} in-kernel combine vs layer combine",
+                        comb.out, got.out, 0)
+        comb_ms = cuda_ms(lambda: fused.fused_ep_moe_layer(params, x, fcfg,
+                                                            m), iters)
+    finally:
+        del os.environ["FLASHMOE_FUSED_COMBINE"]
+    times = dict(fused=cuda_ms(lambda: fused.fused_ep_moe_layer(
+        params, x, fcfg, m), iters), fused_combine=comb_ms,
+        collective=cuda_ms(lambda: ep.ep_moe_layer(params, x, cfg, m),
+                           iters))
+    if not cfg.drop_tokens:
+        single = moe.moe_layer(params, x, cfg.replace(ep=1))
+        layer_agreement(f"{tag} fused vs single-device moe_layer", got.out,
+                        single.out, 0)
+        times["single_device"] = cuda_ms(lambda: moe.moe_layer(
+            params, x, cfg.replace(ep=1)), iters)
+    print(f"{tag}: E={cfg.num_experts} K={cfg.expert_top_k} "
+          f"H={cfg.hidden_size} I={cfg.intermediate_size} S={x.shape[0]} "
+          f"ep={cfg.ep} capacity={ep.local_capacity(cfg, x.shape[0] // cfg.ep)}"
+          f" layer_ms " + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+          + f" routing_flips={flips} ({gpu_line()})")
+    device_breakdown(f"{tag} fused layer",
+                     lambda: fused.fused_ep_moe_layer(params, x, fcfg, m))
+    device_breakdown(f"{tag} collective layer",
+                     lambda: ep.ep_moe_layer(params, x, cfg, m))
+    return fused_row
+
+
+def ep_forward_phase(cfg, params):
+    """The ep path: ``forward`` at Mixtral widths over 8 virtual ranks,
+    4 x 256 tokens, with the fused backend (counts reset before, read
+    after) and the collective one, each against the one-device forward
+    within the serve phase's tolerances."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b = 4
+    tokens = torch.randint(0, cfg.vocab_size, (b, 256), device="cuda",
+                           generator=g)
+    with RoutingLog() as one:
+        want, _ = transformer.forward(params, tokens, cfg)
+    m = mesh.local_mesh(8, "cuda")
+    out = {}
+    for backend in ("fused", "collective"):
+        ecfg = cfg.replace(ep=8, moe_backend=backend)
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, _ = transformer.forward(params, tokens, ecfg, mesh=m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        with RoutingLog() as rl:
+            again, _ = transformer.forward(params, tokens, ecfg, mesh=m)
+        check(torch.equal(again, got), f"ep forward {backend}: repeatable")
+        n = cfg.num_layers
+        fused_on = backend == "fused"
+        check(counts["fused_ep"] == (n if fused_on else 0)
+              and counts["grouped_ffn"] == (0 if fused_on else 8 * n)
+              and counts["gate"] == 8 * n and counts["flash_attention"] == n,
+              f"ep forward {backend} launches {counts}")
+        rows = (torch.linalg.vector_norm(got - want, dim=-1)
+                / torch.linalg.vector_norm(want, dim=-1))
+        # a near-tie routing flip between the two forwards moves the
+        # logits of its position and of the later ones of its sequence
+        excused, n_flips, gap = serve_flips(cfg, rl, one, b, ranks=8)
+        held = rows[~excused]
+        med = float(rows.median())
+        worst = float(held.max()) if held.numel() else 0.0
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"ep forward {backend}: finite logits of {tuple(want.shape)}")
+        check(med <= SERVE_MEDIAN_TOL and worst <= SERVE_ROW_TOL
+              and gap <= SERVE_NEAR_TIE,
+              f"ep forward {backend} vs ep 1: median {med}, max without "
+              f"a flip {worst}, largest flip gap {gap}")
+        print(f"ep forward {backend}: mixtral_8x7b layers={n} B={b} T=256 "
+              f"ep=8 (local mesh) forward_ms={ms:.3f} logits vs ep 1: "
+              f"median_normwise={med:.3g} (tol {SERVE_MEDIAN_TOL}) "
+              f"max_normwise={float(rows.max()):.3g} "
+              f"max_normwise_without_flip={worst:.3g} (tol {SERVE_ROW_TOL}) "
+              f"rows_after_a_flip={int(excused.sum())}/{rows.numel()} "
+              f"routing_flips={n_flips} largest_flip_gap={gap:.3g} (tol "
+              f"{SERVE_NEAR_TIE}) launches={counts}")
+        out[backend] = counts
+    return out["fused"]
+
+
+def ep_phase(cfg, params):
+    """Expert parallelism over 8 virtual ranks on the card: the ep path
+    (``forward`` with a mesh), B5 at the shapes it gives the kernel, one
+    Mixtral-width MoE layer at 8192 tokens and the FlashMoE reference
+    layer.  Returns (B5's kernels-line entry, the ep path's launches)."""
+    launches = ep_forward_phase(cfg, params)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    moe0 = params["layers"][0]["moe"]
+    x = torch.randn(1024, cfg.hidden_size, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    entry = fused_kernel_row("ep forward shapes",
+                             cfg.replace(ep=8, moe_backend="fused"), moe0, x,
+                             mesh.local_mesh(8, "cuda"), 10)
+    x = torch.randn(8192, cfg.hidden_size, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    ep_layer_phase("ep mixtral layer", cfg.replace(ep=8), moe0, x, 3)
+    del x
+    rcfg = presets.flashmoe_reference(param_dtype=torch.bfloat16, ep=8)
+    rparams = reference.init_moe_params(g, rcfg, device="cuda")
+    rx = torch.randn(rcfg.tokens, rcfg.hidden_size, device="cuda",
+                     generator=g, dtype=torch.bfloat16)
+    ep_layer_phase("ep reference layer", rcfg, rparams, rx, 5)
+    del rparams, rx
+    torch.cuda.empty_cache()
+    return entry, launches
+
+
 # ----------------------------------------------------------------------
 # layer and model phases
 # ----------------------------------------------------------------------
@@ -787,6 +1017,7 @@ def reset_counts():
 SERVE_KERNELS = ("gate", "grouped_ffn", "flash_attention")
 TRAIN_KERNELS = ("grouped_ffn_res", "grouped_matmul", "tgmm")
 MANY_EXPERT_KERNELS = ("gate_pass1", "gate_pass2", "grouped_ffn_tokens")
+EP_KERNELS = ("fused_ep",)
 
 
 def kernel_fns():
@@ -798,7 +1029,8 @@ def kernel_fns():
             "tgmm": expert.tgmm_cuda,
             "gate_pass1": gate.gate_pass1_cuda,
             "gate_pass2": gate.gate_pass2_cuda,
-            "grouped_ffn_tokens": expert.grouped_ffn_tokens_cuda}
+            "grouped_ffn_tokens": expert.grouped_ffn_tokens_cuda,
+            "fused_ep": fused.fused_shard_cuda}
 
 
 def launch_counts():
@@ -1329,8 +1561,11 @@ class ReplayRouting:
 
 
 class RoutingLog:
-    """While active, records every gate call that ``moe_layer`` makes:
-    the top-k ids and the softmax probabilities of its tokens."""
+    """While active, records every gate call that ``moe_layer`` and the
+    expert-parallel layers make (one a rank): the top-k ids and the
+    softmax probabilities of its tokens."""
+
+    MODULES = (moe, ep, fused)
 
     def __enter__(self):
         self.calls, self._router = [], moe.router
@@ -1341,22 +1576,29 @@ class RoutingLog:
             self.calls.append((out.expert_idx, probs.detach()))
             return out
 
-        moe.router = recorded
+        for mod in self.MODULES:
+            mod.router = recorded
         return self
 
     def __exit__(self, *exc):
-        moe.router = self._router
+        for mod in self.MODULES:
+            mod.router = self._router
 
-    def per_position(self, n_layers, b):
+    def per_position(self, n_layers, b, ranks=1):
         """Layer by layer, ids [B, T, K] and probs [B, T, E] over all the
         positions the recorded calls covered, in call order: a prefill or
-        forward call covers [B, T] tokens, a decode step [B, 1]."""
+        forward call covers [B, T] tokens, a decode step [B, 1]; an
+        expert-parallel layer's ``ranks`` calls (one per rank, in token
+        order) count as one."""
+        calls = [tuple(torch.cat([c[j] for c in self.calls[i:i + ranks]])
+                       for j in (0, 1))
+                 for i in range(0, len(self.calls), ranks)]
         out = []
         for li in range(n_layers):
-            calls = self.calls[li::n_layers]
+            calls_li = calls[li::n_layers]
             out.append(tuple(
                 torch.cat([c[j].reshape(b, -1, c[j].shape[-1])
-                           for c in calls], 1) for j in (0, 1)))
+                           for c in calls_li], 1) for j in (0, 1)))
         return out
 
 
@@ -1390,20 +1632,20 @@ def serve_gather_tokens(cfg, tokens, gtokens, replay, greplay, t0):
           f"(tol {SERVE_NEAR_TIE})")
 
 
-def serve_flips(cfg, replay, fwd, b):
-    """Compare generate's routing (prefill + decode steps) with forward's,
-    position by position.  Returns ([B, T] true at every position at or
-    after a routing flip in its sequence, the number of (layer, token)
-    flips, the largest gap of forward's k-th and (k+1)-th probabilities
-    at a flip)."""
+def serve_flips(cfg, replay, fwd, b, ranks=1):
+    """Compare generate's (or an expert-parallel forward's, ``ranks``
+    router calls a layer) routing with forward's, position by position.
+    Returns ([B, T] true at every position at or after a routing flip in
+    its sequence, the number of (layer, token) flips, the largest gap of
+    forward's k-th and (k+1)-th probabilities at a flip)."""
     k = cfg.expert_top_k
     n = len(cfg.moe_layer_indices)
-    check(len(fwd.calls) == n and len(replay.calls) % n == 0,
+    check(len(fwd.calls) == n and len(replay.calls) % (n * ranks) == 0,
           f"routing calls: replay {len(replay.calls)}, forward "
           f"{len(fwd.calls)}, MoE layers {n}")
     flipped, gap, n_flips = None, 0.0, 0
-    for (ids_r, _), (ids_f, probs_f) in zip(replay.per_position(n, b),
-                                            fwd.per_position(n, b)):
+    for (ids_r, _), (ids_f, probs_f) in zip(
+            replay.per_position(n, b, ranks), fwd.per_position(n, b)):
         check(ids_r.shape == ids_f.shape,
               f"routing shapes {tuple(ids_r.shape)} {tuple(ids_f.shape)}")
         diff = (ids_r.sort(-1).values != ids_f.sort(-1).values).any(-1)
@@ -1516,6 +1758,9 @@ def main() -> int:
                gather_phase(cfg, moe0, x)]
     capacity_phase()
     launches = serve_phase(cfg, params)
+    ep_entry, ep_launches = ep_phase(cfg, params)
+    entries.append(ep_entry)
+    launches.update({k: ep_launches[k] for k in EP_KERNELS})
     del params, moe0, x
     torch.cuda.empty_cache()
     many = many_expert_phase()

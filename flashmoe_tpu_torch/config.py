@@ -6,11 +6,14 @@ frozen dataclass with torch dtypes.  It carries only the fields that the
 ported slices read (one device, both MoE arms with their gather-fused
 inference form, routing statistics, tier-0 degradation and hot-expert
 replicas, the transformer, greedy generation and training) and validates
-them with the same errors.  Knobs of later slices are absent:
-``expert_quant`` (whose refusal with ``is_training`` comes with it), the
-wire dtypes, ``a2a_chunks``, ``moe_backend``, ``serving_mode`` and
-``profile_phases``; a parallel axis above 1 raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+them with the same errors.  Expert parallelism (``ep``) carries its
+transport knobs (``moe_backend``, ``a2a_chunks``, the wire dtypes and
+``fused_schedule``) with JAX's defaults and checks; ``moe_backend``
+'ragged' and 'auto' raise ``ValueError`` naming the ROADMAP item that
+ports them.  Knobs of later slices are absent: ``expert_quant`` (whose
+refusal with ``is_training`` comes with it), ``kv_wire_dtype``,
+``serving_mode`` and ``profile_phases``; any other parallel axis above 1
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -33,8 +36,7 @@ class Activation:
 # ROADMAP queue-A item that ports them
 _UNPORTED_AXES = {
     "dp": "A.8 (trainer and runtime)",
-    "ep": "A.4 (expert parallelism over collectives)",
-    "tp": "A.4 (expert parallelism over collectives)",
+    "tp": "A.4 (tensor-parallel experts in _ep_moe_shard)",
     "sp": "A.7 (ring attention over the sp axis)",
     "pp": "A.7 (pipeline parallelism)",
 }
@@ -88,7 +90,23 @@ class MoEConfig:
     param_dtype: torch.dtype = torch.float32
     accum_dtype: torch.dtype = torch.float32
 
-    # --- parallel axes (only 1 is ported) ---
+    # --- expert-parallel transport (parallel/ep.py, parallel/fused.py) ---
+    # "collective" (the exchange as all-to-alls around B2) or "fused"
+    # (the single B5 kernel); "ragged" and "auto" are refused until
+    # their ROADMAP items port them
+    moe_backend: str = "collective"
+    # chunked exchange pipeline over the local-expert axis; None = serial
+    a2a_chunks: int | None = None
+    # wire dtypes of the dispatch leg, the return leg and the cross-slice
+    # hop (ops/wire.py): None = raw, "bf16", "e4m3", "e5m2"
+    wire_dtype: str | None = None
+    wire_dtype_combine: str | None = None
+    wire_dtype_dcn: str | None = None
+    # processing order of the fused kernel: None = auto, or "stream",
+    # "resident", "batched", "rowwin" (parallel/fused.py)
+    fused_schedule: str | None = None
+
+    # --- parallel axes (ep and 1 of each other are ported) ---
     dp: int = 1
     ep: int = 1
     tp: int = 1
@@ -104,8 +122,11 @@ class MoEConfig:
             raise ValueError("hidden_size must be a multiple of 64")
         if self.intermediate_size % 64:
             raise ValueError("intermediate_size must be a multiple of 64")
+        if self.num_experts > 1 and self.num_experts % self.ep:
+            raise ValueError("num_experts must divide evenly over ep")
         if self.capacity_factor <= 0:
             raise ValueError("capacity_factor must be > 0")
+        self._check_transport()
         if self.hidden_act not in (Activation.RELU, Activation.GELU,
                                    Activation.SILU):
             raise ValueError(f"hidden_act {self.hidden_act!r} not in "
@@ -117,6 +138,63 @@ class MoEConfig:
                 raise NotImplementedError(
                     f"{axis}={getattr(self, axis)}: the PyTorch port runs on "
                     f"one device; {axis} > 1 waits for ROADMAP {item}")
+
+    def _check_transport(self) -> None:
+        """The JAX package's checks of the expert-parallel knobs, with its
+        errors; the backends the port does not run yet are refused."""
+        if self.moe_backend not in ("collective", "fused", "ragged",
+                                    "auto"):
+            raise ValueError(
+                f"moe_backend {self.moe_backend!r} not in "
+                f"('collective', 'fused', 'ragged', 'auto')")
+        if self.fused_schedule not in (None, "batched", "resident",
+                                       "stream", "rowwin"):
+            raise ValueError(
+                f"fused_schedule {self.fused_schedule!r} not in "
+                f"(None, 'batched', 'resident', 'stream', 'rowwin')")
+        if self.moe_backend in ("fused", "ragged") and self.tp > 1:
+            raise ValueError(
+                f"moe_backend={self.moe_backend!r} does not compose with "
+                f"tp>1; use moe_backend='collective'")
+        if self.moe_backend == "ragged":
+            raise ValueError(
+                "moe_backend='ragged' is not ported yet: it waits for "
+                "ROADMAP A.4's remainder (ragged_ep.py); use 'collective' "
+                "or 'fused'")
+        if self.moe_backend == "auto":
+            raise ValueError(
+                "moe_backend='auto' is not ported yet: it waits for "
+                "ROADMAP A.10 (the planner); use 'collective' or 'fused'")
+        from flashmoe_tpu_torch.ops import wire as _wire
+
+        for knob in ("wire_dtype", "wire_dtype_combine", "wire_dtype_dcn"):
+            val = getattr(self, knob)
+            if val is None:
+                continue
+            wd = _wire.resolve(val)  # ValueError on unknown names
+            if wd.itemsize > self.dtype.itemsize:
+                raise ValueError(
+                    f"{knob}={val!r} ({wd.itemsize} B) is wider than the "
+                    f"compute dtype {self.dtype} ({self.dtype.itemsize} "
+                    f"B); a wire must compress, not inflate")
+        if self.a2a_chunks is not None:
+            n = self.a2a_chunks
+            if not isinstance(n, int) or n < 1:
+                raise ValueError(
+                    f"a2a_chunks={n!r} must be a positive int (or None "
+                    f"for the serial schedule)")
+            nlx = self.num_experts // max(self.ep, 1)
+            if n > 1 and (nlx == 0 or nlx % n):
+                raise ValueError(
+                    f"a2a_chunks={n} must divide the local-expert axis "
+                    f"(num_experts // ep = {nlx}); pick a divisor or "
+                    f"leave a2a_chunks=None for the serial schedule")
+        if ((self.wire_dtype or self.wire_dtype_combine
+                or self.wire_dtype_dcn) and self.moe_backend == "fused"):
+            raise ValueError(
+                "wire-dtype compression rides the collective transport; "
+                "moe_backend='fused' moves raw slabs in-kernel: use "
+                "'collective'")
 
     def _check_replicas(self) -> None:
         """The JAX package's checks of the replica map, with its errors."""

@@ -4,9 +4,10 @@ Counterpart of ``flashmoe_tpu/models/transformer.py:44-317``: pre-norm
 blocks with RoPE (half-split) and GQA attention, an MoE FFN on every
 ``moe_frequency``-th layer (a dense FFN elsewhere), final RMS norm and an
 lm head whose logits are f32; next-token cross-entropy plus the MoE
-losses.  Parameters are nested dicts of tensors in the JAX layout.  One
-device: the config refuses the mesh axes, and there is no expert-parallel
-branch.  With ``cfg.is_training`` every block is rematerialised in the
+losses.  Parameters are nested dicts of tensors in the JAX layout.  With
+an ep ``mesh`` (:mod:`flashmoe_tpu_torch.parallel.mesh`) and ``cfg.ep >
+1`` the MoE layers run expert-parallel, by ``cfg.moe_backend``: the
+collective layer or the fused kernel's.  With ``cfg.is_training`` every block is rematerialised in the
 backward.  Causal self-attention runs the flash kernel on CUDA tensors
 (outside autograd) and the MoE layers run the gate and grouped FFN
 kernels, forward and backward.
@@ -24,6 +25,8 @@ from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import dot_f32, init_moe_params
 from flashmoe_tpu_torch.ops.attention import flash_attention
 from flashmoe_tpu_torch.ops.moe import moe_layer
+from flashmoe_tpu_torch.parallel.ep import ep_moe_layer
+from flashmoe_tpu_torch.parallel.fused import fused_ep_moe_layer
 from flashmoe_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -132,25 +135,35 @@ def attention(layer, x, cfg: MoEConfig, positions=None,
     return ctx @ layer["wo"].to(x.dtype)
 
 
-def _ffn(layer, x, cfg: MoEConfig, li: int, use_kernels: bool | None):
-    """FFN sub-block: MoE or dense.  Returns (out, aux + z losses, the
-    layer's MoEStats or None)."""
+def _ffn(layer, x, cfg: MoEConfig, li: int, use_kernels: bool | None,
+         mesh=None):
+    """FFN sub-block: MoE (expert-parallel with a mesh and ep > 1, through
+    the layer ``cfg.moe_backend`` names) or dense.  Returns (out, aux + z
+    losses, the layer's MoEStats or None)."""
     b, t, h = x.shape
-    o = moe_layer(layer["moe"], x.reshape(b * t, h), layer_cfg(cfg, li),
-                  use_kernels=use_kernels)
+    lcfg = layer_cfg(cfg, li)
+    flat = x.reshape(b * t, h)
+    if mesh is not None and lcfg.num_experts > 1 and cfg.ep > 1:
+        if mesh.size != cfg.ep:
+            raise ValueError(f"mesh of {mesh.size} ranks for ep={cfg.ep}")
+        layer_fn = (fused_ep_moe_layer if cfg.moe_backend == "fused"
+                    else ep_moe_layer)
+        o = layer_fn(layer["moe"], flat, lcfg, mesh, use_kernels=use_kernels)
+    else:
+        o = moe_layer(layer["moe"], flat, lcfg, use_kernels=use_kernels)
     return (o.out.reshape(b, t, h).to(x.dtype), o.aux_loss + o.z_loss,
             o.stats)
 
 
 def block(layer, x, cfg: MoEConfig, li: int,
-          use_kernels: bool | None = None):
+          use_kernels: bool | None = None, mesh=None):
     """One pre-norm block.  Returns (x, moe_losses, moe_stats), the stats
     the layer's MoEStats when ``cfg.collect_stats`` and it is an MoE
     layer, else None."""
     x = x + attention(layer, rms_norm(x, layer["attn_norm"]), cfg,
                       use_kernels=use_kernels)
     f, moe_loss, moe_stats = _ffn(layer, rms_norm(x, layer["ffn_norm"]),
-                                  cfg, li, use_kernels)
+                                  cfg, li, use_kernels, mesh)
     return x + f, moe_loss, moe_stats
 
 
@@ -160,10 +173,13 @@ def lm_head(params, cfg: MoEConfig, x):
     return dot_f32(h.to(cfg.dtype), params["lm_head"].to(cfg.dtype))
 
 
-def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None):
+def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None,
+            *, mesh=None):
     """tokens: [B, T] int -> (logits [B, T, V] f32, summed MoE losses).
     With ``cfg.collect_stats`` a third element: the tuple of the MoE
-    layers' :class:`MoEStats`, in layer order.
+    layers' :class:`MoEStats`, in layer order.  ``mesh``: the ep mesh of
+    the expert-parallel MoE layers (the B * T tokens shard over its
+    ranks), None for one device.
 
     With ``cfg.is_training`` each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are not
@@ -179,10 +195,11 @@ def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None):
         if cfg.is_training:
             # the block draws no random numbers: no RNG state to replay
             x, moe_loss, moe_stats = torch.utils.checkpoint.checkpoint(
-                block, layer, x, cfg, li, uk, use_reentrant=False,
+                block, layer, x, cfg, li, uk, mesh, use_reentrant=False,
                 preserve_rng_state=False)
         else:
-            x, moe_loss, moe_stats = block(layer, x, cfg, li, use_kernels=uk)
+            x, moe_loss, moe_stats = block(layer, x, cfg, li, use_kernels=uk,
+                                           mesh=mesh)
         total_aux = total_aux + moe_loss
         if moe_stats is not None:
             layer_stats.append(moe_stats)

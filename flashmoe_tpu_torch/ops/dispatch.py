@@ -1,6 +1,7 @@
 """Token dispatch (permute-to-experts) and combine (weighted un-permute).
 
-Counterpart of ``flashmoe_tpu/ops/dispatch.py:38-208``; plain torch, as
+Counterpart of ``flashmoe_tpu/ops/dispatch.py:38-208``, with the fused
+layer's :func:`sorted_return_maps`; plain torch, as
 these are plain XLA ops in the JAX package.  Positions within an expert
 come from one stable argsort over the k-major flattening of the expert
 ids, so every k=0 assignment beats every k=1 assignment and ties go by
@@ -69,6 +70,35 @@ def dispatch(x, plan: DispatchPlan, cfg: MoEConfig, capacity: int):
     src_tok, present = dispatch_indices(plan, cfg, capacity)
     return torch.where(present[..., None], x[src_tok],
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def sorted_return_maps(plan: DispatchPlan, combine_weights, cfg: MoEConfig,
+                       capacity: int, rows_pad: int):
+    """Token-sorted return placement for the fused layer's in-kernel
+    combine (``flashmoe_tpu/ops/dispatch.py:130``): assignment (token t,
+    slot j) owns row ``t*k + j`` of a sorted return buffer, so the combine
+    is a k-row segment sum.
+
+    Returns ``(ret_pos, w_sorted)``: ret_pos [E, capacity] int32, the
+    sorted row of each slab slot (0 for empty or dropped slots, which are
+    never sent); w_sorted [rows_pad] f32, the renormalized weight of each
+    sorted row, 0 for dropped assignments and the padding tail."""
+    s, k = plan.expert_idx.shape
+    e = cfg.num_experts
+    dev = plan.position.device
+    zero = torch.zeros((), device=dev)
+    w = torch.where(plan.valid, combine_weights.float(), zero)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-20)
+    pos = (torch.arange(s, device=dev)[:, None] * k
+           + torch.arange(k, device=dev)[None, :])
+    flat_slot = torch.where(plan.valid,
+                            plan.expert_idx * capacity + plan.position,
+                            torch.full_like(plan.position, e * capacity))
+    ret_pos = torch.zeros(e * capacity + 1, dtype=torch.int32, device=dev)
+    ret_pos[flat_slot.reshape(-1)] = pos.reshape(-1).to(torch.int32)
+    w_sorted = torch.zeros(rows_pad, dtype=torch.float32, device=dev)
+    w_sorted[pos.reshape(-1)] = torch.where(plan.valid, w, zero).reshape(-1)
+    return ret_pos[:e * capacity].reshape(e, capacity), w_sorted
 
 
 def combine(expert_out, plan: DispatchPlan, combine_weights, cfg: MoEConfig,

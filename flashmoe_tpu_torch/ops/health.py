@@ -5,8 +5,9 @@ holds a non-finite value is masked: its contribution is zeroed and each
 affected token's surviving gate weights are renormalized, so one sick
 expert degrades its tokens instead of poisoning the step.  Plain
 ``torch.where`` arithmetic, differentiable, run only when
-``MoEConfig.degrade_unhealthy_experts`` is set.  One device: the
-cross-rank reduction of the counters waits for the expert-parallel slice.
+``MoEConfig.degrade_unhealthy_experts`` is set.  On an expert-parallel
+mesh each rank masks its own tokens' exposure, and the counters reduce
+over the mesh (:func:`attach_degradation`).
 """
 
 from __future__ import annotations
@@ -97,6 +98,14 @@ def degrade_outputs(ybuf, combine_weights, expert_idx, healthy, *,
                                  renormalize=renormalize))
 
 
-def attach_degradation(stats, healthy, expert_idx):
-    """Fold this layer's degradation counters into its MoEStats."""
-    return with_degradation(stats, *degradation_stats(healthy, expert_idx))
+def attach_degradation(stats, healthy, expert_idx, mesh=None):
+    """Fold this layer's degradation counters into its MoEStats.  With a
+    ``mesh``, ``healthy`` and ``expert_idx`` are lists over the held ranks:
+    the masked-expert count sums over the ranks and the assignment share
+    averages, as the JAX package's psum / pmean over ``reduce_axes``."""
+    if mesh is None:
+        return with_degradation(stats,
+                                *degradation_stats(healthy, expert_idx))
+    per = [degradation_stats(h, i) for h, i in zip(healthy, expert_idx)]
+    return with_degradation(stats, mesh.psum([me for me, _ in per]),
+                            mesh.pmean([mf for _, mf in per]))

@@ -1,13 +1,15 @@
 """MoE routing statistics: the flight recorder's data, from the router.
 
-Counterpart of ``flashmoe_tpu/ops/stats.py`` for one device: every field
-is a pure function of the router's outputs and the capacity the dispatch
-clamps against, computed only when ``MoEConfig.collect_stats`` is set, so
-attaching them cannot move the layer's numbers.  The JAX package's
-cross-rank ``reduce_stats`` and its wire and quantization error fields'
-fillers (``with_wire_error``, ``with_quant_error``) wait for the
-expert-parallel and quantization slices; those fields stay zero here, as
-they are in JAX with their features off.
+Counterpart of ``flashmoe_tpu/ops/stats.py``: every field is a pure
+function of the router's outputs and the capacity the dispatch clamps
+against, computed only when ``MoEConfig.collect_stats`` is set, so
+attaching them cannot move the layer's numbers.  Across the ranks of an
+expert-parallel mesh (:mod:`flashmoe_tpu_torch.parallel.mesh`),
+:func:`reduce_stats` and :func:`with_wire_error` reduce per-rank values
+over the mesh, as the JAX package's reduce over the shard_map axes.  The
+quantization error's filler (``with_quant_error``) waits for the
+quantization slice; that field stays zero here, as it is in JAX with the
+feature off.
 """
 
 from __future__ import annotations
@@ -35,8 +37,10 @@ class MoEStats(NamedTuple):
     masked_experts:       [] experts masked by tier-0 degradation.
     masked_fraction:      [] share of assignments whose contribution the
                           tier-0 mask zeroed.
-    wire_rtq_error, wire_rtq_error_dcn, quant_error: [] 0 (no wire
-                          compression or quantized weights in the port).
+    wire_rtq_error:       [] mean relative round-trip error of the
+                          exchange's wire dtype (0 with the wire off).
+    wire_rtq_error_dcn:   [] the same for the cross-slice hop's wire.
+    quant_error:          [] 0 (no quantized weights in the port).
     """
 
     expert_load: torch.Tensor
@@ -110,6 +114,48 @@ def with_degradation(stats: MoEStats, masked_experts,
     return stats._replace(
         masked_experts=torch.as_tensor(masked_experts).float(),
         masked_fraction=torch.as_tensor(masked_fraction).float())
+
+
+def reduce_stats(mesh, local: list, probs_mean: list) -> MoEStats:
+    """Reduction over the mesh's ranks of per-rank stats (one MoEStats and
+    one probs_mean per held rank): the load histogram sums, the ratio
+    scalars average (every rank holds the same token count), imbalance
+    and entropy are recomputed from the global load.  The degradation and
+    wire fields pass through from the first held rank: the layer reduces
+    them itself when their feature is on."""
+    g_load = mesh.psum([s.expert_load for s in local])
+    g_probs = mesh.pmean([p.float() for p in probs_mean])
+    first = local[0]
+    return MoEStats(
+        expert_load=g_load,
+        dropped_fraction=mesh.pmean([s.dropped_fraction for s in local]),
+        capacity_utilization=mesh.pmean(
+            [s.capacity_utilization for s in local]),
+        imbalance=load_imbalance(g_load),
+        router_entropy=router_entropy(g_probs, g_load),
+        topk_confidence=mesh.pmean([s.topk_confidence for s in local]),
+        masked_experts=first.masked_experts,
+        masked_fraction=first.masked_fraction,
+        wire_rtq_error=first.wire_rtq_error,
+        wire_rtq_error_dcn=first.wire_rtq_error_dcn,
+        quant_error=first.quant_error)
+
+
+def with_wire_error(stats: MoEStats, wire_rtq_error=None, mesh=None, *,
+                    dcn_error=None) -> MoEStats:
+    """Attach the wire's round-trip error (``ops/wire.py``).  With a
+    ``mesh`` each value is a list of per-rank proxies, averaged over the
+    ranks; ``None`` leaves its field untouched."""
+    def red(v):
+        return (mesh.pmean([t.float() for t in v]) if mesh is not None
+                else torch.as_tensor(v).float())
+
+    fields = {}
+    if wire_rtq_error is not None:
+        fields["wire_rtq_error"] = red(wire_rtq_error)
+    if dcn_error is not None:
+        fields["wire_rtq_error_dcn"] = red(dcn_error)
+    return stats._replace(**fields) if fields else stats
 
 
 def stats_to_host(stats: MoEStats) -> dict:

@@ -5,6 +5,7 @@ skips.  On a machine with an NVIDIA Hopper GPU and nvcc (no JAX needed):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -376,3 +377,155 @@ def test_new_kernel_wrappers_refuse_autograd_on_cuda(gen):
                                        act_name="relu", block_m=64)
     with torch.no_grad():
         assert gate.gate_pass1_cuda(x, w, 2, False)[4].shape == (64, 2)
+
+
+# ----------------------------------------------------------------------
+# B5: the fused expert-parallel kernel over virtual ranks
+# ----------------------------------------------------------------------
+
+def _fused_inputs(gen, d, gated, combine, skew, dtype=torch.bfloat16,
+                  cap=96, nlx=2, h=128, i=192, k=2):
+    """Random shard inputs of the fused kernel: slabs, counts (with skew,
+    rank 0 sends nothing and expert 0 of every owner gets nothing),
+    weights and, with the combine, one token-sorted row per populated
+    slot and its weight (0 on the other rows)."""
+    dev = dict(device="cuda")
+    x_send = torch.randn(d, d, nlx, cap, h, generator=gen, **dev).to(dtype)
+    send_cnt = torch.randint(0, cap + 1, (d, d, nlx), generator=gen, **dev)
+    if skew:
+        send_cnt[:, :, 0] = 0
+        if d > 1:
+            send_cnt[0] = 0
+    w = {name: (torch.randn(*shape, generator=gen, **dev) / shape[-2] ** 0.5
+                ).to(dtype)
+         for name, shape in (("w_up", (d * nlx, h, i)),
+                             ("w_gate", (d * nlx, h, i)),
+                             ("w_down", (d * nlx, i, h)))}
+    b_up = torch.randn(d * nlx, i, generator=gen, **dev) * 0.1
+    b_down = torch.randn(d * nlx, h, generator=gen, **dev) * 0.1
+    args = (send_cnt, None, x_send, w["w_up"], b_up, w["w_down"], b_down,
+            w["w_gate"] if gated else None)
+    kw = dict(act_name="silu" if gated else "gelu", gated=gated)
+    if combine:
+        slots = int(send_cnt.sum(dim=(1, 2)).max())
+        rows_pad = max(k, -(-slots // k) * k)
+        ret_pos = torch.zeros(d, d, nlx, cap, dtype=torch.int32, **dev)
+        w_sorted = torch.zeros(d, rows_pad, **dev)
+        live = torch.arange(cap, **dev) < send_cnt[..., None]
+        for s in range(d):
+            n = int(live[s].sum())
+            pos = torch.randperm(rows_pad, generator=gen, **dev)[:n]
+            ret_pos[s][live[s]] = pos.to(torch.int32)
+            w_sorted[s, pos] = torch.rand(n, generator=gen, **dev)
+        kw.update(recv_pos=ret_pos.transpose(0, 1).contiguous(),
+                  w_sorted=w_sorted, k=k)
+    return args, kw
+
+
+def _fused_check(args, kw, d, src_order, schedule, tol):
+    from flashmoe_tpu_torch.parallel import fused
+
+    args = args[:1] + (src_order,) + args[2:]
+    got = fused.fused_shard_cuda(*args, schedule=schedule, **kw)
+    want = fused.fused_shard_plain(*args, schedule=schedule, **kw)
+    torch.cuda.synchronize()
+    if "recv_pos" not in kw:
+        # populated rows only: the kernel leaves the others unspecified
+        live = torch.arange(got.shape[3], device="cuda") < args[0][..., None]
+        got, want = got[live], want[live]
+    assert bool(torch.isfinite(got).all())
+    assert _normwise(got, want) <= tol
+
+
+@pytest.mark.parametrize("d,gated,combine,skew,schedule", [
+    (1, True, False, False, "stream"), (2, False, False, False, "resident"),
+    (2, True, True, False, "batched"), (4, True, True, False, "stream"),
+    (4, False, False, True, "rowwin"), (4, True, True, True, "batched")],
+    ids=["ep1_gated", "ep2_plain", "ep2_gated_combine", "ep4_gated_combine",
+         "ep4_skewed", "ep4_skewed_combine"])
+def test_fused_ep_kernel_matches_plain(gen, d, gated, combine, skew,
+                                       schedule):
+    from flashmoe_tpu_torch.parallel import fused
+
+    args, kw = _fused_inputs(gen, d, gated, combine, skew)
+    ring = fused.default_ring(d)
+    before = fused.fused_shard_cuda.launches
+    _fused_check(args, kw, d, ring, schedule, BF16_TOL)
+    # a second call on the same heap, other counts and another source
+    # order: the flags hold the first call's sequence number, which must
+    # satisfy no wait of this one
+    args2, kw2 = _fused_inputs(gen, d, gated, combine, not skew)
+    rev = np.array([[r] + [s for s in reversed(range(d)) if s != r]
+                    for r in range(d)])
+    _fused_check(args2, kw2, d, rev, schedule, BF16_TOL)
+    assert fused.fused_shard_cuda.launches == before + 2
+
+
+def test_fused_ep_kernel_f32_and_small_capacity(gen):
+    from flashmoe_tpu_torch.parallel import fused
+
+    args, kw = _fused_inputs(gen, 2, True, False, False, torch.float32,
+                             cap=32)
+    _fused_check(args, kw, 2, fused.default_ring(2), "stream", 1e-5)
+
+
+def test_fused_ep_kernel_refuses_oversized_grid(gen):
+    from flashmoe_tpu_torch.parallel import fused
+
+    args, kw = _fused_inputs(gen, 2, False, False, False)
+    most = fused.max_blocks(args[2], False)
+    before = fused.fused_shard_cuda.launches
+    with pytest.raises(ValueError, match="deadlock"):
+        fused.fused_shard_cuda(*args, blocks_per_rank=most, **kw)
+    assert fused.fused_shard_cuda.launches == before
+
+
+def test_fused_ep_kernel_recovers_from_a_refused_launch(gen, monkeypatch):
+    """A launch the driver refuses (a cooperative grid past what the card
+    keeps resident, past the wrapper's guard) raises, runs nothing and
+    leaves the flags' sequence number where it was: the next call, on the
+    same flag words, completes and agrees with the plain version."""
+    from flashmoe_tpu_torch.parallel import fused
+
+    args, kw = _fused_inputs(gen, 2, False, False, False)
+    ring = fused.default_ring(2)
+    _fused_check(args, kw, 2, ring, "stream", BF16_TOL)
+    most = fused.max_blocks(args[2], False)
+    flags = fused._FLAGS[args[2].device]
+    seq, before = flags.seq, fused.fused_shard_cuda.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(fused, "max_blocks", lambda x, gated: 4 * most)
+        with pytest.raises(RuntimeError, match="fm_fused_ep"):
+            fused.fused_shard_cuda(*args, blocks_per_rank=most, **kw)
+    assert fused._FLAGS[args[2].device] is flags and flags.seq == seq
+    assert fused.fused_shard_cuda.launches == before
+    _fused_check(args, kw, 2, ring, "stream", BF16_TOL)
+    assert flags.seq == seq + 1
+
+
+@pytest.mark.parametrize("combine", ["0", "1"], ids=["slabs", "combine"])
+def test_fused_layer_kernel_matches_plain_and_collective(gen, monkeypatch,
+                                                         combine):
+    from flashmoe_tpu_torch.parallel import ep, fused, mesh
+
+    monkeypatch.setenv("FLASHMOE_FUSED_COMBINE", combine)
+    cfg = MoEConfig(num_experts=8, expert_top_k=2, hidden_size=128,
+                    intermediate_size=128, gated_ffn=True, hidden_act="silu",
+                    capacity_factor=1.25, ep=4, num_shared_experts=1,
+                    moe_backend="fused", dtype=torch.bfloat16,
+                    param_dtype=torch.bfloat16)
+    p = init_moe_params(gen, cfg, device="cuda")
+    x = torch.randn(256, 128, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    m = mesh.local_mesh(4)
+    before = fused.fused_shard_cuda.launches
+    got = fused.fused_ep_moe_layer(p, x, cfg, m)
+    assert fused.fused_shard_cuda.launches == before + 1
+    plain = fused.fused_ep_moe_layer(p, x, cfg, m, use_kernels=False)
+    coll = ep.ep_moe_layer(p, x, cfg, m)
+    assert _normwise(got.out, plain.out) <= BF16_TOL
+    assert _normwise(got.out, coll.out) <= BF16_TOL
+    assert torch.equal(got.expert_counts, coll.expert_counts)
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        fused.fused_ep_moe_layer(p, x, cfg, m)
