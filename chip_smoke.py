@@ -14,7 +14,9 @@ Phases, each of which fails the run on any error:
    of the training step, the two-pass gate's passes at the many-expert
    layer's widths (with pass 2 and without; f32 and K = 64 cases too),
    and the gather-fused FFN at Mixtral prefill (also against the grouped
-   FFN on the dispatched buffer);
+   FFN on the dispatched buffer).  The gate is timed at prefill and
+   decode and the grouped matmul at both of the train step's shapes, each
+   as the bare C call, with its wrapper's time beside it;
 3. capacity arm: one MoE layer of the FlashMoE reference config (E=64,
    top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain,
    forward (explicit dispatch and gather-fused) and the gradients of
@@ -224,7 +226,36 @@ def check_gate(tag, x, w, cfg):
     return err
 
 
+def gate_times(cfg, x, w, iters):
+    """The gate kernel's own time, the bare C call (``fm_gate``) on
+    buffers made once, beside ``router_cuda`` (the wrapper: checks,
+    buffers, the call), the plain router and the library yardstick, all
+    on CUDA events; and the bound of its bytes (x and gate_w read; the
+    f32 weights and i64 ids [S, K], the f32 means and i64 counts [E]
+    written) and operations."""
+    s, h = x.shape
+    e, k = cfg.num_experts, cfg.expert_top_k
+    args, _, scratch = gate.gate_args(x, w, cfg)
+    lib = _build.library()
+    check(lib.fm_gate(*args) == 0, "fm_gate launch")
+
+    def library():
+        torch.topk(torch.softmax(torch.matmul(x, w).float(), -1), k)
+
+    return dict(ms=cuda_ms(lambda: lib.fm_gate(*args), iters),
+                wrapper_ms=cuda_ms(lambda: gate.router_cuda(x, w, cfg),
+                                   iters),
+                plain_ms=cuda_ms(lambda: gate.router_plain(x, w, cfg),
+                                 iters),
+                library_ms=cuda_ms(library, iters),
+                **bound(bytes_=2 * s * h + 2 * h * e + 12 * s * k + 12 * e,
+                        flops=2 * s * h * e))
+
+
 def gate_phase(cfg, x, w):
+    """The gate at Mixtral's prefill (1024 tokens) and decode (4 tokens)
+    shapes and in f32, each against the plain router; then the kernel's
+    own time at prefill (the row's ms) and at decode (decode_*)."""
     err = check_gate("prefill", x, w, cfg)
     check_gate("decode", x[:4].contiguous(), w, cfg)
     tc = config.MoEConfig(num_experts=16, expert_top_k=4, hidden_size=256,
@@ -232,20 +263,20 @@ def gate_phase(cfg, x, w):
     g = torch.Generator(device="cuda").manual_seed(5)
     check_gate("f32", torch.randn(100, 256, device="cuda", generator=g),
                torch.randn(256, 16, device="cuda", generator=g) / 16, tc)
-    s, h = x.shape
-    e, k = cfg.num_experts, cfg.expert_top_k
-
-    def library():
-        torch.topk(torch.softmax(torch.matmul(x, w).float(), -1), k)
-
+    pre = gate_times(cfg, x, w, 200)
+    dec = gate_times(cfg, x[:4].contiguous(), w, 200)
+    for tag, r, s in (("prefill", pre, x.shape[0]), ("decode", dec, 4)):
+        print(f"gate {tag} S={s}: kernel_ms={r['ms']:.5f} (bare fm_gate) "
+              f"wrapper_ms={r['wrapper_ms']:.5f} (router_cuda) "
+              f"plain_ms={r['plain_ms']:.5f} "
+              f"library_ms={r['library_ms']:.5f} "
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+              f"grid={gate.gate_split(s, *w.shape, x.dtype)} "
+              f"({gpu_line()})")
     return dict(
         name="gate", route="cuda", source="flashmoe_tpu_torch/csrc/gate.cu",
-        replaces="flashmoe_tpu/ops/gate.py:102", max_abs_err=err,
-        ms=cuda_ms(lambda: gate.router_cuda(x, w, cfg), 50),
-        plain_ms=cuda_ms(lambda: gate.router_plain(x, w, cfg), 50),
-        library_ms=cuda_ms(library, 50),
-        **bound(bytes_=2 * s * h + 2 * h * e + 8 * s * k + 12 * e,
-                    flops=2 * s * h * e))
+        replaces="flashmoe_tpu/ops/gate.py:102", max_abs_err=err, **pre,
+        **{f"decode_{key}": v for key, v in dec.items()})
 
 
 def bound(bytes_: float, flops: float, peak: float = BF16_FLOPS) -> dict:
@@ -455,7 +486,11 @@ def res_phase(cfg, params, x):
 
 def gmm_phase(cfg, params, x):
     """The grouped matmul at the train step's two shapes: dHidden = dy @
-    w_down^T (reported) and dX = d_up @ w_up^T, f32 out."""
+    w_down^T (the row's numbers) and dX = d_up @ w_up^T (d_x_*), f32 out,
+    on the Hopper kernel: against the plain version, then its own time
+    (the bare C call, ``fm_grouped_matmul_hopper``) beside the wrapper's,
+    the per-expert library matmul and the bound; then the 64 x 64 tile
+    kernel's layouts (f32, both) against the plain version."""
     args, _, plan = ffn_inputs(cfg, params, x)
     gid, nrow = plan.tile_gid, plan.num_rows
     t, h, i = args[0].shape[0], cfg.hidden_size, cfg.intermediate_size
@@ -469,13 +504,22 @@ def gmm_phase(cfg, params, x):
     segs = expert_segments(plan, expert.ROW_TILE)
     rows = sum(b - a for _, a, b in segs)
     touched = sum(1 for _, a, b in segs if b > a)
-    rec = None
+    lib = _build.library()
+    rec = {}
     for tag, (a_in, w) in calls.items():
+        hop = expert.grouped_matmul_cuda.hopper_launches
         got = expert.grouped_matmul_cuda(a_in, gid, w, **kw)
         want = expert.grouped_matmul_plain(a_in, gid, w, **kw)
         torch.cuda.synchronize()
+        check(expert.grouped_matmul_cuda.hopper_launches == hop + 1,
+              f"grouped_matmul {tag} did not take the Hopper kernel")
         err = check_f32(f"grouped_matmul {tag}", got, want)
         k, n = a_in.shape[1], w.shape[1]
+        bare, _, plan = expert.gmm_hopper_args(
+            a_in, gid.to(torch.int32), w, torch.float32,
+            nrow.reshape(1).to(torch.int32))
+        check(lib.fm_grouped_matmul_hopper(*bare) == 0,
+              "fm_grouped_matmul_hopper launch")
 
         def library(a_in=a_in, w=w):
             out = torch.empty((t, n), device="cuda", dtype=torch.bfloat16)
@@ -483,24 +527,27 @@ def gmm_phase(cfg, params, x):
                 out[lo:hi] = a_in[lo:hi] @ w[e].T
             return out
 
-        ms = cuda_ms(lambda: expert.grouped_matmul_cuda(a_in, gid, w, **kw),
-                     20)
-        b = bound(bytes_=rows * k * 2 + touched * k * n * 2 + t * n * 4,
-                  flops=2 * rows * k * n)
-        lib_ms = cuda_ms(library, 20)
+        r = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: lib.fm_grouped_matmul_hopper(*bare), 20),
+            wrapper_ms=cuda_ms(
+                lambda: expert.grouped_matmul_cuda(a_in, gid, w, **kw), 20),
+            library_ms=cuda_ms(library, 20),
+            plain_ms=cuda_ms(
+                lambda: expert.grouped_matmul_plain(a_in, gid, w, **kw), 3),
+            **bound(bytes_=rows * k * 2 + touched * k * n * 2 + t * n * 4,
+                    flops=2 * rows * k * n))
         print(f"grouped_matmul {tag}: x [{t}, {k}] bf16 @ w^T [{n}, {k}] "
               f"per expert -> f32, live rows {rows}: max_abs_err={err:.3g} "
-              f"(rtol = atol = {F32_TOL}) ms={ms:.4f} "
-              f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}) "
-              f"library_ms={lib_ms:.4f}")
-        if rec is None:
-            rec = dict(
-                name="grouped_matmul", route="cuda",
-                source="flashmoe_tpu_torch/csrc/grouped_matmul.cu",
-                replaces="flashmoe_tpu/ops/expert.py:490", max_abs_err=err,
-                ms=ms, library_ms=lib_ms, plain_ms=cuda_ms(
-                    lambda: expert.grouped_matmul_plain(a_in, gid, w, **kw),
-                    3), **b)
+              f"(rtol = atol = {F32_TOL}) kernel_ms={r['ms']:.4f} (bare "
+              f"fm_grouped_matmul_hopper, "
+              f"{2 * rows * k * n / r['ms'] / 1e9:.1f} TFLOP/s) "
+              f"wrapper_ms={r['wrapper_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} ({gpu_line()})")
+        rec.update(r if tag == "d_hidden"
+                   else {f"{tag}_{key}": v for key, v in r.items()})
     sg = torch.Generator(device="cuda").manual_seed(10)
     sx = torch.randn(192, 128, device="cuda", generator=sg)
     sgid = torch.tensor([0, 2, 2], device="cuda")
@@ -512,7 +559,9 @@ def gmm_phase(cfg, params, x):
                   expert.grouped_matmul_plain(sx, sgid, sw, transpose_w=tw))
     print("grouped_matmul f32 (both layouts): within "
           f"rtol = atol = {F32_TOL}")
-    return rec
+    return dict(name="grouped_matmul", route="cuda",
+                source="flashmoe_tpu_torch/csrc/grouped_matmul.cu",
+                replaces="flashmoe_tpu/ops/expert.py:490", **rec)
 
 
 def tgmm_phase(cfg, params, x):
@@ -936,7 +985,8 @@ def ep_forward_phase(cfg, params):
                 / torch.linalg.vector_norm(want, dim=-1))
         # a near-tie routing flip between the two forwards moves the
         # logits of its position and of the later ones of its sequence
-        excused, n_flips, gap = serve_flips(cfg, rl, one, b, ranks=8)
+        excused, n_flips, gap, gap_first = serve_flips(cfg, rl, one, b,
+                                                       ranks=8)
         held = rows[~excused]
         med = float(rows.median())
         worst = float(held.max()) if held.numel() else 0.0
@@ -953,7 +1003,8 @@ def ep_forward_phase(cfg, params):
               f"max_normwise_without_flip={worst:.3g} (tol {SERVE_ROW_TOL}) "
               f"rows_after_a_flip={int(excused.sum())}/{rows.numel()} "
               f"routing_flips={n_flips} largest_flip_gap={gap:.3g} (tol "
-              f"{SERVE_NEAR_TIE}) launches={counts}")
+              f"{SERVE_NEAR_TIE}, first-order flips {gap_first:.3g}) "
+              f"launches={counts}")
         out[backend] = counts
     return out["fused"]
 
@@ -1012,6 +1063,7 @@ def layer_agreement(tag, got, want, flips):
 def reset_counts():
     for fn in kernel_fns().values():
         fn.launches = 0
+    expert.grouped_matmul_cuda.hopper_launches = 0
 
 
 SERVE_KERNELS = ("gate", "grouped_ffn", "flash_attention")
@@ -1268,6 +1320,9 @@ def serve_run(tag, cfg, params, prompt, new):
                                             "gate_pass1", "gate_pass2")),
           f"{tag} path launches {launches}")
     check(tokens.shape == (b, t0 + new), f"tokens shape {tokens.shape}")
+    check(launches["gate"] == len(cfg.moe_layer_indices) * new,
+          f"{tag}: {launches['gate']} gate launches, want one a MoE layer "
+          f"for the prefill and each of the {new - 1} decode steps")
     print(f"{tag}: mixtral_8x7b layers={cfg.num_layers} B={b} T0={t0} "
           f"new={new} gather_fused={bool(cfg.gather_fused)}: "
           f"generate_s={gen_s:.3f} launches={launches}")
@@ -1293,7 +1348,7 @@ def serve_run(tag, cfg, params, prompt, new):
     want = full[:, t0 - 1:]
     rows = (torch.linalg.vector_norm(step_logits - want, dim=-1)
             / torch.linalg.vector_norm(want, dim=-1))
-    excused, n_flips, gap = serve_flips(cfg, replay, fwd, b)
+    excused, n_flips, gap, gap_first = serve_flips(cfg, replay, fwd, b)
     excused = excused[:, t0 - 1:]  # step j is computed at position t0-1+j
     held = rows[~excused]
     med, worst = float(rows.median()), float(rows.max())
@@ -1306,7 +1361,8 @@ def serve_run(tag, cfg, params, prompt, new):
           f"{worst_held:.3g} (tol {SERVE_ROW_TOL}) rows_over_tol={far:.4f} "
           f"rows_after_a_flip={int(excused.sum())}/{rows.numel()} "
           f"routing_flips={n_flips} largest_flip_gap={gap:.3g} "
-          f"(tol {SERVE_NEAR_TIE}) argmax_agreement={agree:.3f}")
+          f"(tol {SERVE_NEAR_TIE}, first-order flips {gap_first:.3g}) "
+          f"argmax_agreement={agree:.3f}")
     check(med <= SERVE_MEDIAN_TOL,
           f"{tag} step logits vs forward: median normwise {med}")
     check(worst_held <= SERVE_ROW_TOL,
@@ -1393,12 +1449,19 @@ def train_phase():
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             launches = launch_counts()
+            hopper = expert.grouped_matmul_cuda.hopper_launches
         losses.append(float(m["loss"]))
         check(math.isfinite(losses[-1]), f"train step {i}: loss {m['loss']}")
     check(all(launches[k] > 0 for k in ("gate", *TRAIN_KERNELS))
           and launches["grouped_ffn"] == 0
           and launches["flash_attention"] == 0,
           f"training path launches {launches}")
+    check(hopper == launches["grouped_matmul"]
+          == 3 * len(cfg.moe_layer_indices),
+          f"train: {hopper} of {launches['grouped_matmul']} grouped matmul "
+          f"launches on the Hopper kernel, want 3 a layer")
+    print(f"train: grouped_matmul launches on the Hopper kernel: {hopper} "
+          f"of {launches['grouped_matmul']}")
     print(f"train: losses={[round(x, 5) for x in losses]} "
           f"train_step_ms={[round(x, 3) for x in step_ms]} ({gpu_line()}) "
           f"launches_per_step={launches} attention=plain "
@@ -1637,25 +1700,33 @@ def serve_flips(cfg, replay, fwd, b, ranks=1):
     router calls a layer) routing with forward's, position by position.
     Returns ([B, T] true at every position at or after a routing flip in
     its sequence, the number of (layer, token) flips, the largest gap of
-    forward's k-th and (k+1)-th probabilities at a flip)."""
+    forward's k-th and (k+1)-th probabilities at a flip, and that largest
+    gap at a first-order flip only: one where no earlier layer flipped at
+    its position or an earlier one of its sequence, so that the two runs'
+    inputs to the layer differ by rounding alone)."""
     k = cfg.expert_top_k
     n = len(cfg.moe_layer_indices)
     check(len(fwd.calls) == n and len(replay.calls) % (n * ranks) == 0,
           f"routing calls: replay {len(replay.calls)}, forward "
           f"{len(fwd.calls)}, MoE layers {n}")
-    flipped, gap, n_flips = None, 0.0, 0
+    after, gap, gap_first, n_flips = None, 0.0, 0.0, 0
     for (ids_r, _), (ids_f, probs_f) in zip(
             replay.per_position(n, b, ranks), fwd.per_position(n, b)):
         check(ids_r.shape == ids_f.shape,
               f"routing shapes {tuple(ids_r.shape)} {tuple(ids_f.shape)}")
         diff = (ids_r.sort(-1).values != ids_f.sort(-1).values).any(-1)
+        if after is None:
+            after = torch.zeros_like(diff)
         if bool(diff.any()):
-            top = probs_f[diff].sort(-1, descending=True).values
-            gap = max(gap, float((top[:, k - 1] - top[:, k]).max()))
+            top = probs_f.sort(-1, descending=True).values
+            gaps = top[..., k - 1] - top[..., k]
+            gap = max(gap, float(gaps[diff].max()))
+            first = diff & ~after
+            if bool(first.any()):
+                gap_first = max(gap_first, float(gaps[first].max()))
         n_flips += int(diff.sum())
-        flipped = diff if flipped is None else flipped | diff
-    after = flipped.int().cummax(1).values.bool()
-    return after, n_flips, gap
+        after = after | diff.int().cummax(1).values.bool()
+    return after, n_flips, gap, gap_first
 
 
 def profile_breakdown(cfg, params, prompt, tokens):

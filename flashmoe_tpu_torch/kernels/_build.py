@@ -38,9 +38,10 @@ I = ctypes.c_int
 
 # C signatures: name -> argtypes (restype is always int, a cudaError_t)
 SIGNATURES = {
-    # dtype_is_bf16, x, w, S, H, E, K, top_p, top_i, part_probs,
-    # part_counts, part_z, probs_sum, counts, zsum, stream
-    "fm_gate": [I, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P],
+    # dtype_is_bf16, x, w, S, H, E, K, split, z_coef, scratch, tickets,
+    # combine, idx, counts, probs_mean, aux, z, stream
+    "fm_gate": [I, P, P, I, I, I, I, I, ctypes.c_float, P, P, P, P, P, P, P,
+                P, P],
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
     # w_gate, b_up, w_down, b_down, hidden, out, T, H, I, stream
     "fm_grouped_ffn": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, I, I, I, P],
@@ -61,6 +62,9 @@ SIGNATURES = {
     # dtype_is_bf16, transpose_w, out_f32, x, tile_gid, block_m, num_rows,
     # w, out, T, K, N, stream
     "fm_grouped_matmul": [I, I, I, P, P, I, P, P, P, I, I, I, P],
+    # out_f32, x, tile_gid, block_m, num_rows, w, out, plan, T, K, N, E,
+    # grid, stream
+    "fm_grouped_matmul_hopper": [I, P, P, I, P, P, P, P, I, I, I, I, I, P],
     # dtype_is_bf16, x, dy, row_start, row_end, dw, E, K, N, stream
     "fm_tgmm": [I, P, P, P, P, P, I, I, I, P],
     # dtype_is_bf16, q, k, v, o, B, N, NKV, T, D, scale, causal, stream

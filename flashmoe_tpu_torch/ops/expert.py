@@ -36,6 +36,8 @@ get.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from flashmoe_tpu_torch.config import Activation, MoEConfig
@@ -46,6 +48,8 @@ from flashmoe_tpu_torch.ops import dispatch as dsp
 #: row tile of the CUDA kernels (csrc/gemm_tile.cuh FBM); the plans' block
 #: must be a multiple of it
 ROW_TILE = 64
+#: output columns of a Hopper grouped matmul tile (csrc/hopper_gemm.cuh BN)
+HOPPER_COLS = 256
 #: largest intermediate chunk of the plain version's down-GEMM accumulation
 PLAIN_BLOCK_I = 512
 
@@ -373,12 +377,66 @@ def grouped_matmul_plain(x, tile_gid, w, *, transpose_w: bool = False,
     return out
 
 
+def gmm_work_list(tile_gid, block_m: int, rows: int, num_rows=None):
+    """The Hopper grouped matmul's work list (``gmm_plan`` in
+    ``csrc/grouped_matmul.cu``, which builds it on the device), in Python:
+    items ``(first tile, tiles, expert)`` over the ROW_TILE-row tiles.
+    Each run of consecutive tiles with one expert is cut greedily from its
+    start into items of two tiles and, when the run is odd, a last item of
+    one.  Tiles at or past ``num_rows`` have expert -1 (zeros, no loads)
+    and form runs of their own."""
+    tiles = rows // ROW_TILE
+    gid = [int(g) for g in tile_gid.tolist()]
+    live = rows if num_rows is None else int(num_rows)
+    key = [-1 if t * ROW_TILE >= live else gid[t * ROW_TILE // block_m]
+           for t in range(tiles)]
+    items, run0 = [], 0
+    for t in range(tiles):
+        if t and key[t] != key[t - 1]:
+            run0 = t
+        if (t - run0) % 2 == 0:
+            two = t + 1 < tiles and key[t + 1] == key[t]
+            items.append((t, 2 if two else 1, key[t]))
+    return items
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gmm_hopper_args(x, gid, w, out_dtype, num_rows=None):
+    """The arguments of one call of the Hopper grouped matmul
+    (``fm_grouped_matmul_hopper``: the work-list launch, then the GEMM) on
+    checked CUDA tensors (bf16 x [T, K], int32 ``gid``, bf16 w [E, N, K],
+    ``num_rows`` int32 [1] or None), with its output and the work list's
+    buffer (:func:`gmm_work_list`'s items as int32 rows of 4, then their
+    count) made here: ``(args, out, plan)``."""
+    t, k = x.shape
+    e, n, _ = w.shape
+    out = torch.empty((t, n), dtype=out_dtype, device=x.device)
+    plan = torch.empty((4 * (t // ROW_TILE) + 1,), dtype=torch.int32,
+                       device=x.device)
+    tiles = t // ROW_TILE * -(-n // HOPPER_COLS)
+    args = (int(out_dtype == torch.float32), x.data_ptr(), gid.data_ptr(),
+            t // gid.numel(), None if num_rows is None else
+            num_rows.data_ptr(), w.data_ptr(), out.data_ptr(),
+            plan.data_ptr(), t, k, n, e,
+            min(tiles, _sm_count(x.device.index)), _build.stream_of(x))
+    return args, out, plan
+
+
 def grouped_matmul_cuda(x, tile_gid, w, *, transpose_w: bool = False,
                         out_dtype=None, num_rows=None):
-    """The grouped matmul kernel (``csrc/grouped_matmul.cu``) on CUDA
+    """The grouped matmul kernels (``csrc/grouped_matmul.cu``) on CUDA
     tensors: :func:`grouped_matmul_plain`'s function.  x and w bf16 or f32
     of one dtype, out_dtype f32 or x's; T, K, N and the row tile must be
-    multiples of 64."""
+    multiples of 64.  bf16 with ``transpose_w`` (every call of the training
+    backward) runs the Hopper kernel (``fm_grouped_matmul_hopper``,
+    counted also in ``grouped_matmul_cuda.hopper_launches``) after a
+    one-block launch that builds its work list (:func:`gmm_work_list`)
+    from ``tile_gid`` on the device; f32 and bf16 with w [E, K, N] run the
+    64 x 64 tile kernel (``fm_grouped_matmul``)."""
     _build.refuse_autograd("grouped_matmul_cuda", x, w)
     t, k, n = _check_gmm(x, w, transpose_w)
     bm = _tile_rows(x, tile_gid)
@@ -398,20 +456,26 @@ def grouped_matmul_cuda(x, tile_gid, w, *, transpose_w: bool = False,
         nrow = num_rows.reshape(1).to(torch.int32).contiguous()
         tensors.append(nrow)
     _build.require_cuda("grouped_matmul_cuda", *tensors)
-    out = torch.empty((t, n), dtype=out_dtype, device=x.device)
-    lib = _build.library()
+    hopper = x.dtype == torch.bfloat16 and transpose_w
+    if hopper:
+        args, out, _plan = gmm_hopper_args(x, gid, w, out_dtype, nrow)
+    else:
+        out = torch.empty((t, n), dtype=out_dtype, device=x.device)
+        args = (int(x.dtype == torch.bfloat16), int(transpose_w),
+                int(out_dtype == torch.float32), x.data_ptr(),
+                gid.data_ptr(), bm, None if nrow is None else nrow.data_ptr(),
+                w.data_ptr(), out.data_ptr(), t, k, n, _build.stream_of(x))
+    name = "fm_grouped_matmul_hopper" if hopper else "fm_grouped_matmul"
     with torch.cuda.device(x.device):
-        err = lib.fm_grouped_matmul(
-            int(x.dtype == torch.bfloat16), int(transpose_w),
-            int(out_dtype == torch.float32), x.data_ptr(), gid.data_ptr(),
-            bm, None if nrow is None else nrow.data_ptr(), w.data_ptr(),
-            out.data_ptr(), t, k, n, _build.stream_of(x))
-    _build.check(err, "fm_grouped_matmul")
+        err = getattr(_build.library(), name)(*args)
+    _build.check(err, name)
     grouped_matmul_cuda.launches += 1
+    grouped_matmul_cuda.hopper_launches += hopper
     return out
 
 
 grouped_matmul_cuda.launches = 0
+grouped_matmul_cuda.hopper_launches = 0
 
 
 def grouped_matmul(x, tile_gid, w, *, transpose_w: bool = False,

@@ -100,8 +100,80 @@ def router_plain(x, gate_w, cfg: MoEConfig) -> RouterOutput:
                    x.shape[0])
 
 
+#: the gate kernel's token tile (csrc/gate.cu GT) and its most H slices
+GATE_TOKENS = 16
+GATE_MAX_SPLIT = 32
+
+
+def gate_split(s: int, h: int, e: int, dtype: torch.dtype
+               ) -> tuple[int, int]:
+    """The gate kernel's grid for S tokens of width H and E experts:
+    ``(token tiles, H slices)``.  A slice is a whole number of 64-byte
+    chunks of a row (32 bf16 or 16 f32 of H); slice ``i`` of ``n`` holds
+    chunks ``[C * i // n, C * (i + 1) // n)`` of the C chunks.  The slice
+    count does not depend on S, so a token's logits are summed in the same
+    order in any batch (the gate is batch-invariant): up to
+    GATE_MAX_SPLIT slices (a decode step of 4 Mixtral tokens runs 32
+    blocks), fewer where the partial logits written and read again
+    (8 E bytes a slice and token) would pass half of x's bytes."""
+    chunks = h // (64 // dtype.itemsize)
+    by_bytes = h * dtype.itemsize // (16 * e)
+    return -(-s // GATE_TOKENS), max(1, min(chunks, GATE_MAX_SPLIT,
+                                            by_bytes))
+
+
+def gate_slices(h: int, split: int, dtype: torch.dtype) -> list[range]:
+    """The H range of each slice of :func:`gate_split`, in order."""
+    ch = 64 // dtype.itemsize
+    n = h // ch
+    return [range(n * i // split * ch, n * (i + 1) // split * ch)
+            for i in range(split)]
+
+
+#: per device, the gate kernel's ticket counters: zeros that every launch
+#: leaves zero (its last blocks reset them), grown when a launch needs more
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 4096),), dtype=torch.int32, device=dev)
+        _TICKETS[dev] = t
+    return t
+
+
+def gate_args(x, gate_w, cfg: MoEConfig):
+    """The arguments of one launch of the gate kernel (``fm_gate``) on
+    checked CUDA tensors of one dtype, with its outputs and scratch made
+    here: ``(args, RouterOutput, scratch)``.  The kernel writes every field
+    of the RouterOutput as :func:`_finish` forms them, in f32.  The launch
+    takes the kernel's ticket counters, so launches on one device run in
+    one stream's order."""
+    s, h = x.shape
+    e, k = cfg.num_experts, cfg.expert_top_k
+    dev = x.device
+    tiles, split = gate_split(s, h, e, x.dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    out = RouterOutput(
+        combine_weights=torch.empty((s, k), **f32),
+        expert_idx=torch.empty((s, k), **i64),
+        expert_counts=torch.empty((e,), **i64),
+        probs_mean=torch.empty((e,), **f32),
+        aux_loss=torch.empty((), **f32), z_loss=torch.empty((), **f32))
+    # the partial logits, the tiles' probability sums, counts and z sums
+    scratch = torch.empty((split * s * e + tiles * (2 * e + 1),), **f32)
+    args = (int(x.dtype == torch.bfloat16), x.data_ptr(), gate_w.data_ptr(),
+            s, h, e, k, split, float(cfg.router_z_loss_coef),
+            scratch.data_ptr(), _tickets(dev, tiles + 1).data_ptr(),
+            *(t.data_ptr() for t in out), _build.stream_of(x))
+    return args, out, scratch
+
+
 def router_cuda(x, gate_w, cfg: MoEConfig) -> RouterOutput:
-    """The gate kernel (``csrc/gate.cu``) on CUDA tensors.
+    """The gate kernel (``csrc/gate.cu``) on CUDA tensors: one launch,
+    which also forms the losses and normalised weights of :func:`_finish`.
 
     x: [S, H] and gate_w: [H, E], bf16 or f32.  When the two dtypes differ
     both are upcast to f32, which is exact, as the JAX router computes in
@@ -127,28 +199,15 @@ def router_cuda(x, gate_w, cfg: MoEConfig) -> RouterOutput:
     x = x.to(dt).contiguous()
     gate_w = gate_w.to(dt).contiguous()
     _build.require_cuda("router_cuda", x, gate_w)
-    dev = x.device
-    nb = (s + 15) // 16
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    top_p = torch.empty((s, k), **f32)
-    top_i = torch.empty((s, k), **i32)
-    part_p = torch.empty((nb, e), **f32)
-    part_c = torch.empty((nb, e), **i32)
-    part_z = torch.empty((nb,), **f32)
-    probs_sum = torch.empty((e,), **f32)
-    counts = torch.empty((e,), **i32)
-    zsum = torch.empty((), **f32)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.fm_gate(
-            int(dt == torch.bfloat16), x.data_ptr(), gate_w.data_ptr(), s, h,
-            e, k, top_p.data_ptr(), top_i.data_ptr(), part_p.data_ptr(),
-            part_c.data_ptr(), part_z.data_ptr(), probs_sum.data_ptr(),
-            counts.data_ptr(), zsum.data_ptr(), _build.stream_of(x))
+    args, out, _scratch = gate_args(x, gate_w, cfg)
+    with torch.cuda.device(x.device):
+        err = _build.library().fm_gate(*args)
     _build.check(err, "fm_gate")
     router_cuda.launches += 1
-    return _finish(cfg, top_p, top_i, probs_sum, counts, zsum, s)
+    if cfg.accum_dtype != torch.float32:
+        out = out._replace(**{f: getattr(out, f).to(cfg.accum_dtype) for f in
+                              ("combine_weights", "aux_loss", "z_loss")})
+    return out
 
 
 router_cuda.launches = 0

@@ -529,3 +529,172 @@ def test_fused_layer_kernel_matches_plain_and_collective(gen, monkeypatch,
     x.requires_grad_(True)
     with pytest.raises(RuntimeError, match="autograd"):
         fused.fused_ep_moe_layer(p, x, cfg, m)
+
+
+# ----------------------------------------------------------------------
+# the gate's split-H grid and the Hopper grouped matmul
+# ----------------------------------------------------------------------
+
+_GATE_GRID = [(s, e, k) for s in (1, 4, 17, 1024, 8192)
+              for e in (8, 60, 256) for k in (1, 2, 8, 32) if k <= e]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("s,e,k", _GATE_GRID,
+                         ids=[f"s{s}_e{e}_k{k}" for s, e, k in _GATE_GRID])
+def test_gate_kernel_grid_matches_plain(gen, dtype, s, e, k):
+    """The gate over its split-H grid at decode, odd and prefill token
+    counts: ids equal to the plain router's except at near-ties of the
+    probabilities (the f32 sums run in another order), the other outputs
+    close, and a second launch equal bit for bit (the tickets and the
+    merge order)."""
+    h = 512
+    cfg = MoEConfig(num_experts=e, expert_top_k=k, hidden_size=h,
+                    router_z_loss_coef=1e-3, dtype=dtype)
+    x = torch.randn(s, h, device="cuda", generator=gen, dtype=dtype)
+    w = (torch.randn(h, e, device="cuda", generator=gen) / 16).to(dtype)
+    got = gate.router_cuda(x, w, cfg)
+    again = gate.router_cuda(x, w, cfg)
+    want = gate.router_plain(x, w, cfg)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    # another id set only at a near-tie of the k-th and (k + 1)-th
+    # probabilities, another order only among near-equal ones
+    probs = torch.softmax(x.float() @ w.float(), -1)
+    sets = (got.expert_idx.sort(-1).values
+            == want.expert_idx.sort(-1).values).all(-1)
+    if not sets.all():
+        top = probs[~sets].sort(-1, descending=True).values
+        assert bool((top[:, k - 1] - top[:, k] <= 1e-4).all())
+        assert int((~sets).sum()) <= 1 + s // 500
+    best = probs.sort(-1, descending=True).values[:, :k]
+    assert float((probs.gather(1, got.expert_idx) - best).abs().max()) \
+        <= 1e-4
+    same = (got.expert_idx == want.expert_idx).all(-1)
+    torch.testing.assert_close(got.combine_weights[same],
+                               want.combine_weights[same], rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(got.expert_counts,
+                       torch.bincount(got.expert_idx.reshape(-1),
+                                      minlength=e))
+    torch.testing.assert_close(got.probs_mean, want.probs_mean, rtol=1e-5,
+                               atol=1e-7)
+    torch.testing.assert_close(got.z_loss, want.z_loss, rtol=1e-4, atol=0)
+
+
+def test_gate_kernel_is_batch_invariant(gen):
+    """A token's routing does not depend on the batch it is routed in: the
+    kernel's H slices are fixed by H and E, so tokens routed inside a
+    prefill of 1024 get, bit for bit, the ids and weights they get when
+    routed 4, 17 or 24 at a time."""
+    cfg = MoEConfig(num_experts=8, expert_top_k=2, hidden_size=4096,
+                    dtype=torch.bfloat16)
+    x = torch.randn(1024, 4096, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    w = (torch.randn(4096, 8, device="cuda", generator=gen) / 64).to(
+        torch.bfloat16)
+    full = gate.router_cuda(x, w, cfg)
+    for s0, n in ((0, 4), (100, 17), (1000, 24)):
+        part = gate.router_cuda(x[s0:s0 + n].contiguous(), w, cfg)
+        assert torch.equal(part.expert_idx, full.expert_idx[s0:s0 + n])
+        assert torch.equal(part.combine_weights,
+                           full.combine_weights[s0:s0 + n])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_gate_kernel_ties_take_the_lowest_index(gen, dtype):
+    """Duplicated gate_w columns give exactly equal logits in the kernel;
+    the lower expert index must win each tie, as in the plain router."""
+    cfg = MoEConfig(num_experts=16, expert_top_k=4, hidden_size=256,
+                    dtype=dtype)
+    x = torch.randn(200, 256, device="cuda", generator=gen, dtype=dtype)
+    w = (torch.randn(256, 16, device="cuda", generator=gen) / 16).to(dtype)
+    w[:, 9] = w[:, 3]
+    w[:, 14] = w[:, 3]
+    w[:, 12] = w[:, 5]
+    got = gate.router_cuda(x, w, cfg)
+    want = gate.router_plain(x, w, cfg)
+    assert torch.equal(got.expert_idx, want.expert_idx)
+    picked = got.expert_idx
+    assert not ((picked == 9) & ~(picked == 3).any(-1, keepdim=True)).any()
+    assert not ((picked == 12) & ~(picked == 5).any(-1, keepdim=True)).any()
+
+
+def _gmm_rows(gen, t, tiles_per_expert):
+    gid = torch.tensor([e for e, c in enumerate(tiles_per_expert)
+                        for _ in range(c)], dtype=torch.int32, device="cuda")
+    assert gid.numel() * expert.ROW_TILE == t
+    return gid
+
+
+@pytest.mark.parametrize("k,n,tiles", [
+    (64, 64, (2,)), (192, 128, (2, 0, 3, 1)), (4096, 14336, (3, 0, 2)),
+    (14336, 4096, (1, 2, 0, 2))], ids=["k64", "k192", "d_hidden", "d_x"])
+@pytest.mark.parametrize("live", [None, "tail"], ids=["all", "num_rows"])
+def test_grouped_matmul_hopper_matches_plain(gen, k, n, tiles, live):
+    """The bf16 transpose_w path (the Hopper kernel) at the card test's
+    shapes and the training step's widths, with experts that own no rows,
+    without and with a ragged tail (zeros past num_rows), in f32 and bf16
+    out; a second call equal bit for bit."""
+    t = sum(tiles) * expert.ROW_TILE
+    gid = _gmm_rows(gen, t, tiles)
+    x = torch.randn(t, k, device="cuda", generator=gen, dtype=torch.bfloat16)
+    w = (torch.randn(len(tiles), n, k, device="cuda", generator=gen)
+         / 32).to(torch.bfloat16)
+    nrow = None if live is None else torch.tensor(
+        t - expert.ROW_TILE, device="cuda")
+    before = expert.grouped_matmul_cuda.hopper_launches
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(transpose_w=True, out_dtype=out_dtype, num_rows=nrow)
+        got = expert.grouped_matmul_cuda(x, gid, w, **kw)
+        again = expert.grouped_matmul_cuda(x, gid, w, **kw)
+        want = expert.grouped_matmul_plain(x, gid, w, **kw)
+        assert torch.equal(got, again)
+        if out_dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        else:
+            assert _normwise(got, want) <= BF16_TOL
+        if nrow is not None:
+            assert not got[int(nrow):].any()
+    assert expert.grouped_matmul_cuda.hopper_launches == before + 4
+
+
+def test_grouped_matmul_hopper_work_list_matches_python(gen):
+    """The work list the Hopper grouped matmul builds on the device (its
+    one-block plan launch, over several 1024-tile chunks) equals
+    ``gmm_work_list``'s on random sorted and unsorted plans with a ragged
+    tail, and the GEMM over it matches the plain version."""
+    from flashmoe_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(7)
+    lib = _build.library()
+    for case in range(6):
+        bm = expert.ROW_TILE * int(rng.choice([1, 2]))
+        nt = int(rng.integers(1, 1400))
+        gid = rng.integers(0, int(rng.integers(1, 9)), nt)
+        if case % 2:
+            gid = np.sort(gid)
+        t = nt * bm
+        nrow = int(rng.integers(0, t // expert.ROW_TILE + 1)) * expert.ROW_TILE
+        gid_t = torch.tensor(gid, dtype=torch.int32, device="cuda")
+        nrow_t = torch.tensor([nrow], dtype=torch.int32, device="cuda")
+        x = torch.randn(t, 64, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        w = torch.randn(8, 64, 64, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        args, out, plan = expert.gmm_hopper_args(x, gid_t, w, torch.float32,
+                                                 nrow_t)
+        assert lib.fm_grouped_matmul_hopper(*args) == 0
+        want = expert.gmm_work_list(gid_t.cpu(), bm, t, nrow)
+        got = plan.cpu()
+        count = int(got[-1])
+        assert count == len(want)
+        assert [tuple(r[:3]) for r in got[:4 * count].reshape(-1, 4).tolist()
+                ] == want
+        torch.testing.assert_close(
+            out, expert.grouped_matmul_plain(x, gid_t, w, transpose_w=True,
+                                             out_dtype=torch.float32,
+                                             num_rows=nrow_t),
+            rtol=2e-4, atol=2e-4)
