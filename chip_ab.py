@@ -17,6 +17,10 @@ so both are measured on the same card in the same call.  Per run:
   8 experts, 64 rows of padding past num_rows; K 4096 -> N 14336 and
   K 14336 -> N 4096, bf16 in, f32 out): ``grouped_matmul_cuda`` on CUDA
   events, and its kernels' device time;
+* the fused EP kernel's full-precision arms, bf16 and f32 (SwiGLU, the
+  ``batched`` order), at the ep path's shapes (8 ranks of one Mixtral
+  expert each, slabs of 128 rows, 64-128 of them sent): ``fused_shard_cuda``
+  on CUDA events, and its kernel's device time;
 * serving: Mixtral-8x7B widths with 4 layers, 4 prompts of 256 tokens: a
   prefill and a decode step, host clock around work ended by a
   synchronize (median of 5);
@@ -124,6 +128,27 @@ def worker(tree: str) -> dict:
         res[f"gmm_{tag}_wrapper_ms"] = events_ms(call, 20)
         res[f"gmm_{tag}_kernel_ms"] = device_ms(call, 10, "gmm")
         del a, wt
+    torch.cuda.empty_cache()
+
+    from flashmoe_tpu_torch.parallel import fused
+    d, h, i = 8, 4096, 14336
+    cnt = torch.randint(64, 129, (d, d, 1), device="cuda", generator=g)
+    b_up = torch.zeros(d, i, device="cuda")
+    b_down = torch.zeros(d, h, device="cuda")
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x_send = torch.randn(d, d, 1, 128, h, device="cuda",
+                             generator=g).to(dt)
+        ws = [(torch.randn(d, k, n, device="cuda", generator=g)
+               / k ** 0.5).to(dt) for k, n in ((h, i), (i, h), (h, i))]
+
+        def call(x_send=x_send, ws=ws):
+            return fused.fused_shard_cuda(
+                cnt, None, x_send, ws[0], b_up, ws[1], b_down, ws[2],
+                act_name="silu", gated=True, schedule="batched")
+
+        res[f"fused_{tag}_gated_wrapper_ms"] = events_ms(call, 10)
+        res[f"fused_{tag}_gated_kernel_ms"] = device_ms(call, 5, "fused_ep")
+        del x_send, ws
     torch.cuda.empty_cache()
 
     def host_ms(fn, reps):

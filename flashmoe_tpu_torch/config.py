@@ -10,10 +10,12 @@ them with the same errors.  Expert parallelism (``ep``) carries its
 transport knobs (``moe_backend``, ``a2a_chunks``, the wire dtypes and
 ``fused_schedule``) with JAX's defaults and checks; ``moe_backend``
 'ragged' and 'auto' raise ``ValueError`` naming the ROADMAP item that
-ports them.  Knobs of later slices are absent: ``expert_quant`` (whose
-refusal with ``is_training`` comes with it), ``kv_wire_dtype``,
-``serving_mode`` and ``profile_phases``; any other parallel axis above 1
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+ports them.  Quantized expert storage (``expert_quant``, ``quant/``) is
+checked as JAX checks it: an unknown store name, a training config and
+``tp > 1`` are refused.  Knobs of later slices are absent:
+``kv_wire_dtype``, ``serving_mode`` and ``profile_phases``; any other
+parallel axis above 1 raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -106,6 +108,11 @@ class MoEConfig:
     # "resident", "batched", "rowwin" (parallel/fused.py)
     fused_schedule: str | None = None
 
+    # --- quantized expert storage (quant/) ---
+    # None = off, or "int8" / "e4m3" (aliases in quant/core.py): expert
+    # FFN weights stored as 1-byte payloads with f32 scales
+    expert_quant: str | None = None
+
     # --- parallel axes (ep and 1 of each other are ported) ---
     dp: int = 1
     ep: int = 1
@@ -127,6 +134,8 @@ class MoEConfig:
         if self.capacity_factor <= 0:
             raise ValueError("capacity_factor must be > 0")
         self._check_transport()
+        if self.expert_quant is not None:
+            self._check_quant()
         if self.hidden_act not in (Activation.RELU, Activation.GELU,
                                    Activation.SILU):
             raise ValueError(f"hidden_act {self.hidden_act!r} not in "
@@ -195,6 +204,24 @@ class MoEConfig:
                 "wire-dtype compression rides the collective transport; "
                 "moe_backend='fused' moves raw slabs in-kernel: use "
                 "'collective'")
+
+    def _check_quant(self) -> None:
+        """The JAX package's checks of ``expert_quant``, with its errors."""
+        from flashmoe_tpu_torch.quant import core as _qcore
+
+        _qcore.resolve(self.expert_quant)  # ValueError on unknown names
+        if self.is_training:
+            raise ValueError(
+                "expert_quant is post-training (inference-only): "
+                "jnp.round has no useful gradient, so a quantized "
+                "training step would silently learn nothing — "
+                "train at full precision and quantize_state() the "
+                "checkpoint")
+        if self.tp > 1:
+            raise ValueError(
+                "expert_quant does not compose with tp>1 (the "
+                "Megatron intermediate split would shard w_up's "
+                "per-output-channel scales); use tp=1")
 
     def _check_replicas(self) -> None:
         """The JAX package's checks of the replica map, with its errors."""

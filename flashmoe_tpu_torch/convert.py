@@ -25,16 +25,23 @@ from flashmoe_tpu_torch.tree import tree_map
 # numpy cannot name bfloat16; arrays that JAX hands over as ml_dtypes
 # bfloat16 cross through float32, which holds every bf16 value exactly
 _NP_NAMES = {"bfloat16": torch.bfloat16}
+# ml_dtypes float8 arrays (a quantized expert store's e4m3 payloads) cross
+# as their raw bytes, reinterpreted
+_NP_BYTES = {"float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
-    """One array -> tensor of the same dtype (bf16 kept as bf16) on
-    ``device``."""
+    """One array -> tensor of the same dtype (bf16 kept as bf16, e4m3 bit
+    for bit) on ``device``."""
     a = np.asarray(a)
     want = _NP_NAMES.get(a.dtype.name)
     if want is not None:
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=want)
+    raw = _NP_BYTES.get(a.dtype.name)
+    if raw is not None:
+        return torch.from_numpy(np.array(a).view(np.uint8)).view(raw).to(
+            device)
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 

@@ -26,6 +26,16 @@
 //            out[r][t] = sum_j w[t*k+j] * y_sorted[t*k+j] in f32 over the
 //            nonzero weights.
 // Rows past a count are never sent; in the outputs they are unspecified.
+//
+// Quantized expert stores (B5q, the int8/e4m3 arm of the rowwin schedule,
+// _fused_kernel's dequantization at flashmoe_tpu/parallel/fused.py:638-653):
+// with Q = int8_t or __nv_fp8_e4m3 the weights are 1-byte payloads and
+// s_up / s_gate [D * nlx][I], s_down [D * nlx][H] their f32 scales per
+// output channel.  Every weight tile is dequantized on its way into shared
+// memory (gemm_tile.cuh QuantB: (payload.f32 * scale) rounded once to the
+// input dtype), so the FFN computes exactly as on weights dequantized
+// beforehand, while each weight element streams 1 byte from HBM.  The
+// flags, the task list and every phase stay as they are.
 // Counts are clamped to the slabs' capacity; rank r receives from source s
 // the rows s sends it, send_cnt[s][r][e], so the two sides cannot disagree.
 //
@@ -58,7 +68,8 @@
 // What bounds it on an H100: at the FlashMoE reference layer (E 64, ep 8,
 // capacity 32) the bytes (weights once, the slabs moved four times); at
 // Mixtral widths (ep 8, one 352 MB expert per rank, capacity 1024) the
-// tensor-core operations.  Design: a task is a 64 x 256 strip of one
+// tensor-core operations; a quantized store halves the weight bytes of a
+// bf16 one.  Design: a task is a 64 x 256 strip of one
 // tile's hidden (up) or output (down), four of gemm_tile.cuh's 64 x 64
 // tiles, so that a few tiles still fill the card; the host lists each
 // unit's up tasks before its down tasks, weight-column group by group
@@ -68,6 +79,7 @@
 // full tile: rows are independent, and the rows past the count are never
 // returned.
 #include <cstdio>
+#include <type_traits>
 
 #include "gemm_tile.cuh"
 
@@ -90,6 +102,9 @@ struct EpArgs {
   const float* b_up;     // [D * nlx][I]
   const void* w_down;    // [D * nlx][I][H]
   const float* b_down;   // [D * nlx][H]
+  const float* s_up;     // [D * nlx][I] f32 scales of a quantized w_up
+  const float* s_gate;   // [D * nlx][I] (gated, quantized)
+  const float* s_down;   // [D * nlx][H]
   const unsigned long long* peers;  // [4][D]: each rank's x_recv, return
                                     // buffer, hidden scratch, flag words
   float* out;            // [D][rows_pad / k][H] (combine)
@@ -189,11 +204,40 @@ __device__ __forceinline__ int sent_rows(const EpArgs& a, int src, int dst,
   return min(a.send_cnt[(src * a.D + dst) * a.nlx + e], a.cap);
 }
 
-template <typename T, bool GATED>
+// One 64 x 64 tile of A @ W[:, n0:n0+64] for the weights w0 (and w1 when
+// NB is 2) at element offset off (Q = void: weights in T; else 1-byte
+// payloads with scales s0 (s1) at column offset soff)
+template <typename T, typename Q, int NB>
+__device__ __forceinline__ void weight_tile(const T* A, int K,
+                                            const void* w0, const void* w1,
+                                            const float* s0, const float* s1,
+                                            size_t off, size_t soff, int N,
+                                            float* Cs) {
+  if constexpr (std::is_void<Q>::value) {
+    const T* B[NB];
+    B[0] = (const T*)w0 + off;
+    if (NB == 2) B[NB - 1] = (const T*)w1 + off;
+    ffn_mainloop<NB, false>(A, K, B, N, Cs);
+  } else {
+    const Q* B[NB];
+    const float* S[NB];
+    B[0] = (const Q*)w0 + off;
+    S[0] = s0 + soff;
+    if (NB == 2) {
+      B[NB - 1] = (const Q*)w1 + off;
+      S[NB - 1] = s1 + soff;
+    }
+    ffn_mainloop_q<NB>(A, K, B, S, N, Cs);
+  }
+}
+
+template <typename T, bool GATED, typename Q>
 __global__ void __launch_bounds__(FTHREADS) fused_ep_kernel(EpArgs a) {
   constexpr int NB = GATED ? 2 : 1;
   constexpr int LDC = FfnTile<T>::LDC;
   static_assert(sizeof(FfnSmem<T, NB, false>) <= FFN_SMEM, "shared memory");
+  static_assert(sizeof(typename QuantB<T, int8_t, NB>::Smem) <= FFN_SMEM,
+                "shared memory of the quantized arm");
   __shared__ __align__(128) float Cs[FFN_SMEM / 4];
   __shared__ unsigned long long s_idx;
 
@@ -260,10 +304,8 @@ __global__ void __launch_bounds__(FTHREADS) fused_ep_kernel(EpArgs a) {
       const T* xt = own.x_recv(src, e, t);
       const int c_end = min((j + 1) * a.grp, I / FBN);
       for (int n0 = j * a.grp * FBN; n0 < c_end * FBN; n0 += FBN) {
-        const T* Bs[NB];
-        Bs[0] = (const T*)a.w_up + ge * H * I + n0;
-        if (GATED) Bs[NB - 1] = (const T*)a.w_gate + ge * H * I + n0;
-        ffn_mainloop<NB, false>(xt, H, Bs, I, Cs);
+        weight_tile<T, Q, NB>(xt, H, a.w_up, a.w_gate, a.s_up, a.s_gate,
+                              ge * H * I + n0, ge * I + n0, I, Cs);
         __syncthreads();
         const float* bias = a.b_up + ge * I + n0;
         for (int i = tid; i < FBM * FBN; i += FTHREADS) {
@@ -294,8 +336,8 @@ __global__ void __launch_bounds__(FTHREADS) fused_ep_kernel(EpArgs a) {
                   : nullptr;
     const int c_end = min((j + 1) * a.grp, H / FBN);
     for (int n0 = j * a.grp * FBN; n0 < c_end * FBN; n0 += FBN) {
-      const T* Bs[1] = {(const T*)a.w_down + ge * I * H + n0};
-      ffn_mainloop<1, false>(hid, I, Bs, H, Cs);
+      weight_tile<T, Q, 1>(hid, I, a.w_down, nullptr, a.s_down, nullptr,
+                           ge * I * H + n0, ge * H + n0, H, Cs);
       __syncthreads();
       const float* bias = a.b_down + ge * H + n0;
       for (int i = tid; i < rows * FBN; i += FTHREADS) {
@@ -343,12 +385,12 @@ __global__ void __launch_bounds__(FTHREADS) fused_ep_kernel(EpArgs a) {
     }
 }
 
-template <typename T, bool GATED>
+template <typename T, bool GATED, typename Q>
 int launch(const EpArgs& a, cudaStream_t stream) {
   EpArgs args = a;
   void* params[] = {&args};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)fused_ep_kernel<T, GATED>, dim3(a.D * a.G),
+      (const void*)fused_ep_kernel<T, GATED, Q>, dim3(a.D * a.G),
       dim3(FTHREADS), params, 0, stream);
   // a refused launch ran nothing: clear it so that it does not surface at
   // the next, unrelated launch check
@@ -356,43 +398,73 @@ int launch(const EpArgs& a, cudaStream_t stream) {
   return (int)err;
 }
 
-template <typename T, bool GATED> int max_blocks(int* out) {
+// occupancy is taken per instantiation: the arms differ in registers
+template <typename T, bool GATED, typename Q> int max_blocks(int* out) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_ep_kernel<T, GATED>, FTHREADS, 0);
+        &per_sm, fused_ep_kernel<T, GATED, Q>, FTHREADS, 0);
   *out = per_sm * sms;
   return (int)err;
 }
 
+// weight codes of the C entries: full precision, int8, e4m3
+enum { W_FULL = 0, W_INT8 = 1, W_E4M3 = 2 };
+
+// F(T, GATED, Q) for the runtime (is_bf16, gated, wq)
+template <template <typename, bool, typename> class F, typename... Args>
+int dispatch(int is_bf16, int gated, int wq, Args... args) {
+  if (wq < W_FULL || wq > W_E4M3) return (int)cudaErrorInvalidValue;
+#define FM_EP_CASE(T, G)                                            \
+  if (wq == W_FULL) return F<T, G, void>::run(args...);             \
+  if (wq == W_INT8) return F<T, G, int8_t>::run(args...);           \
+  return F<T, G, __nv_fp8_e4m3>::run(args...);
+  if (is_bf16) {
+    if (gated) { FM_EP_CASE(bf16, true) }
+    FM_EP_CASE(bf16, false)
+  }
+  if (gated) { FM_EP_CASE(float, true) }
+  FM_EP_CASE(float, false)
+#undef FM_EP_CASE
+}
+
+template <typename T, bool GATED, typename Q> struct Launch {
+  static int run(const EpArgs& a, cudaStream_t s) {
+    return launch<T, GATED, Q>(a, s);
+  }
+};
+template <typename T, bool GATED, typename Q> struct MaxBlocks {
+  static int run(int* out) { return max_blocks<T, GATED, Q>(out); }
+};
+
 }  // namespace fm
 
-// The most blocks of fm_fused_ep (bf16 or f32, gated or not) that can be
-// resident at once on the current device: occupancy times the SM count.
-extern "C" int fm_fused_ep_max_blocks(int is_bf16, int gated, int* out) {
-  if (is_bf16)
-    return gated ? fm::max_blocks<fm::bf16, true>(out)
-                 : fm::max_blocks<fm::bf16, false>(out);
-  return gated ? fm::max_blocks<float, true>(out)
-               : fm::max_blocks<float, false>(out);
+// The most blocks of fm_fused_ep (bf16 or f32, gated or not, weights of
+// code wq: 0 full precision, 1 int8, 2 e4m3) that can be resident at once
+// on the current device: occupancy times the SM count.
+extern "C" int fm_fused_ep_max_blocks(int is_bf16, int gated, int wq,
+                                      int* out) {
+  return fm::dispatch<fm::MaxBlocks>(is_bf16, gated, wq, out);
 }
 
 // One fused EP layer for D ranks, D * G blocks, tasks of grp 64-column
-// chunks (see EpArgs for the layouts).  H and I must be multiples of 64,
-// ch a multiple of 64 holding cap rows, the heap regions 16-byte aligned,
-// order 8-byte aligned.  Returns the launch's error; a refused launch runs
-// nothing.
+// chunks (see EpArgs for the layouts).  wq: the weights' code (0 in the
+// input dtype; 1 int8, 2 e4m3 with f32 scales s_up, s_gate, s_down).  H
+// and I must be multiples of 64, ch a multiple of 64 holding cap rows, the
+// heap regions and weights 16-byte aligned, order 8-byte aligned.  Returns
+// the launch's error; a refused launch runs nothing.
 extern "C" int fm_fused_ep(
-    int is_bf16, int gated, int act, int D, int nlx, int cap, int ch, int H,
-    int I, int k, int combine, int rows_pad, int G, int grp, unsigned seq,
-    unsigned long long work_base, long long timeout_ns, const void* x_send,
-    const int* send_cnt, const int* order,
+    int is_bf16, int gated, int wq, int act, int D, int nlx, int cap, int ch,
+    int H, int I, int k, int combine, int rows_pad, int G, int grp,
+    unsigned seq, unsigned long long work_base, long long timeout_ns,
+    const void* x_send, const int* send_cnt, const int* order,
     const int* recv_pos, const float* w_sorted, const void* w_up,
     const void* w_gate, const float* b_up, const void* w_down,
-    const float* b_down, const unsigned long long* peers, float* out,
+    const float* b_down, const float* s_up, const float* s_gate,
+    const float* s_down, const unsigned long long* peers, float* out,
     cudaStream_t stream) {
   fm::EpArgs a;
   a.D = D; a.nlx = nlx; a.cap = cap; a.ch = ch; a.H = H; a.I = I; a.k = k;
@@ -406,10 +478,7 @@ extern "C" int fm_fused_ep(
   a.x_send = x_send; a.send_cnt = send_cnt;
   a.order = (const int2*)order; a.recv_pos = recv_pos; a.w_sorted = w_sorted;
   a.w_up = w_up; a.w_gate = w_gate; a.b_up = b_up; a.w_down = w_down;
-  a.b_down = b_down; a.peers = peers; a.out = out;
-  if (is_bf16)
-    return gated ? fm::launch<fm::bf16, true>(a, stream)
-                 : fm::launch<fm::bf16, false>(a, stream);
-  return gated ? fm::launch<float, true>(a, stream)
-               : fm::launch<float, false>(a, stream);
+  a.b_down = b_down; a.s_up = s_up; a.s_gate = s_gate; a.s_down = s_down;
+  a.peers = peers; a.out = out;
+  return fm::dispatch<fm::Launch>(is_bf16, gated, wq, a, stream);
 }

@@ -70,15 +70,15 @@ SIGNATURES = {
     # dtype_is_bf16, q, k, v, o, B, N, NKV, T, D, scale, causal, stream
     "fm_flash_attention": [I, P, P, P, P, I, I, I, I, I, ctypes.c_float, I,
                            P],
-    # dtype_is_bf16, gated, out (int*)
-    "fm_fused_ep_max_blocks": [I, I, ctypes.POINTER(I)],
-    # dtype_is_bf16, gated, act, D, nlx, cap, ch, H, I, k, combine,
-    # rows_pad, G, grp, seq, work_base, timeout_ns, x_send, send_cnt, order,
-    # recv_pos, w_sorted, w_up, w_gate, b_up, w_down, b_down, peers, out,
-    # stream
-    "fm_fused_ep": [I, I, I, I, I, I, I, I, I, I, I, I, I, I, ctypes.c_uint,
-                    ctypes.c_ulonglong, ctypes.c_longlong, P, P, P, P, P, P,
-                    P, P, P, P, P, P, P],
+    # dtype_is_bf16, gated, weight code, out (int*)
+    "fm_fused_ep_max_blocks": [I, I, I, ctypes.POINTER(I)],
+    # dtype_is_bf16, gated, weight code, act, D, nlx, cap, ch, H, I, k,
+    # combine, rows_pad, G, grp, seq, work_base, timeout_ns, x_send,
+    # send_cnt, order, recv_pos, w_sorted, w_up, w_gate, b_up, w_down,
+    # b_down, s_up, s_gate, s_down, peers, out, stream
+    "fm_fused_ep": [I, I, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                    ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong, P,
+                    P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
 }
 
 

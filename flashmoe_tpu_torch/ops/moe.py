@@ -15,7 +15,18 @@ the tokens through the plan's map (``ops/expert.py``).  With
 with ``degrade_unhealthy_experts`` a non-finite expert's contribution is
 masked before the combine (``ops/health.py``).
 
-E == 1 takes the dense FFN.  The gate and the grouped FFN run their CUDA
+Quantized expert storage (``cfg.expert_quant``, :mod:`flashmoe_tpu_torch.
+quant`) enters at the layer boundary, as ``flashmoe_tpu/ops/moe.py:77-90``:
+stored payloads dequantize to the compute dtype, full-precision weights
+are fake-quantized, and with the knob off a quantized dict is refused;
+the kernels then see ordinary compute-dtype weights.  With
+``collect_stats`` on fake-quantized weights the stats carry their
+round-trip error.
+
+E == 1 takes the dense FFN.  Its full-precision weights stay unquantized
+there, as in JAX; a stored quantized dense layer dequantizes (refused
+with the knob off), where JAX's ``dense_ffn`` would cast raw payloads.
+The gate and the grouped FFN run their CUDA
 kernels on CUDA tensors and their plain versions on CPU tensors.  Both
 arms are differentiable: the gate through its recompute backward
 (``ops/gate.py``), the grouped FFN through :func:`grouped_ffn_ad` /
@@ -31,6 +42,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from flashmoe_tpu_torch import quant as qt
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import (activation_fn, dot_f32,
@@ -40,7 +52,7 @@ from flashmoe_tpu_torch.ops import expert as exp
 from flashmoe_tpu_torch.ops import health as hlt
 from flashmoe_tpu_torch.ops import ragged as rag
 from flashmoe_tpu_torch.ops.gate import router
-from flashmoe_tpu_torch.ops.stats import moe_stats
+from flashmoe_tpu_torch.ops.stats import moe_stats, with_quant_error
 
 
 def _gather_fused(cfg: MoEConfig) -> bool:
@@ -85,8 +97,14 @@ def moe_layer(params, x, cfg: MoEConfig, *, use_kernels: bool | None = None
         zero = torch.zeros((), dtype=cfg.accum_dtype, device=x.device)
         counts = torch.full((1,), x.shape[0], dtype=torch.long,
                             device=x.device)
+        if qt.is_quantized(params):
+            params = qt.ffn_compute_params(params, cfg, out_dtype=x.dtype)
         return MoEOutput(dense_ffn(params, x, cfg), zero, zero, counts)
 
+    qerr = (qt.weight_quant_error(params, cfg)
+            if cfg.expert_quant is not None and cfg.collect_stats else None)
+    # every consumer below casts the expert weights to cfg.dtype
+    params = qt.ffn_compute_params(params, cfg, out_dtype=cfg.dtype)
     r = router(x, params["gate_w"], cfg, use_kernels=uk)
     dt = cfg.dtype
     xs = x.to(dt)
@@ -138,6 +156,8 @@ def moe_layer(params, x, cfg: MoEConfig, *, use_kernels: bool | None = None
         out = dsp.combine(ybuf, plan, combine_w, cfg, cap)
     if cfg.degrade_unhealthy_experts and stats is not None:
         stats = hlt.attach_degradation(stats, healthy, r.expert_idx)
+    if qerr is not None and stats is not None:
+        stats = with_quant_error(stats, qerr)
     if cfg.num_shared_experts:
         out = out + shared_expert_ffn(xs, params, cfg)
     return MoEOutput(out.to(dt), r.aux_loss * cfg.aux_loss_coef, r.z_loss,

@@ -5,11 +5,9 @@ function of the router's outputs and the capacity the dispatch clamps
 against, computed only when ``MoEConfig.collect_stats`` is set, so
 attaching them cannot move the layer's numbers.  Across the ranks of an
 expert-parallel mesh (:mod:`flashmoe_tpu_torch.parallel.mesh`),
-:func:`reduce_stats` and :func:`with_wire_error` reduce per-rank values
-over the mesh, as the JAX package's reduce over the shard_map axes.  The
-quantization error's filler (``with_quant_error``) waits for the
-quantization slice; that field stays zero here, as it is in JAX with the
-feature off.
+:func:`reduce_stats`, :func:`with_wire_error` and
+:func:`with_quant_error` reduce per-rank values over the mesh, as the JAX
+package's reduce over the shard_map axes.
 """
 
 from __future__ import annotations
@@ -40,7 +38,9 @@ class MoEStats(NamedTuple):
     wire_rtq_error:       [] mean relative round-trip error of the
                           exchange's wire dtype (0 with the wire off).
     wire_rtq_error_dcn:   [] the same for the cross-slice hop's wire.
-    quant_error:          [] 0 (no quantized weights in the port).
+    quant_error:          [] round-trip error of the expert weights under
+                          ``expert_quant`` (fake quantization; 0 with
+                          quant off or a pre-quantized store).
     """
 
     expert_load: torch.Tensor
@@ -156,6 +156,19 @@ def with_wire_error(stats: MoEStats, wire_rtq_error=None, mesh=None, *,
     if dcn_error is not None:
         fields["wire_rtq_error_dcn"] = red(dcn_error)
     return stats._replace(**fields) if fields else stats
+
+
+def with_quant_error(stats: MoEStats, quant_error, mesh=None) -> MoEStats:
+    """Attach the quantized weights' round-trip error
+    (:func:`flashmoe_tpu_torch.quant.state.weight_quant_error`).  With a
+    ``mesh`` it is a list of per-rank errors (each rank measures its own
+    expert shard), averaged over the ranks; ``None`` leaves the stats
+    untouched."""
+    if quant_error is None:
+        return stats
+    v = (mesh.pmean([t.float() for t in quant_error]) if mesh is not None
+         else torch.as_tensor(quant_error).float())
+    return stats._replace(quant_error=v)
 
 
 def stats_to_host(stats: MoEStats) -> dict:

@@ -20,15 +20,19 @@ meet the wrong experts).
 
 The per-rank arithmetic is written once, over the ranks this process
 holds: every stage is a list over them, and the ranks meet only in the
-mesh's all-to-all and reductions.  Left out: the tensor-parallel split of
-the experts (``tp`` stays refused by the config) and quantized expert
-storage (not in the port's config; a quantized store is refused).
+mesh's all-to-all and reductions.  Quantized expert storage enters
+through the boundary hook on each rank's shard
+(``flashmoe_tpu/parallel/ep.py:220-235``): payloads dequantize to the
+compute dtype, full-precision weights fake-quantize, and with the knob
+off a quantized store is refused.  Left out: the tensor-parallel split
+of the experts (``tp`` stays refused by the config).
 """
 
 from __future__ import annotations
 
 import torch
 
+from flashmoe_tpu_torch import quant as qt
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import shared_expert_ffn
@@ -41,17 +45,6 @@ from flashmoe_tpu_torch.ops.gate import router
 from flashmoe_tpu_torch.ops.moe import MoEOutput, dense_ffn
 
 _FFN_KEYS = ("w_up", "w_gate", "b_up", "w_down", "b_down")
-
-
-def refuse_quantized(params: dict) -> None:
-    """Raise on a quantized expert store (``*_qscale`` scales beside int8
-    or fp8 payloads), as JAX's quant-off guard does: the port has no
-    quantized arm yet (ROADMAP A.3), and casting raw payloads would give
-    finite garbage."""
-    if any(k.endswith("_qscale") for k in params):
-        raise ValueError(
-            "params carry quantized expert weights (+_qscale scales); "
-            "quantized expert stores wait for ROADMAP A.3")
 
 
 def local_capacity(cfg: MoEConfig, s_local: int) -> int:
@@ -148,6 +141,13 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
     e = cfg.num_experts
     nlx = e // d
     cap = local_capacity(cfg, s_loc)
+    # each rank's expert shard resolved to its compute weights (every
+    # FFN below casts them to cfg.dtype)
+    quant_err = ([qt.weight_quant_error(p, cfg) for p in params]
+                 if cfg.expert_quant is not None and cfg.collect_stats
+                 else None)
+    params = [qt.ffn_compute_params(p, cfg, out_dtype=cfg.dtype)
+              for p in params]
     wire_disp = wr.resolve(cfg.wire_dtype)
     wire_comb = wr.resolve(cfg.wire_dtype_combine)
     hier_on = dcn_inner is not None and 1 < dcn_inner < d
@@ -214,12 +214,13 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
         if cfg.num_shared_experts:
             out = out + shared_expert_ffn(x.to(cfg.dtype), p, cfg)
         outs.append(out.to(cfg.dtype))
-    return layer_output(mesh, cfg, rs, outs, cap, healthy, disp_err, comb_errs,
-                   dcn_errs)
+    return layer_output(mesh, cfg, rs, outs, cap, healthy, disp_err,
+                        comb_errs, dcn_errs, quant_err)
 
 
 def layer_output(mesh, cfg: MoEConfig, rs: list, outs: list, cap: int,
-            healthy: list, disp_err=None, comb_errs=(), dcn_errs=()):
+                 healthy: list, disp_err=None, comb_errs=(), dcn_errs=(),
+                 quant_err=None):
     """The layer's output over the held ranks: the token shards joined,
     aux and z averaged, counts summed and, with ``collect_stats``, the
     stats reduced over the mesh (the fused layer shares it)."""
@@ -242,6 +243,8 @@ def layer_output(mesh, cfg: MoEConfig, rs: list, outs: list, cap: int,
         if wire_err is not None or dcn_err is not None:
             stats = st.with_wire_error(stats, wire_err, mesh,
                                        dcn_error=dcn_err)
+        if quant_err is not None and quant_err[0] is not None:
+            stats = st.with_quant_error(stats, quant_err, mesh)
     return MoEOutput(mesh.join(outs), aux, z, counts, stats)
 
 
@@ -256,11 +259,12 @@ def ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     ``dcn_inner``: ranks per slice for the two-stage exchange; None or 0
     is the flat one.  ``use_kernels`` as in
     :func:`flashmoe_tpu_torch.ops.moe.moe_layer`."""
-    refuse_quantized(params)
     if dcn_inner == 0:
         dcn_inner = None
     uk = _build.use_kernels_for(x, use_kernels)
     if cfg.num_experts == 1:
+        if qt.is_quantized(params):
+            params = qt.ffn_compute_params(params, cfg, out_dtype=x.dtype)
         zero = torch.zeros((), dtype=cfg.accum_dtype, device=x.device)
         return MoEOutput(dense_ffn(params, x, cfg), zero, zero,
                          torch.full((1,), x.shape[0] * (

@@ -28,17 +28,27 @@ expert-major.  The TPU schedules' VMEM budgets have no counterpart: every
 order holds one 64-row tile's operands in a block's static shared memory
 (about 34 KB of the 227 KB an H100 block may use, a static assert in the
 kernel), whatever the capacity, source count or expert width.
+
+Under ``cfg.expert_quant`` (``flashmoe_tpu/parallel/fused.py:1451-1530,
+2078-2120``) full-precision weights are quantized first and
+per-K-group scales are refused; every order hands the kernel the 1-byte
+payloads and their ``[E, N]`` f32 scales, and the kernel dequantizes
+each weight tile on chip (B5q), where JAX's non-``rowwin`` schedules
+dequantize whole experts at the boundary.  The values are the same:
+each element is its own f32 product, rounded once to the input dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from flashmoe_tpu_torch import quant as qt
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import shared_expert_ffn
@@ -46,8 +56,8 @@ from flashmoe_tpu_torch.ops import dispatch as dsp
 from flashmoe_tpu_torch.ops import expert as exp
 from flashmoe_tpu_torch.ops import health as hlt
 from flashmoe_tpu_torch.ops.gate import router
-from flashmoe_tpu_torch.parallel.ep import (layer_output, local_capacity,
-                                            refuse_quantized)
+from flashmoe_tpu_torch.parallel.ep import layer_output, local_capacity
+from flashmoe_tpu_torch.quant.core import is_quant_dtype
 
 #: the kernel's row tile and output-column chunk (csrc/gemm_tile.cuh)
 ROW_TILE = 64
@@ -192,9 +202,12 @@ def check_src_order(src_order, d_world: int) -> np.ndarray:
 
 
 def _check_shard_args(name, send_cnt, x_send, w_up, b_up, w_down, b_down,
-                      w_gate, gated, recv_pos, w_sorted, k):
+                      w_gate, gated, recv_pos, w_sorted, k, scales):
     """(D, nLx, C, H, I) of the shard arguments; ValueError unless every
-    tensor has the shape the kernel reads."""
+    tensor has the shape the kernel reads.  ``scales`` ({weight name:
+    its ``*_sc`` argument}): a weight in a 1-byte store needs its
+    per-output-channel scales, [D * nLx, 1, N]; a weight in x_send's
+    dtype takes none."""
     if x_send.dim() != 5 or x_send.shape[0] != x_send.shape[1]:
         raise ValueError(f"{name}: x_send must be [D, D, nLx, C, H], got "
                          f"{tuple(x_send.shape)}")
@@ -222,13 +235,36 @@ def _check_shard_args(name, send_cnt, x_send, w_up, b_up, w_down, b_down,
             raise ValueError(
                 f"{name}: {key} is {tuple(t.shape)}, want {shape} (D={d}, "
                 f"nLx={nlx}, C={c}, H={h}, I={i_dim})")
+    for key, sc in scales.items():
+        w = want[key][0]
+        if sc is None:
+            if is_quant_dtype(w.dtype):
+                raise ValueError(
+                    f"{name}: {key} is a {w.dtype} payload without its "
+                    f"scales")
+            continue
+        if not is_quant_dtype(w.dtype):
+            raise ValueError(f"{name}: scales given for {key} in "
+                             f"{w.dtype}, which is no quantized store")
+        shape = (d * nlx, 1, w.shape[-1])
+        if tuple(sc.shape) != shape:
+            raise ValueError(
+                f"{name}: {key}'s scales are {tuple(sc.shape)}, want "
+                f"{shape} (one f32 per output channel; per-K-group "
+                f"stores run on the collective layer)")
     return d, nlx, c, h, i_dim
+
+
+def _scales(gated, wup_sc, wdn_sc, wg_sc) -> dict:
+    return {"w_up": wup_sc, "w_down": wdn_sc,
+            **({"w_gate": wg_sc} if gated else {})}
 
 
 def fused_shard_plain(send_cnt, src_order, x_send, w_up, b_up, w_down,
                       b_down, w_gate=None, *, act_name: str,
                       gated: bool = False, schedule: str = "stream",
-                      recv_pos=None, w_sorted=None, k: int = 1):
+                      recv_pos=None, w_sorted=None, k: int = 1,
+                      wup_sc=None, wdn_sc=None, wg_sc=None):
     """Plain torch version of the fused kernel over the stacked ranks.
 
     x_send [D, D, nLx, C, H] (rank, destination, local expert, slot);
@@ -243,11 +279,22 @@ def fused_shard_plain(send_cnt, src_order, x_send, w_up, b_up, w_down,
     returned rows land at their token-sorted rows and the result is the
     k-row weighted combine, [D, rows_pad / k, H] f32.  ``src_order``
     (checked as the kernel checks it) and ``schedule`` order the kernel's
-    work and do not change the values."""
+    work and do not change the values.
+
+    Quantized weights (B5q): int8 / e4m3 payloads with their
+    ``wup_sc`` / ``wdn_sc`` / ``wg_sc`` scales [D * nLx, 1, N] dequantize
+    to x_send's dtype, then the body above runs."""
     d, nlx, c, h, _ = _check_shard_args(
         "fused_shard_plain", send_cnt, x_send, w_up, b_up, w_down, b_down,
-        w_gate, gated, recv_pos, w_sorted, k)
+        w_gate, gated, recv_pos, w_sorted, k,
+        _scales(gated, wup_sc, wdn_sc, wg_sc))
     check_src_order(src_order, d)
+    deq = functools.partial(qt.dequantize_channelwise,
+                            out_dtype=x_send.dtype)
+    if wup_sc is not None:
+        w_up, w_down = deq(w_up, wup_sc), deq(w_down, wdn_sc)
+        if gated:
+            w_gate = deq(w_gate, wg_sc)
     x_recv = x_send.transpose(0, 1)  # [owner, source, e, C, H]
     y_stage = []
     for r in range(d):
@@ -303,15 +350,28 @@ _FLAGS: dict = {}
 _MAX_BLOCKS: dict = {}
 
 
-def max_blocks(x, gated: bool) -> int:
-    """The most kernel blocks that can be resident at once on x's device
-    (occupancy times the SM count)."""
-    key = (x.device, x.dtype, gated)
+#: the kernel's weight codes (csrc/fused_ep.cu): in x's dtype, int8, e4m3
+_WEIGHT_CODE = {"full": 0, "int8": 1, "e4m3": 2}
+_STORES = {v: k for k, v in _WEIGHT_CODE.items()}
+
+
+def _weight_code(w, x) -> int:
+    if w.dtype == x.dtype:
+        return _WEIGHT_CODE["full"]
+    return _WEIGHT_CODE["int8" if w.dtype == torch.int8 else "e4m3"]
+
+
+def max_blocks(x, gated: bool, wq: int = 0) -> int:
+    """The most kernel blocks of the arm (x's dtype, ``gated``, weight code
+    ``wq``) that can be resident at once on x's device (occupancy times
+    the SM count)."""
+    key = (x.device, x.dtype, gated, wq)
     if key not in _MAX_BLOCKS:
         n = ctypes.c_int(0)
         with torch.cuda.device(x.device):
             err = _build.library().fm_fused_ep_max_blocks(
-                int(x.dtype == torch.bfloat16), int(gated), ctypes.byref(n))
+                int(x.dtype == torch.bfloat16), int(gated), wq,
+                ctypes.byref(n))
         _build.check(err, "fm_fused_ep_max_blocks")
         _MAX_BLOCKS[key] = n.value
     return _MAX_BLOCKS[key]
@@ -338,6 +398,7 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
                      b_down, w_gate=None, *, act_name: str,
                      gated: bool = False, schedule: str = "stream",
                      recv_pos=None, w_sorted=None, k: int = 1,
+                     wup_sc=None, wdn_sc=None, wg_sc=None,
                      blocks_per_rank: int | None = None,
                      timeout_s: float = TIMEOUT_S):
     """The fused kernel (``csrc/fused_ep.cu``) on CUDA tensors, with
@@ -345,9 +406,11 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
     are unspecified here.  ``src_order`` is a [D, D] array (None: the
     ring).  ``blocks_per_rank`` defaults to the most the card keeps
     resident; a grid larger than that raises ValueError, never launches.
-    Bad shapes or source orders raise ValueError; autograd and weights
-    not in x_send's dtype (quantized stores) are refused.  Launches on
-    the current stream without synchronising."""
+    Weights are in x_send's dtype, or all int8 or all e4m3 payloads with
+    their per-output-channel scales (B5q, the kernel's quantized arm,
+    at any schedule).  Bad shapes, payloads without scales, grouped
+    scales or bad source orders raise ValueError; autograd is refused.
+    Launches on the current stream without synchronising."""
     name = "fused_shard_cuda"
     combine = recv_pos is not None
     _build.refuse_autograd(name, x_send, w_up, b_up, w_down, b_down, w_gate)
@@ -355,11 +418,19 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
         raise ValueError(f"{name} takes bf16 or f32, got {x_send.dtype}")
     d, nlx, c, h, i_dim = _check_shard_args(
         name, send_cnt, x_send, w_up, b_up, w_down, b_down, w_gate, gated,
-        recv_pos, w_sorted, k)
+        recv_pos, w_sorted, k, _scales(gated, wup_sc, wdn_sc, wg_sc))
     weights = [w_up, w_down] + ([w_gate] if gated else [])
-    if any(w.dtype != x_send.dtype for w in weights):
-        raise ValueError(f"{name}: weights must have x_send's dtype "
-                         f"(quantized expert stores are not ported)")
+    if len({w.dtype for w in weights}) != 1 or not (
+            weights[0].dtype == x_send.dtype
+            or is_quant_dtype(weights[0].dtype)):
+        raise ValueError(
+            f"{name}: weights must all be in x_send's dtype or all in one "
+            f"quantized store, got {[w.dtype for w in weights]}")
+    wq = _weight_code(w_up, x_send)
+    scales = {}  # the kernel's [E, N] f32 scales, by weight
+    if wq:
+        scales = {k: sc.float().reshape(d * nlx, -1).contiguous()
+                  for k, sc in _scales(gated, wup_sc, wdn_sc, wg_sc).items()}
     if h % 64 or i_dim % 64 or d > 128:
         raise ValueError(f"{name} needs H, I % 64 == 0 and D <= 128, got "
                          f"H={h}, I={i_dim}, D={d}")
@@ -368,7 +439,7 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
     so = check_src_order(src_order, d)
     cnt32 = send_cnt.to(torch.int32).contiguous()
     b_up32, b_down32 = b_up.float().contiguous(), b_down.float().contiguous()
-    tensors = [x_send, cnt32, b_up32, b_down32, *weights]
+    tensors = [x_send, cnt32, b_up32, b_down32, *weights, *scales.values()]
     rows_pad = 0
     if combine:
         recv_pos = recv_pos.to(torch.int32).contiguous()
@@ -378,7 +449,7 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
     _build.require_cuda(name, *tensors)
     ch = -(-c // ROW_TILE) * ROW_TILE
     n_tiles = ch // ROW_TILE
-    most = max_blocks(x_send, gated)
+    most = max_blocks(x_send, gated, wq)
     g = blocks_per_rank if blocks_per_rank is not None else most // d
     if g < 1 or d * g > most:
         raise ValueError(
@@ -405,25 +476,33 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
     seq = flags.seq + 1
     with torch.cuda.device(dev):
         err = _build.library().fm_fused_ep(
-            int(dt == torch.bfloat16), int(gated), exp._ACT_CODE[act_name],
+            int(dt == torch.bfloat16), int(gated), wq,
+            exp._ACT_CODE[act_name],
             d, nlx, c, ch, h, i_dim, k, int(combine), rows_pad, g,
             COL_GROUP, seq, flags.work_base, int(timeout_s * 1e9),
             x_send.data_ptr(), cnt32.data_ptr(), order.data_ptr(),
             recv_pos.data_ptr() if combine else None,
             w_sorted.data_ptr() if combine else None, w_up.data_ptr(),
             w_gate.data_ptr() if gated else None, b_up32.data_ptr(),
-            w_down.data_ptr(), b_down32.data_ptr(), peers.data_ptr(),
+            w_down.data_ptr(), b_down32.data_ptr(),
+            *(scales[k].data_ptr() if k in scales else None
+              for k in ("w_up", "w_gate", "w_down")),
+            peers.data_ptr(),
             out.data_ptr() if combine else None, _build.stream_of(x_send))
     _build.check(err, "fm_fused_ep")
     flags.seq = seq
     flags.work_base += order.shape[1] + g
     fused_shard_cuda.launches += 1
+    fused_shard_cuda.store_launches[_STORES[wq]] += 1
     if combine:
         return out
     return ret.view(d, d, nlx, ch, h)[:, :, :, :c].contiguous()
 
 
 fused_shard_cuda.launches = 0
+#: the launches above by weight store: "full" (x_send's dtype), and B5q's
+#: "int8" and "e4m3"
+fused_shard_cuda.store_launches = dict.fromkeys(_WEIGHT_CODE, 0)
 
 
 def fused_shard(send_cnt, src_order, x_send, w_up, b_up, w_down, b_down,
@@ -440,7 +519,9 @@ class FusedInputs(NamedTuple):
     """What the layer hands the fused kernel, and what it keeps for the
     combine: per held rank the router outputs and plans; the stacked
     shard arguments of :func:`fused_shard` (``args``, ``kw``); the real
-    and padded capacities and the local token count."""
+    and padded capacities, the local token count, and each rank's weight
+    round-trip error (fake quantization with ``collect_stats``, else
+    None)."""
 
     rs: list
     plans: list
@@ -449,6 +530,41 @@ class FusedInputs(NamedTuple):
     cap: int
     cap_pad: int
     s_loc: int
+    quant_err: list | None = None
+
+
+def _quant_weights(params, cfg: MoEConfig, mesh):
+    """(the expert weights and biases of the shard arguments, the scale
+    keywords, each rank's round-trip error or None) under
+    ``cfg.expert_quant``, as ``flashmoe_tpu/parallel/fused.py:2078-2120``
+    and ``:1451-1530``: full-precision weights quantize first, per-K-group
+    scales are refused, and the payloads go to the kernel with their
+    scales."""
+    gated = cfg.gated_ffn
+    dt = cfg.dtype
+    if cfg.expert_quant is None:
+        qt.ensure_unquantized(params)
+        return ((params["w_up"].to(dt), params["b_up"],
+                 params["w_down"].to(dt), params["b_down"],
+                 params["w_gate"].to(dt) if gated else None), {}, None)
+    quant_err = ([qt.weight_quant_error(p, cfg)
+                  for p in mesh.shard_params(params)]
+                 if cfg.collect_stats else None)
+    if not qt.is_quantized(params):
+        params = qt.quantize_ffn_params(params, cfg.expert_quant)
+    sfx = qt.SCALE_SUFFIX
+    sc = {"wup_sc": params["w_up" + sfx], "wdn_sc": params["w_down" + sfx],
+          "wg_sc": params["w_gate" + sfx] if gated else None}
+    if any(v is not None and v.shape[-2] != 1 for v in sc.values()):
+        raise ValueError(
+            "the fused path supports per-OUTPUT-CHANNEL quant "
+            "scales only (quantize_state without group_size); "
+            "per-K-group states run on the collective/ragged "
+            "paths, or dequantize_state() + requantize "
+            "per-channel")
+    return ((params["w_up"], params["b_up"], params["w_down"],
+             params["b_down"], params["w_gate"] if gated else None),
+            sc, quant_err)
 
 
 def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
@@ -466,8 +582,9 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
         raise NotImplementedError(
             "fused_ep_moe_layer runs the ranks of a local mesh; one rank "
             "per process waits for the multi-GPU transport (ROADMAP A.5)")
-    refuse_quantized(params)
     d = mesh.size
+    schedule = _fused_schedule(d, cfg.fused_schedule)
+    weights, scale_kw, quant_err = _quant_weights(params, cfg, mesh)
     so = check_src_order(src_order, d)
     uk = _build.use_kernels_for(x, use_kernels)
     xs, ps = mesh.split(x), mesh.shard_params(params)
@@ -487,13 +604,9 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
         sends.append(xbuf.reshape(d, nlx, cap_pad, h))
         # counts clamp to the real capacity: padded rows are never sent
         counts.append(torch.clamp(plan.counts, max=cap).reshape(d, nlx))
-    dt = cfg.dtype
-    args = (torch.stack(counts), so, torch.stack(sends), params["w_up"].to(dt), params["b_up"],
-            params["w_down"].to(dt), params["b_down"],
-            params["w_gate"].to(dt) if cfg.gated_ffn else None)
+    args = (torch.stack(counts), so, torch.stack(sends), *weights)
     kw = dict(act_name=cfg.hidden_act, gated=cfg.gated_ffn,
-              schedule=_fused_schedule(d, cfg.fused_schedule),
-              use_kernels=uk)
+              schedule=schedule, use_kernels=uk, **scale_kw)
     # tier-0 degradation needs the per-expert outputs before the combine
     if _fuse_combine_enabled(cfg, d) and not cfg.degrade_unhealthy_experts:
         k = cfg.expert_top_k
@@ -505,7 +618,7 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
                    .reshape(d, nlx, cap_pad) for m in maps]
         kw.update(recv_pos=torch.stack(mesh.all_to_all(ret_pos)),
                   w_sorted=torch.stack([m[1] for m in maps]), k=k)
-    return FusedInputs(rs, plans, args, kw, cap, cap_pad, s_loc)
+    return FusedInputs(rs, plans, args, kw, cap, cap_pad, s_loc, quant_err)
 
 
 def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *, src_order=None,
@@ -543,5 +656,6 @@ def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *, src_order=None,
         if cfg.num_shared_experts:
             outs[i] = outs[i] + shared_expert_ffn(xr.to(cfg.dtype), p, cfg)
         outs[i] = outs[i].to(cfg.dtype)
-    return layer_output(mesh, cfg, fi.rs, outs, fi.cap, healthy)
+    return layer_output(mesh, cfg, fi.rs, outs, fi.cap, healthy,
+                        quant_err=fi.quant_err)
 

@@ -27,3 +27,27 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def map_subtrees(pred, fn, tree):
+    """Rebuild ``tree`` with ``fn(node)`` in place of every outermost node
+    for which ``pred(node)`` holds (the others walked as in
+    :func:`tree_map`, leaves kept)."""
+    if pred(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_subtrees(pred, fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [map_subtrees(pred, fn, v) for v in tree]
+        if hasattr(tree, "_fields"):  # a NamedTuple
+            return type(tree)(*items)
+        return type(tree)(items)
+    return tree
+
+
+def subtrees(pred, tree) -> list:
+    """The outermost nodes of ``tree`` for which ``pred`` holds, in
+    :func:`tree_map`'s order."""
+    out = []
+    map_subtrees(pred, lambda node: out.append(node) or node, tree)
+    return out

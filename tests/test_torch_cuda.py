@@ -494,7 +494,7 @@ def test_fused_ep_kernel_recovers_from_a_refused_launch(gen, monkeypatch):
     flags = fused._FLAGS[args[2].device]
     seq, before = flags.seq, fused.fused_shard_cuda.launches
     with monkeypatch.context() as mp:
-        mp.setattr(fused, "max_blocks", lambda x, gated: 4 * most)
+        mp.setattr(fused, "max_blocks", lambda x, gated, wq=0: 4 * most)
         with pytest.raises(RuntimeError, match="fm_fused_ep"):
             fused.fused_shard_cuda(*args, blocks_per_rank=most, **kw)
     assert fused._FLAGS[args[2].device] is flags and flags.seq == seq
@@ -529,6 +529,116 @@ def test_fused_layer_kernel_matches_plain_and_collective(gen, monkeypatch,
     x.requires_grad_(True)
     with pytest.raises(RuntimeError, match="autograd"):
         fused.fused_ep_moe_layer(p, x, cfg, m)
+
+
+# ----------------------------------------------------------------------
+# B5q: the fused kernel's quantized arm (int8 / e4m3 weights + scales)
+# ----------------------------------------------------------------------
+
+def _quantize_shard(args, kw, qname):
+    """The shard arguments with their weights in the ``qname`` store:
+    payloads in place of the weights, their scales in the keywords."""
+    from flashmoe_tpu_torch import quant as qt
+
+    args = list(args)
+    sc = {}
+    for i, key in ((3, "wup_sc"), (5, "wdn_sc"), (7, "wg_sc")):
+        if args[i] is not None:
+            args[i], sc[key] = qt.quantize_channelwise(args[i], qname)
+    return tuple(args), dict(kw, **sc)
+
+
+_QUANT_GRID = [(q, dt, gated, cap) for q in ("int8", "e4m3")
+               for dt in (torch.bfloat16, torch.float32)
+               for gated in (True, False) for cap in (32, 96)]
+
+
+@pytest.mark.parametrize(
+    "qname,dtype,gated,cap", _QUANT_GRID,
+    ids=[f"{q}_{str(dt)[6:]}_{'gated' if g else 'plain'}_cap{c}"
+         for q, dt, g, c in _QUANT_GRID])
+def test_fused_ep_quant_kernel_matches_plain(gen, qname, dtype, gated, cap):
+    """B5q against its plain version at the populated rows (bf16 within the
+    bf16 tolerance, f32 within 1e-5 normwise), at capacities below and
+    above the 64-row tile, in both processing orders; and equal bit for
+    bit to the kernel on the same weights dequantized beforehand (the
+    tiles it builds in shared memory hold the same values)."""
+    from flashmoe_tpu_torch import quant as qt
+    from flashmoe_tpu_torch.parallel import fused
+
+    args, kw = _fused_inputs(gen, 4, gated, False, cap > 64, dtype, cap=cap)
+    qargs, qkw = _quantize_shard(args, kw, qname)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+    ring = fused.default_ring(4)
+    before = fused.fused_shard_cuda.launches
+    for schedule in ("rowwin", "stream"):
+        _fused_check(qargs, qkw, 4, ring, schedule, tol)
+    deq = list(qargs)
+    for i, key in ((3, "wup_sc"), (5, "wdn_sc"), (7, "wg_sc")):
+        if deq[i] is not None:
+            deq[i] = qt.dequantize_channelwise(deq[i], qkw[key], dtype)
+    got = fused.fused_shard_cuda(*qargs, schedule="rowwin", **qkw)
+    want = fused.fused_shard_cuda(*deq, schedule="rowwin", **kw)
+    torch.cuda.synchronize()
+    live = torch.arange(cap, device="cuda") < args[0][..., None]
+    assert torch.equal(got[live], want[live])
+    assert fused.fused_shard_cuda.launches == before + 4
+
+
+def test_fused_ep_quant_kernel_refusals(gen):
+    """Payloads without scales, grouped scales and mixed stores are
+    refused before any launch."""
+    from flashmoe_tpu_torch import quant as qt
+    from flashmoe_tpu_torch.parallel import fused
+
+    args, kw = _fused_inputs(gen, 2, True, False, False)
+    qargs, qkw = _quantize_shard(args, kw, "int8")
+    before = fused.fused_shard_cuda.launches
+    with pytest.raises(ValueError, match="without its scales"):
+        fused.fused_shard_cuda(*qargs, **dict(qkw, wg_sc=None))
+    _, grouped = qt.quantize_channelwise(args[3], "int8", group_size=64)
+    with pytest.raises(ValueError, match="scales are"):
+        fused.fused_shard_cuda(*qargs, **dict(qkw, wup_sc=grouped))
+    mixed = qargs[:5] + (qargs[5].float().to(torch.float8_e4m3fn),) \
+        + qargs[6:]
+    with pytest.raises(ValueError, match="one quantized store"):
+        fused.fused_shard_cuda(*mixed, **qkw)
+    assert fused.fused_shard_cuda.launches == before
+
+
+@pytest.mark.parametrize("qname", ["int8", "e4m3"])
+def test_quantized_layers_kernels_match_plain(gen, monkeypatch, qname):
+    """On a quantized store: ``moe_layer`` (boundary dequant, then the
+    gate and grouped FFN kernels) and the fused layer (B5q, at the
+    default schedule) against their plain runs, and the fused layer
+    against the collective one."""
+    from flashmoe_tpu_torch import quant as qt
+    from flashmoe_tpu_torch.parallel import ep, fused, mesh
+
+    monkeypatch.setenv("FLASHMOE_FUSED_COMBINE", "0")
+    cfg = MoEConfig(num_experts=8, expert_top_k=2, hidden_size=128,
+                    intermediate_size=192, gated_ffn=True, hidden_act="silu",
+                    drop_tokens=False, ep=4, expert_quant=qname,
+                    dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    p = qt.quantize_state(init_moe_params(gen, cfg, device="cuda"),
+                          qname).params
+    x = torch.randn(256, 128, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    before = expert.grouped_ffn_cuda.launches
+    one = moe_layer(p, x, cfg.replace(ep=1))
+    assert expert.grouped_ffn_cuda.launches == before + 1
+    plain = moe_layer(p, x, cfg.replace(ep=1), use_kernels=False)
+    assert _normwise(one.out, plain.out) <= BF16_TOL
+    m = mesh.local_mesh(4)
+    fcfg = cfg.replace(moe_backend="fused")
+    before = fused.fused_shard_cuda.store_launches[qname]
+    got = fused.fused_ep_moe_layer(p, x, fcfg, m)
+    assert fused.fused_shard_cuda.store_launches[qname] == before + 1
+    want = fused.fused_ep_moe_layer(p, x, fcfg, m, use_kernels=False)
+    assert _normwise(got.out, want.out) <= BF16_TOL
+    coll = ep.ep_moe_layer(p, x, cfg, m)
+    assert _normwise(got.out, coll.out) <= BF16_TOL
+    assert _normwise(got.out, one.out) <= BF16_TOL
 
 
 # ----------------------------------------------------------------------
