@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time this tree's gate and grouped matmul, and the serving and training
-paths that run them, against another tree of the port on one card:
+"""Time this tree's gate, grouped FFN, grouped matmul and fused EP kernel,
+and the serving and training paths that run them, against another tree
+of the port on one card:
 
     python3 chip_ab.py --other DIR [--rounds 2]
 
@@ -13,6 +14,12 @@ so both are measured on the same card in the same call.  Per run:
 * the gate (Mixtral: H 4096, E 8, top-2, bf16) at prefill (1024 tokens)
   and decode (4 tokens): ``router_cuda`` on CUDA events, and its
   kernels' device time from torch.profiler;
+* the grouped FFN (B2) and its gather-fused twin (B3), SwiGLU, routing
+  by the top-k of random logits: Mixtral widths (E 8, H 4096, I 14336,
+  top-2) at prefill (1024 tokens) and decode (4), Qwen3-Next's MoE widths
+  (E 512, H 2048, I 512, top-10) at 8192 tokens and at 4:
+  ``grouped_ffn_cuda`` and ``grouped_ffn_tokens_cuda`` on CUDA events,
+  and their kernels' device time (the work list's launch included);
 * the grouped matmul at the training step's backward shapes (2560 rows of
   8 experts, 64 rows of padding past num_rows; K 4096 -> N 14336 and
   K 14336 -> N 4096, bf16 in, f32 out): ``grouped_matmul_cuda`` on CUDA
@@ -29,6 +36,13 @@ so both are measured on the same card in the same call.  Per run:
 
 Prints one line a run, then one JSON object with every run as the last
 line.  Needs a CUDA device.
+
+    python3 chip_ab.py --ptxas grouped_ffn.cu [SOURCE ...]
+
+compiles those sources of this tree as the build does and prints each
+kernel's registers, stack, spills and static shared memory (``nvcc
+-Xptxas -v``) and its count of HGMMA (wgmma) instructions (``cuobjdump
+-sass``).  Needs nvcc, not a device.
 """
 
 from __future__ import annotations
@@ -82,7 +96,7 @@ def worker(tree: str) -> dict:
 
     def device_ms(fn, iters, word):
         """Device time a call of the port's kernels whose names hold
-        ``word``, from torch.profiler."""
+        ``word`` (or one of the words of a tuple), from torch.profiler."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -91,9 +105,10 @@ def worker(tree: str) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        words = (word,) if isinstance(word, str) else word
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and "fm::" in e.key
-                 and word in e.key)
+                 and any(w in e.key for w in words))
         return us / 1e3 / iters
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -108,6 +123,45 @@ def worker(tree: str) -> dict:
             lambda: gate.router_cuda(x, w, gcfg), 200)
         res[f"gate_{tag}_kernel_ms"] = device_ms(
             lambda: gate.router_cuda(x, w, gcfg), 50, "gate")
+
+    from flashmoe_tpu_torch.ops import ragged
+    for wname, e, h, i, k, s_pre in (("mixtral", 8, 4096, 14336, 2, 1024),
+                                     ("qwen3next", 512, 2048, 512, 10,
+                                      8192)):
+        fcfg = config.MoEConfig(num_experts=e, expert_top_k=k,
+                                hidden_size=h, intermediate_size=i,
+                                gated_ffn=True, hidden_act="silu",
+                                drop_tokens=False, dtype=torch.bfloat16)
+        ws = [(torch.randn(*sh, device="cuda", generator=g)
+               / sh[-2] ** 0.5).to(torch.bfloat16)
+              for sh in ((e, h, i), (e, i, h), (e, h, i))]
+        b_up = torch.randn(e, i, device="cuda", generator=g) / 8
+        b_down = torch.randn(e, h, device="cuda", generator=g) / 8
+        x = torch.randn(s_pre, h, device="cuda", generator=g,
+                        dtype=torch.bfloat16)
+        ids = torch.randn(s_pre, e, device="cuda", generator=g).topk(k)[1]
+        for tag, s in (("prefill", s_pre), ("decode", 4)):
+            plan = ragged.make_ragged_plan(ids[:s], fcfg, expert.ROW_TILE)
+            xs = x[:s].contiguous()
+            xbuf = ragged.ragged_dispatch(xs, plan, fcfg, expert.ROW_TILE)
+            kw = dict(act_name="silu", gated=True, block_m=expert.ROW_TILE,
+                      num_rows=plan.num_rows)
+            rest = (plan.tile_gid, ws[0], b_up, ws[1], b_down, ws[2])
+
+            def b2(xbuf=xbuf, rest=rest, kw=kw):
+                return expert.grouped_ffn_cuda(xbuf, *rest, **kw)
+
+            def b3(xs=xs, src=plan.src_tok, rest=rest, kw=kw):
+                return expert.grouped_ffn_tokens_cuda(xs, src, *rest, **kw)
+
+            iters = 50 if tag == "decode" else 10
+            for name, fn in (("b2", b2), ("b3", b3)):
+                key = f"ffn_{wname}_{tag}_{name}"
+                res[f"{key}_wrapper_ms"] = events_ms(fn, iters)
+                res[f"{key}_kernel_ms"] = device_ms(fn, 5,
+                                                    ("ffn", "gmm_plan"))
+        del ws, x, xbuf
+    torch.cuda.empty_cache()
 
     tiles = [5, 5, 6, 4, 5, 5, 5, 5]
     gid = torch.tensor([e for e, c in enumerate(tiles) for _ in range(c)],
@@ -198,15 +252,79 @@ def worker(tree: str) -> dict:
     return res
 
 
+def ptxas_report(source: str) -> list[dict]:
+    """Each kernel of this tree's ``csrc/<source>``, compiled as the build
+    compiles it: registers, stack, spills and static shared memory from
+    ``nvcc -Xptxas -v``, and the HGMMA (wgmma) instructions of its SASS
+    from ``cuobjdump -sass``."""
+    import re
+    import tempfile
+
+    sys.path.insert(0, HERE)
+    from flashmoe_tpu_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    tools = os.path.dirname(nvcc)
+    with tempfile.TemporaryDirectory() as work:
+        obj = os.path.join(work, "k.o")
+        log = subprocess.run(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+             os.path.join(_build.CSRC, source)],
+            capture_output=True, text=True, check=True)
+        sass = subprocess.run([os.path.join(tools, "cuobjdump"), "-sass", obj],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    kernels, name = {}, None
+    for line in (log.stdout + log.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = {"kernel": name}
+        elif name and "spill stores" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            kernels[name].update(stack=nums[0], spill_stores=nums[1],
+                                 spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            kernels[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            kernels[name]["static_smem"] = int(m.group(1)) if m else 0
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    names = list(kernels)
+    plain = subprocess.run([os.path.join(tools, "cu++filt")], input="\n".join(
+        names), capture_output=True, text=True).stdout.splitlines()
+    for mangled, readable in zip(names, plain):
+        kernels[mangled].update(kernel=readable,
+                                hgmma=counts.get(mangled, 0))
+    return list(kernels.values())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="root of the other tree")
+    ap.add_argument("--ptxas", nargs="+", metavar="SOURCE",
+                    help="instead: report registers, spills, shared memory "
+                    "and HGMMA counts of each kernel of these csrc/ sources")
     ap.add_argument("--rounds", type=int, default=2,
                     help="pairs of turns for each tree (default 2)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker)))
+        return 0
+    if args.ptxas:
+        rows = [dict(r, source=src) for src in args.ptxas
+                for r in ptxas_report(src)]
+        for r in rows:
+            print(" ".join(f"{k}={v}" for k, v in r.items()))
+        print(json.dumps({"gpu": gpu_line(), "kernels": rows}))
         return 0
     import torch
     if not torch.cuda.is_available():

@@ -6,17 +6,21 @@
 Phases, each of which fails the run on any error:
 
 1. build: compile the CUDA kernels from ``flashmoe_tpu_torch/csrc/``;
-2. kernels: hold each kernel against its plain torch version on the card
-   at the shapes its path gives it (plus a small f32 case), and time the
-   kernel, the plain version and one PyTorch library call computing the
-   same function: the gate, grouped FFN and flash attention of serving,
-   the residual-saving FFN, grouped matmul and transposed grouped matmul
-   of the training step, the two-pass gate's passes at the many-expert
-   layer's widths (with pass 2 and without; f32 and K = 64 cases too),
-   and the gather-fused FFN at Mixtral prefill (also against the grouped
-   FFN on the dispatched buffer).  The gate is timed at prefill and
-   decode and the grouped matmul at both of the train step's shapes, each
-   as the bare C call, with its wrapper's time beside it;
+2. kernels: first the grouped FFN's MN-major mainloop alone (one block,
+   [64, 4096] @ [4096, N] against torch.matmul); then hold each kernel
+   against its plain torch version on the card at the shapes its path
+   gives it (plus a small f32 case), and time the kernel, the plain
+   version and one PyTorch library call computing the same function: the
+   gate, grouped FFN and flash attention of serving, the residual-saving
+   FFN, grouped matmul and transposed grouped matmul of the training
+   step, the two-pass gate's passes at the many-expert layer's widths
+   (with pass 2 and without; f32 and K = 64 cases too), and the
+   gather-fused FFN (also against the grouped FFN on the dispatched
+   buffer, bit for bit).  The gate and both FFNs are timed at prefill and
+   decode (the grouped FFN's decode rows also held, bit for bit, against
+   the same tokens' rows inside the prefill), the grouped matmul at both
+   of the train step's shapes; the gate and grouped matmul as the bare C
+   call, with the wrapper's time beside it;
 3. capacity arm: one MoE layer of the FlashMoE reference config (E=64,
    top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain,
    forward (explicit dispatch and gather-fused) and the gradients of
@@ -329,11 +333,87 @@ def ffn_inputs(cfg, params, x):
     return args, kw, plan
 
 
+def ffn_library(cfg, segs, xbuf, w_up, b_up, w_down, b_down, w_gate):
+    """The grouped FFN's function through cuBLAS, one expert segment at a
+    time (the library yardstick)."""
+    act = reference.activation_fn(cfg.hidden_act)
+    out = torch.empty_like(xbuf)
+    for e, a, b in segs:
+        xe = xbuf[a:b]
+        u = torch.addmm(b_up[e], xe, w_up[e])
+        out[a:b] = torch.addmm(b_down[e], act(xe @ w_gate[e]) * u, w_down[e])
+    return out
+
+
+def ffn_bound(cfg, segs, gathered=False) -> dict:
+    """B2's (or B3's) least time: the live rows read (as token rows and
+    their src_tok with ``gathered``) and written once, the touched
+    experts' weights and biases read once; 2 x rows x H x I operations a
+    matrix."""
+    rows = sum(b - a for _, a, b in segs)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    n_mats = 3 if cfg.gated_ffn else 2
+    touched = sum(1 for _, a, b in segs if b > a)
+    return bound(bytes_=2 * rows * h * 2 + (4 * rows if gathered else 0)
+                 + touched * (n_mats * h * i * 2 + 4 * (i + h)),
+                 flops=2 * rows * h * i * n_mats)
+
+
+def ffn_times(cfg, args, kw, plan, iters=10) -> dict:
+    """B2's wrapper time beside its plain version's, the library
+    yardstick's and the bound, at one plan's rows."""
+    segs = expert_segments(plan, expert.ROW_TILE)
+    return dict(
+        ms=cuda_ms(lambda: expert.grouped_ffn_cuda(*args, **kw), iters),
+        plain_ms=cuda_ms(lambda: expert.grouped_ffn_plain(*args, **kw), 3),
+        library_ms=cuda_ms(lambda: ffn_library(cfg, segs, args[0],
+                                               *args[2:]), iters),
+        **ffn_bound(cfg, segs))
+
+
+def tile_phase():
+    """The MN-major mainloop alone, before the FFN that runs on it: one
+    block of [64, 4096] @ [4096, N] (the up pass's K), N 128 and 256,
+    against torch.matmul in f32 on the same bf16 inputs (f32 sums of the
+    same products in another order: 1e-5 of the largest output)."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for n in (128, 256):
+        a = torch.randn(64, 4096, device="cuda", generator=g).to(
+            torch.bfloat16)
+        b = torch.randn(4096, n, device="cuda", generator=g).to(
+            torch.bfloat16)
+        got = expert.hopper_tile_mn_cuda(a, b)
+        want = torch.matmul(a.float(), b.float())
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max() / want.abs().max())
+        check(err <= 1e-5, f"hopper tile N={n}: relative err {err}")
+        print(f"hopper_tile_mn K=4096 N={n}: max_abs_err/max={err:.3g} "
+              f"(tol 1e-5)")
+
+
 def ffn_phase(cfg, params, x):
+    """B2 at Mixtral prefill (the tokens x) and decode (their first 4),
+    each against its plain version and timed beside the plain version,
+    the library yardstick and the bound (at decode: the touched experts'
+    weights); the decode rows against the same tokens' rows inside the
+    prefill, bit for bit; a small f32 case."""
     args, kw, plan = ffn_inputs(cfg, params, x)
     err = check_ffn("prefill", args, kw)
-    dargs, dkw, _ = ffn_inputs(cfg, params, x[:4].contiguous())
+    dargs, dkw, dplan = ffn_inputs(cfg, params, x[:4].contiguous())
     check_ffn("decode", dargs, dkw)
+    # a token's output does not depend on its batch: its decode rows are
+    # its prefill rows (the gate routes it alike in both, card test)
+    y = expert.grouped_ffn_cuda(*args, **kw)
+    yd = expert.grouped_ffn_cuda(*dargs, **dkw)
+    rows_p, rows_d = plan.position[:4].reshape(-1), dplan.position.reshape(-1)
+    bm = expert.ROW_TILE
+    check(torch.equal(plan.tile_gid[rows_p // bm],
+                      dplan.tile_gid[rows_d // bm]),
+          "decode tokens routed as in prefill")
+    check(torch.equal(y[rows_p], yd[rows_d]),
+          "grouped_ffn: decode rows differ from the same rows in prefill")
+    print("grouped_ffn decode rows equal their prefill rows bit for bit")
+    del y, yd
     small = config.MoEConfig(
         num_experts=3, expert_top_k=2, hidden_size=128, intermediate_size=256,
         gated_ffn=True, hidden_act="gelu", dtype=torch.float32)
@@ -344,35 +424,18 @@ def ffn_phase(cfg, params, x):
     sargs, skw, _ = ffn_inputs(small, sp, sx)
     check_ffn("f32", sargs, skw)
 
-    # the same function through cuBLAS, one expert segment at a time
-    xbuf, w_up, b_up, w_down, b_down, w_gate = (args[0], *args[2:])
-    segs = expert_segments(plan, expert.ROW_TILE)
-    act = reference.activation_fn(cfg.hidden_act)
-
-    def library():
-        out = torch.empty_like(xbuf)
-        for e, a, b in segs:
-            xe = xbuf[a:b]
-            u = torch.addmm(b_up[e], xe, w_up[e])
-            out[a:b] = torch.addmm(b_down[e], act(xe @ w_gate[e]) * u,
-                                   w_down[e])
-        return out
-
-    rows = sum(b - a for _, a, b in segs)
-    h, i = cfg.hidden_size, cfg.intermediate_size
-    n_mats = 3 if cfg.gated_ffn else 2
-    touched = sum(1 for _, a, b in segs if b > a)
+    pre = ffn_times(cfg, args, kw, plan)
+    dec = ffn_times(cfg, dargs, dkw, dplan, iters=50)
+    for tag, r in (("prefill", pre), ("decode", dec)):
+        print(f"grouped_ffn {tag}: ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} ({gpu_line()})")
     return dict(
         name="grouped_ffn", route="cuda",
         source="flashmoe_tpu_torch/csrc/grouped_ffn.cu",
-        replaces="flashmoe_tpu/ops/expert.py:77", max_abs_err=err,
-        ms=cuda_ms(lambda: expert.grouped_ffn_cuda(*args, **kw), 10),
-        plain_ms=cuda_ms(lambda: expert.grouped_ffn_plain(*args, **kw), 3),
-        library_ms=cuda_ms(library, 10),
-        **bound(
-            bytes_=2 * rows * h * 2 + touched * (n_mats * h * i * 2
-                                                 + 4 * (i + h)),
-            flops=2 * rows * h * i * n_mats))
+        replaces="flashmoe_tpu/ops/expert.py:77", max_abs_err=err, **pre,
+        **{f"decode_{key}": v for key, v in dec.items()})
 
 
 def flash_phase():
@@ -762,31 +825,53 @@ def gate_tiled_phase():
     return [pass1, pass2]
 
 
-def gather_phase(cfg, params, x):
-    """The gather-fused FFN (B3) at the rows and ragged plan of B2's
-    prefill check: against its plain version at the populated rows, and
-    against B2 on the dispatched buffer there (the same tile code: 0
-    expected); a small f32 case."""
-    args, kw, plan = ffn_inputs(cfg, params, x)
+def gather_times(cfg, x, args, kw, plan, iters=10) -> dict:
+    """B3's wrapper time beside its plain version's, the library
+    yardstick's (``index_select``, then the per-expert loop) and the
+    bound, at one plan's rows."""
     targs = (x, plan.src_tok, *args[1:])
-    live = plan.present
-    got = expert.grouped_ffn_tokens_cuda(*targs, **kw)
-    want = expert.grouped_ffn_tokens_plain(*targs, **kw)
-    b2 = expert.grouped_ffn_cuda(*args, **kw)
-    torch.cuda.synchronize()
-    nerr, err = normwise(got[live], want[live]), max_abs(got[live],
-                                                         want[live])
-    vs_b2 = max_abs(got[live], b2[live])
-    check(bool(torch.isfinite(got).all()), "grouped_ffn_tokens: finite")
-    check(nerr <= BF16_NORMWISE_TOL, f"grouped_ffn_tokens: normwise {nerr}")
-    check(vs_b2 <= err, f"grouped_ffn_tokens: {vs_b2} from B2 on the "
-          f"dispatched buffer, more than from the plain version")
-    print(f"grouped_ffn_tokens prefill: tokens={x.shape[0]} "
-          f"rows={args[0].shape[0]} live={int(live.sum())} "
-          f"H={cfg.hidden_size} I={cfg.intermediate_size} bf16: "
-          f"normwise_err={nerr:.3g} (tol {BF16_NORMWISE_TOL}) "
-          f"max_abs_err={err:.3g} max_abs_diff_from_b2={vs_b2:.3g}")
-    del b2
+    segs = expert_segments(plan, expert.ROW_TILE)
+    src = plan.src_tok
+    return dict(
+        ms=cuda_ms(lambda: expert.grouped_ffn_tokens_cuda(*targs, **kw),
+                   iters),
+        plain_ms=cuda_ms(
+            lambda: expert.grouped_ffn_tokens_plain(*targs, **kw), 3),
+        library_ms=cuda_ms(lambda: ffn_library(
+            cfg, segs, x.index_select(0, src), *args[2:]), iters),
+        **ffn_bound(cfg, segs, gathered=True))
+
+
+def gather_phase(cfg, params, x):
+    """The gather-fused FFN (B3) at the rows and ragged plans of B2's
+    prefill and decode checks: against its plain version at the populated
+    rows, and against B2 on the dispatched buffer there, bit for bit (the
+    same bytes reach the same products and epilogue); a small f32 case;
+    then timed at prefill and decode."""
+    runs = {}
+    for tag, xs in (("prefill", x), ("decode", x[:4].contiguous())):
+        args, kw, plan = ffn_inputs(cfg, params, xs)
+        targs = (xs, plan.src_tok, *args[1:])
+        live = plan.present
+        got = expert.grouped_ffn_tokens_cuda(*targs, **kw)
+        want = expert.grouped_ffn_tokens_plain(*targs, **kw)
+        b2 = expert.grouped_ffn_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        nerr = normwise(got[live], want[live])
+        err = max_abs(got[live], want[live])
+        check(bool(torch.isfinite(got).all()), "grouped_ffn_tokens: finite")
+        check(nerr <= BF16_NORMWISE_TOL,
+              f"grouped_ffn_tokens {tag}: normwise {nerr}")
+        check(torch.equal(got[live], b2[live]),
+              f"grouped_ffn_tokens {tag}: differs from B2 on the dispatched "
+              f"buffer by {max_abs(got[live], b2[live])}")
+        print(f"grouped_ffn_tokens {tag}: tokens={xs.shape[0]} "
+              f"rows={args[0].shape[0]} live={int(live.sum())} "
+              f"H={cfg.hidden_size} I={cfg.intermediate_size} bf16: "
+              f"normwise_err={nerr:.3g} (tol {BF16_NORMWISE_TOL}) "
+              f"max_abs_err={err:.3g}; equal to B2 at every live row")
+        del got, want, b2
+        runs[tag] = (err, xs, args, kw, plan)
     small = config.MoEConfig(
         num_experts=3, expert_top_k=2, hidden_size=128, intermediate_size=256,
         gated_ffn=True, hidden_act="gelu", dtype=torch.float32)
@@ -802,35 +887,19 @@ def gather_phase(cfg, params, x):
               expert.grouped_ffn_tokens_plain(sx, splan.src_tok, *sargs[1:],
                                               **skw)[sl])
 
-    w_up, b_up, w_down, b_down, w_gate = args[2:]
-    segs = expert_segments(plan, expert.ROW_TILE)
-    act = reference.activation_fn(cfg.hidden_act)
-    src = plan.src_tok
-
-    def library():
-        xbuf = x.index_select(0, src)
-        out = torch.empty_like(xbuf)
-        for e, a, b in segs:
-            xe = xbuf[a:b]
-            u = torch.addmm(b_up[e], xe, w_up[e])
-            out[a:b] = torch.addmm(b_down[e], act(xe @ w_gate[e]) * u,
-                                   w_down[e])
-        return out
-
-    rows = sum(b - a for _, a, b in segs)
-    h, i = cfg.hidden_size, cfg.intermediate_size
-    touched = sum(1 for _, a, b in segs if b > a)
+    err, *pre_in = runs["prefill"]
+    pre = gather_times(cfg, *pre_in)
+    dec = gather_times(cfg, *runs["decode"][1:], iters=50)
+    for tag, r in (("prefill", pre), ("decode", dec)):
+        print(f"grouped_ffn_tokens {tag}: ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} ({gpu_line()})")
     return dict(
         name="grouped_ffn_tokens", route="cuda",
         source="flashmoe_tpu_torch/csrc/grouped_ffn.cu",
-        replaces="flashmoe_tpu/ops/expert.py:196", max_abs_err=err,
-        ms=cuda_ms(lambda: expert.grouped_ffn_tokens_cuda(*targs, **kw), 10),
-        plain_ms=cuda_ms(
-            lambda: expert.grouped_ffn_tokens_plain(*targs, **kw), 3),
-        library_ms=cuda_ms(library, 10),
-        **bound(bytes_=2 * rows * h * 2 + 4 * rows
-                + touched * (3 * h * i * 2 + 4 * (i + h)),
-                flops=2 * rows * h * i * 3))
+        replaces="flashmoe_tpu/ops/expert.py:196", max_abs_err=err, **pre,
+        **{f"decode_{key}": v for key, v in dec.items()})
 
 
 def fused_kernel_row(tag, cfg, params, x, m, iters):
@@ -2185,6 +2254,7 @@ def main() -> int:
     moe0 = params["layers"][0]["moe"]
     x = torch.randn(1024, cfg.hidden_size, device="cuda", generator=g,
                     dtype=torch.bfloat16)
+    tile_phase()
     entries = [gate_phase(cfg, x, moe0["gate_w"]),
                ffn_phase(cfg, moe0, x), flash_phase(),
                res_phase(cfg, moe0, x), gmm_phase(cfg, moe0, x),

@@ -128,7 +128,8 @@ template <> __device__ __forceinline__ void store_pair<bf16>(bf16* p, float a,
 // expert or -1 past *num_rows, 0).  Each run of tiles with one expert is
 // cut greedily from its start into items of two tiles and, when the run
 // is odd, a last item of one, so rows never straddle two experts.
-// ops/expert.py:gmm_work_list is this plan in Python.
+// ops/expert.py:gmm_work_list is this plan in Python.  The forward FFN
+// (grouped_ffn.cu) walks the same list.
 constexpr int PLAN_THREADS = 1024;
 
 __device__ __forceinline__ int plan_key(int t, const int* tile_gid,
@@ -197,11 +198,21 @@ gmm_plan(const int* __restrict__ tile_gid, int block_m,
   if (threadIdx.x == 0) *n_work = items;
 }
 
+int hg::gmm_plan_launch(const int* tile_gid, int block_m,
+                        const int* num_rows, int T, int4* work, int* n_work,
+                        cudaStream_t stream) {
+  gmm_plan<<<1, PLAN_THREADS, 0, stream>>>(tile_gid, block_m, num_rows, T,
+                                           work, n_work);
+  return (int)cudaGetLastError();
+}
+
 // Output tile t is item t % n_work of column block t / n_work: the items
 // of one column block are neighbours, so the blocks that share an expert's
 // weight tile run side by side.  The blocks stride over the tiles by the
-// largest count <= gridDim.x that is coprime to n_work (the others exit),
-// so each block meets every item residue in turn rather than a fixed few.
+// largest count <= gridDim.x that is coprime to n_work (the others exit;
+// hg::stride_grid), so each block meets every item residue in turn rather
+// than a fixed few.
+//
 // The f32 epilogue of one consumer warpgroup's 64 x 256 tile: eight
 // chunks of 32 columns, each written from the registers into one of the
 // warpgroup's two staging boxes and handed to a TMA store, which drains
@@ -250,16 +261,7 @@ gmm_hopper(const __grid_constant__ CUtensorMap tx,
   HgSmem& smem = hg::smem_at<HgSmem>(hg_raw);
   HgRing& sm = smem.ring;
   const int items = *n_work;
-  int grid = gridDim.x;
-  auto coprime = [](int a, int b) {
-    while (b) {
-      const int r = a % b;
-      a = b;
-      b = r;
-    }
-    return a == 1;
-  };
-  while (grid > 1 && !coprime(grid, items)) --grid;
+  const int grid = hg::stride_grid(items);
   if ((int)blockIdx.x >= grid) return;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   if (threadIdx.x == 0) {
@@ -373,9 +375,8 @@ int gmm_hopper_launch(const CUtensorMap& tx, const CUtensorMap& tw,
   if (err != cudaSuccess) return (int)err;
   int4* work = reinterpret_cast<int4*>(plan);
   int* n_work = plan + 4 * (T_ / hg::WG_ROWS);
-  gmm_plan<<<1, PLAN_THREADS, 0, stream>>>(tile_gid, block_m, num_rows, T_,
-                                           work, n_work);
-  err = cudaGetLastError();
+  err = (cudaError_t)hg::gmm_plan_launch(tile_gid, block_m, num_rows, T_,
+                                         work, n_work, stream);
   if (err != cudaSuccess) return (int)err;
   gmm_hopper<OutT><<<grid, HG_THREADS, smem, stream>>>(
       tx, tw, tout, work, n_work, (OutT*)out, N, K);

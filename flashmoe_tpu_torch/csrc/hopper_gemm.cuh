@@ -1,7 +1,8 @@
 // Hopper GEMM mainloop: TMA loads into a ring of shared-memory stages,
 // one producer warp, consumer warpgroups on wgmma with f32 accumulators
-// in registers.  Built for K-major operands (A [rows, K] and B [cols, K],
-// both contracted on their last dim), which is wgmma's native layout.
+// in registers.  A is K-major ([rows, K]); B is K-major ([cols, K], both
+// contracted on their last dim, wgmma's native layout: the grouped matmul)
+// or MN-major ([K, cols] row-major: the forward FFN's weights).
 //
 // Pieces, all sm_90a:
 //   * host: tensor maps for cp.async.bulk.tensor, encoded per call with
@@ -21,7 +22,10 @@
 //     t / 32, lane l): d[4j + 2h + i] is row 16w + l / 4 + 8h, column 8j +
 //     2 (l % 4) + i;
 //   * TMA stores from a swizzled shared-memory box (bulk groups), so an
-//     epilogue can hand its tile to the copy engine and go on.
+//     epilogue can hand its tile to the copy engine and go on;
+//   * MN-major B ([K, N] row-major weights, boxes of 64 columns by BK
+//     K-rows; wgmma with imm-trans-b = 1) for the forward FFN
+//     (grouped_ffn.cu), in m64n256k16 and m64n128k16.
 #pragma once
 
 #include <cuda.h>
@@ -141,9 +145,18 @@ template <int N> __device__ __forceinline__ void bulk_wait_read() {
 template <int N> __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// generic-proxy writes to shared memory, made visible to TMA
+// generic-proxy writes to shared memory, made visible to the async proxy
+// (TMA stores, wgmma's operand reads)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// an arrival on bar once the thread's cp.async copies issued so far have
+// landed, counted against the arrivals the barrier was initialised with
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
 }
 
 // Byte offset of byte `b` of row `r` in a box of 128-byte rows stored with
@@ -177,7 +190,10 @@ template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 256] += A[64 x 16] * B[256 x 16]^T, both K-major in shared memory
+// d[64 x 256] += A[64 x 16] * B[16 x 256]: A K-major, B K-major (TB 0,
+// B stored [256, 16]) or MN-major (TB 1, B stored [16, 256]), both in
+// shared memory
+template <int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -195,7 +211,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
       "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
       "%122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n"
+      "%128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -224,7 +240,40 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// d[64 x 128] += A[64 x 16] * B[16 x 128]: A K-major, B K-major (TB 0)
+// or MN-major (TB 1), both in shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
 // One stage's worth of wgmma: the 64 x BK slice of A against the 256 x BK
@@ -234,7 +283,68 @@ __device__ __forceinline__ void wgmma_stage(float (&d)[128], const bf16* a,
   const uint64_t da = sw128_desc(a), db = sw128_desc(b);
 #pragma unroll
   for (int k = 0; k < BK / 16; ++k)
-    wgmma_m64n256k16(d, da + 2 * k, db + 2 * k);
+    wgmma_m64n256k16<0>(d, da + 2 * k, db + 2 * k);
+}
+
+// ---- MN-major B: [K, N] row-major weights, read in place ----------
+//
+// A [K, N] weight (w_up / w_gate [E, H, I], w_down [E, I, H]) reaches
+// shared memory as TMA boxes of 64 columns (128 bytes) by BK K-rows with
+// 128-byte swizzle: K-row k of a box at byte 128 k, its 16-byte units
+// XOR-ed with k mod 8.  A B tile of BN columns is BN / 64 such boxes, each
+// MN_BOX bytes, side by side.  In wgmma's canonical MN-major layout with
+// 128-byte swizzle the leading byte offset steps from one 64-column box to
+// the next (MN_BOX) and the stride byte offset from one group of 8 K-rows
+// to the next (8 x 128 bytes); a k16 step moves the start address down 16
+// K-rows (2048 bytes).  wgmma reads B transposed (imm-trans-b = 1).
+constexpr int MN_BOX = BK * 128;         // bytes of one 64-column box
+constexpr int MN_K16 = 16 * 128;         // bytes of 16 K-rows
+
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* smem) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4)            // start address, 16-byte units
+         | (uint64_t)(MN_BOX >> 4) << 16    // leading offset: next 64 columns
+         | (uint64_t)(1024 >> 4) << 32      // stride offset: next 8 K-rows
+         | (uint64_t)1 << 62;               // 128-byte swizzle
+}
+
+// one k16 step of an m64nBN product with B MN-major (BN 256 or 128)
+template <int BN>
+__device__ __forceinline__ void wgmma_k16_mn(float (&d)[BN / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_m64n256k16<1>(d, da, db);
+  else
+    wgmma_m64n128k16<1>(d, da, db);
+}
+
+// One stage with B MN-major: the 64 x BK K-major box of A against BN / 64
+// boxes of B (BK x 64 each), as four k16 steps: A advances 32 bytes along
+// its swizzled rows, B 16 K-rows.
+template <int BN>
+__device__ __forceinline__ void wgmma_stage_mn(float (&d)[BN / 2],
+                                               const bf16* a, const bf16* b) {
+  const uint64_t da = sw128_desc(a), db = sw128_desc_mn(b);
+#pragma unroll
+  for (int k = 0; k < BK / 16; ++k)
+    wgmma_k16_mn<BN>(d, da + 2 * k, db + (MN_K16 >> 4) * k);
+}
+
+// A persistent grid walking `items` work items in turn: the largest
+// count <= gridDim.x coprime to `items`, so that a block striding over
+// the tiles by it meets every item residue rather than a fixed few.
+__device__ __forceinline__ int stride_grid(int items) {
+  auto coprime = [](int a, int b) {
+    while (b) {
+      const int r = a % b;
+      a = b;
+      b = r;
+    }
+    return a == 1;
+  };
+  int grid = gridDim.x;
+  while (grid > 1 && !coprime(grid, items)) --grid;
+  return grid;
 }
 
 // The ring: STAGES x (CONSUMERS A boxes + one B box of BN rows) and the
@@ -271,6 +381,13 @@ struct RingPos {
 };
 
 // ---- host side -------------------------------------------------------
+
+// The work list of the Hopper grouped kernels (grouped_matmul.cu:gmm_plan),
+// built on the device by one block: work[j] = (first 64-row tile, tiles
+// (1 or 2), expert or -1 past *num_rows, 0) for j < *n_work.  work holds
+// T / 64 entries.
+int gmm_plan_launch(const int* tile_gid, int block_m, const int* num_rows,
+                    int T, int4* work, int* n_work, cudaStream_t stream);
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,

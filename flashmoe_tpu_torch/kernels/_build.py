@@ -43,8 +43,10 @@ SIGNATURES = {
     "fm_gate": [I, P, P, I, I, I, I, I, ctypes.c_float, P, P, P, P, P, P, P,
                 P, P],
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
-    # w_gate, b_up, w_down, b_down, hidden, out, T, H, I, stream
-    "fm_grouped_ffn": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, I, I, I, P],
+    # w_gate, b_up, w_down, b_down, hidden, out, plan, T, H, I, E, grid,
+    # stream
+    "fm_grouped_ffn": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, I, I, I,
+                       I, I, P],
     # dtype_is_bf16, x, w, S, H, E, PX, K, logits, m, se, top_p, top_i,
     # stream
     "fm_gate_pass1": [I, P, P, I, I, I, I, I, P, P, P, P, P, P],
@@ -52,9 +54,12 @@ SIGNATURES = {
     # probs_sum, counts, zsum, stream
     "fm_gate_pass2": [P, P, P, P, I, I, I, P, P, P, P, P, P, P],
     # dtype_is_bf16, gated, act, x, src_tok, tile_gid, block_m, num_rows,
-    # w_up, w_gate, b_up, w_down, b_down, hidden, out, T, H, I, stream
+    # w_up, w_gate, b_up, w_down, b_down, hidden, out, plan, T, H, I, E,
+    # grid, stream
     "fm_grouped_ffn_tokens": [I, I, I, P, P, P, I, P, P, P, P, P, P, P, P,
-                              I, I, I, P],
+                              P, I, I, I, I, I, P],
+    # a, b, c, K, N, stream
+    "fm_hopper_tile_mn": [P, P, P, I, I, P],
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
     # w_gate, b_up, w_down, b_down, u, g, hidden, out, T, H, I, stream
     "fm_grouped_ffn_res": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, I,

@@ -48,7 +48,8 @@ from flashmoe_tpu_torch.ops import dispatch as dsp
 #: row tile of the CUDA kernels (csrc/gemm_tile.cuh FBM); the plans' block
 #: must be a multiple of it
 ROW_TILE = 64
-#: output columns of a Hopper grouped matmul tile (csrc/hopper_gemm.cuh BN)
+#: output columns of a Hopper kernel's widest tile (csrc/grouped_matmul.cu
+#: HG_BN, csrc/grouped_ffn.cu FH_COLS)
 HOPPER_COLS = 256
 #: largest intermediate chunk of the plain version's down-GEMM accumulation
 PLAIN_BLOCK_I = 512
@@ -203,18 +204,24 @@ def _ffn_kernel(name, res, x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
     out = torch.empty((t, h), **dev)
     u = torch.empty((t, i), **dev) if res else None
     g = torch.empty((t, i), **dev) if res and gated else None
-    head = (int(x.dtype == torch.bfloat16), int(gated), _ACT_CODE[act_name],
-            x.data_ptr())
+    bf16 = x.dtype == torch.bfloat16
+    head = (int(bf16), int(gated), _ACT_CODE[act_name], x.data_ptr())
     common = (*head, gid.data_ptr(), block_m,
               None if nrow is None else nrow.data_ptr(), w_up.data_ptr(),
               w_gate.data_ptr() if gated else None, b_up32.data_ptr(),
               w_down.data_ptr(), b_down32.data_ptr())
+    # bf16 B2 and B3 (the Hopper FFN): the work list's buffer and the
+    # persistent grid
+    plan = torch.empty((4 * (t // ROW_TILE) + 1,), dtype=torch.int32,
+                       device=x.device) if bf16 and not res else None
+    tail = (None if plan is None else plan.data_ptr(), t, h, i,
+            w_up.shape[0], _sm_count(x.device.index))
     lib = _build.library()
     with torch.cuda.device(x.device):
         if src_tok is not None:
             err = lib.fm_grouped_ffn_tokens(
                 *head, src_tok.data_ptr(), *common[len(head):],
-                hidden.data_ptr(), out.data_ptr(), t, h, i,
+                hidden.data_ptr(), out.data_ptr(), *tail,
                 _build.stream_of(x))
         elif res:
             err = lib.fm_grouped_ffn_res(
@@ -223,7 +230,7 @@ def _ffn_kernel(name, res, x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
                 _build.stream_of(x))
         else:
             err = lib.fm_grouped_ffn(*common, hidden.data_ptr(),
-                                     out.data_ptr(), t, h, i,
+                                     out.data_ptr(), *tail,
                                      _build.stream_of(x))
     _build.check(err, "fm_grouped_ffn_tokens" if src_tok is not None
                  else "fm_grouped_ffn_res" if res else "fm_grouped_ffn")
@@ -237,7 +244,10 @@ def grouped_ffn_cuda(x, tile_gid, w_up, b_up, w_down, b_down, w_gate=None,
 
     x bf16 or f32, every weight in x's dtype, biases of any float dtype
     (added in f32).  T, H, I and block_m must be multiples of 64.  Rows at
-    or past ``num_rows`` (a 0-d or [1] integer tensor) come back zero."""
+    or past ``num_rows`` (a 0-d or [1] integer tensor) come back zero.
+    bf16 runs the Hopper FFN (TMA + wgmma, a persistent grid over the
+    grouped matmul's work list, :func:`gmm_work_list`, built on the
+    device); f32 the 64 x 64 tile."""
     out, _, _ = _ffn_kernel("grouped_ffn_cuda", False, x, tile_gid, w_up,
                             b_up, w_down, b_down, w_gate, act_name, gated,
                             block_m, num_rows)
@@ -338,6 +348,32 @@ def grouped_ffn_tokens(x, src_tok, tile_gid, w_up, b_up, w_down, b_down,
               num_rows=num_rows)
 
 
+def hopper_tile_mn_cuda(a, b):
+    """c [64, N] f32 = a [64, K] @ b [K, N] on one block of the Hopper
+    FFN's MN-major mainloop (``fm_hopper_tile_mn``, ``csrc/grouped_ffn.cu``):
+    the check of the descriptors through which B2 and B3 read their
+    [K, N] weights in place.  bf16 CUDA tensors, K a multiple of 64, N 128
+    or 256; its plain version is ``dot_f32(a, b)``."""
+    (m, k), (k2, n) = a.shape, b.shape
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or m != 64 \
+            or k2 != k or k % 64 or n not in (128, 256):
+        raise ValueError(f"hopper_tile_mn_cuda takes bf16 [64, K] @ [K, N], "
+                         f"K % 64 == 0, N 128 or 256; got {a.dtype} "
+                         f"{tuple(a.shape)} @ {b.dtype} {tuple(b.shape)}")
+    _build.require_cuda("hopper_tile_mn_cuda", a, b)
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _build.library().fm_hopper_tile_mn(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), k, n,
+            _build.stream_of(a))
+    _build.check(err, "fm_hopper_tile_mn")
+    hopper_tile_mn_cuda.launches += 1
+    return c
+
+
+hopper_tile_mn_cuda.launches = 0
+
+
 # ----------------------------------------------------------------------
 # the backward kernels: grouped matmul and transposed grouped matmul
 # ----------------------------------------------------------------------
@@ -398,6 +434,31 @@ def gmm_work_list(tile_gid, block_m: int, rows: int, num_rows=None):
             two = t + 1 < tiles and key[t + 1] == key[t]
             items.append((t, 2 if two else 1, key[t]))
     return items
+
+
+def ffn_tile_walk(tile_gid, block_m: int, rows: int, n: int, sms: int,
+                  operands: int = 1, num_rows=None):
+    """The output tiles of one pass of the Hopper FFN (``FfnWalk`` in
+    ``csrc/grouped_ffn.cu``) in the order its persistent grid of ``sms``
+    blocks walks them: the items of :func:`gmm_work_list` against column
+    blocks of ``HOPPER_COLS // operands`` columns (the gated up pass holds
+    up and gate side by side), the last block cut at ``n``.  Item-fastest
+    (tile t is item ``t % items`` of column block ``t // items``) unless
+    the items outnumber ``sms`` and the column blocks number at most a
+    quarter of it; then column-fastest (column block ``t % ncols`` of
+    item ``t // ncols``).
+    Returns ``(first row tile, tiles, expert, n0, n1)`` for each; expert
+    -1 past ``num_rows``."""
+    items = gmm_work_list(tile_gid, block_m, rows, num_rows)
+    cols = HOPPER_COLS // operands
+    ncols = -(-n // cols)
+    inner = len(items) > sms and 4 * ncols <= sms
+    walk = []
+    for t in range(len(items) * ncols):
+        item, col = (t // ncols, t % ncols) if inner else \
+            (t % len(items), t // len(items))
+        walk.append((*items[item], col * cols, min(col * cols + cols, n)))
+    return walk
 
 
 @functools.lru_cache(maxsize=None)

@@ -808,3 +808,105 @@ def test_grouped_matmul_hopper_work_list_matches_python(gen):
                                              out_dtype=torch.float32,
                                              num_rows=nrow_t),
             rtol=2e-4, atol=2e-4)
+
+
+# ----------------------------------------------------------------------
+# the Hopper grouped FFN: bf16 B2 and B3 on TMA + wgmma
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,n", [(64, 128), (192, 256), (4096, 128),
+                                 (4096, 256)],
+                         ids=["k64_n128", "k192_n256", "k4096_n128",
+                              "k4096_n256"])
+def test_hopper_tile_mn_matches_matmul(gen, k, n):
+    """One block of the MN-major mainloop (B [K, N] row-major read in
+    place, wgmma with the transposed-B flag) against torch.matmul in f32
+    on the same bf16 inputs: f32 sums of the same products in another
+    order, within 1e-5 of the largest output."""
+    a = torch.randn(64, k, device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn(k, n, device="cuda", generator=gen).to(torch.bfloat16)
+    got = expert.hopper_tile_mn_cuda(a, b)
+    want = torch.matmul(a.float(), b.float())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# gated, act, dtype, E, H, I, 64-row tiles of each expert, ragged tail
+_FFN_CASES = [
+    (True, "silu", torch.bfloat16, 4, 256, 512, (3, 0, 2, 1), False),
+    (True, "gelu", torch.bfloat16, 3, 128, 320, (1, 1, 4), True),
+    (False, "gelu", torch.bfloat16, 3, 192, 512, (2, 3, 0), True),
+    (False, "relu", torch.bfloat16, 2, 320, 192, (5, 2), False),
+    (True, "silu", torch.bfloat16, 2, 4096, 14336, (2, 1), True),
+    (True, "gelu", torch.float32, 3, 128, 192, (1, 2, 1), True),
+]
+
+
+@pytest.mark.parametrize(
+    "gated,act,dtype,e,h,i,tiles,tail", _FFN_CASES,
+    ids=["swiglu_i512", "geglu_i320_tail", "gelu_i512_tail", "relu_h320",
+         "mixtral_i14336_tail", "f32_geglu_tail"])
+def test_grouped_ffn_hopper_matches_plain_and_b3(gen, gated, act, dtype, e,
+                                                 h, i, tiles, tail):
+    """B2 against its plain version (bf16 within 1e-2 normwise, f32
+    1e-5) at odd and even runs of tiles, an expert without rows, widths
+    that are not multiples of the column tile, and with num_rows below T
+    (zeros past it); a second call equal bit for bit; and B3 on tokens
+    x [S, H] with src_tok such that x[src_tok] is B2's buffer: equal to
+    B2 bit for bit at every row."""
+    t = sum(tiles) * expert.ROW_TILE
+    gid = _gmm_rows(gen, t, tiles)
+    s = t // 2 + 1
+    x = torch.randn(s, h, device="cuda", generator=gen, dtype=dtype)
+    src = torch.randint(0, s, (t,), device="cuda", generator=gen)
+    xbuf = x[src]
+    w = lambda *sh: (torch.randn(*sh, device="cuda", generator=gen)
+                     / sh[-2] ** 0.5).to(dtype)
+    weights = (w(e, h, i), torch.randn(e, i, device="cuda", generator=gen),
+               w(e, i, h), torch.randn(e, h, device="cuda", generator=gen),
+               w(e, h, i) if gated else None)
+    nrow = torch.tensor(t - expert.ROW_TILE, device="cuda") if tail \
+        else None
+    kw = dict(act_name=act, gated=gated, block_m=expert.ROW_TILE,
+              num_rows=nrow)
+    got = expert.grouped_ffn_cuda(xbuf, gid, *weights, **kw)
+    again = expert.grouped_ffn_cuda(xbuf, gid, *weights, **kw)
+    want = expert.grouped_ffn_plain(xbuf, gid, *weights, **kw)
+    tok = expert.grouped_ffn_tokens_cuda(x, src, gid, *weights, **kw)
+    assert torch.equal(got, again)
+    assert _normwise(got, want) <= (BF16_TOL if dtype == torch.bfloat16
+                                    else 1e-5)
+    if nrow is not None:
+        assert not got[int(nrow):].any()
+    assert torch.equal(tok, got)
+
+
+@pytest.mark.parametrize("tokens", [False, True], ids=["b2", "b3"])
+def test_grouped_ffn_hopper_decode_rows_equal_prefill_rows(gen, tokens):
+    """A token's output does not depend on its batch: the rows of 4 tokens
+    routed alone (a decode step) equal, bit for bit, the same tokens'
+    rows at the same experts inside a prefill of 512 tokens (no split-K,
+    one K order and one column tile at every T)."""
+    e, h, i = 8, 512, 1024
+    cfg = MoEConfig(num_experts=e, expert_top_k=2, hidden_size=h,
+                    drop_tokens=False, dtype=torch.bfloat16)
+    x = torch.randn(512, h, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    ids = torch.randn(512, e, device="cuda", generator=gen).topk(2, -1)[1]
+    w = lambda *sh: (torch.randn(*sh, device="cuda", generator=gen)
+                     / sh[-2] ** 0.5).to(torch.bfloat16)
+    weights = (w(e, h, i), torch.randn(e, i, device="cuda", generator=gen),
+               w(e, i, h), torch.randn(e, h, device="cuda", generator=gen),
+               w(e, h, i))
+    outs = []
+    for s in (512, 4):
+        xs = x[:s].contiguous()
+        plan = ragged.make_ragged_plan(ids[:s], cfg, expert.ROW_TILE)
+        kw = dict(act_name="silu", gated=True, block_m=expert.ROW_TILE,
+                  num_rows=plan.num_rows)
+        y = expert.grouped_ffn_tokens_cuda(
+            xs, plan.src_tok, plan.tile_gid, *weights, **kw) if tokens \
+            else expert.grouped_ffn_cuda(
+                ragged.ragged_dispatch(xs, plan, cfg, expert.ROW_TILE),
+                plan.tile_gid, *weights, **kw)
+        outs.append(y[plan.position.reshape(-1)])
+    assert torch.equal(outs[1], outs[0][:8])
