@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this tree's gate, grouped FFN, grouped matmul and fused EP kernel,
-and the serving and training paths that run them, against another tree
-of the port on one card:
+and the serving, expert-parallel and training paths that run them,
+against another tree of the port on one card:
 
     python3 chip_ab.py --other DIR [--rounds 2]
 
@@ -14,20 +14,27 @@ so both are measured on the same card in the same call.  Per run:
 * the gate (Mixtral: H 4096, E 8, top-2, bf16) at prefill (1024 tokens)
   and decode (4 tokens): ``router_cuda`` on CUDA events, and its
   kernels' device time from torch.profiler;
-* the grouped FFN (B2) and its gather-fused twin (B3), SwiGLU, routing
-  by the top-k of random logits: Mixtral widths (E 8, H 4096, I 14336,
-  top-2) at prefill (1024 tokens) and decode (4), Qwen3-Next's MoE widths
-  (E 512, H 2048, I 512, top-10) at 8192 tokens and at 4:
-  ``grouped_ffn_cuda`` and ``grouped_ffn_tokens_cuda`` on CUDA events,
-  and their kernels' device time (the work list's launch included);
+* the grouped FFN (B2) and its gather-fused twin (B3), routing by the
+  top-k of random logits: SwiGLU at Mixtral widths (E 8, H 4096, I 14336,
+  top-2) at prefill (1024 tokens) and decode (4) and at Qwen3-Next's MoE
+  widths (E 512, H 2048, I 512, top-10) at 8192 tokens and at 4, and
+  GELU, not gated, at the FlashMoE reference config's (E 64, H = I =
+  2048, top-2) at 8192 tokens and at 4: ``grouped_ffn_cuda`` and
+  ``grouped_ffn_tokens_cuda`` on CUDA events, and their kernels' device
+  time (the work list's launch included);
 * the grouped matmul at the training step's backward shapes (2560 rows of
   8 experts, 64 rows of padding past num_rows; K 4096 -> N 14336 and
   K 14336 -> N 4096, bf16 in, f32 out): ``grouped_matmul_cuda`` on CUDA
   events, and its kernels' device time;
-* the fused EP kernel's full-precision arms, bf16 and f32 (SwiGLU, the
-  ``batched`` order), at the ep path's shapes (8 ranks of one Mixtral
-  expert each, slabs of 128 rows, 64-128 of them sent): ``fused_shard_cuda``
-  on CUDA events, and its kernel's device time;
+* the residual-saving FFN (B6) at the Mixtral prefill's rows (2048 live
+  of about 2560, the train step's shape): ``grouped_ffn_res_cuda`` on
+  CUDA events, and its kernels' device time;
+* the fused EP kernel's full-precision arms, bf16 and f32, and its int8
+  arm (B5q; SwiGLU, the ``batched`` order), with 8 ranks of one Mixtral
+  expert each, slabs of 128 rows, 64-128 of them sent:
+  ``fused_shard_cuda`` on CUDA events, and its kernel's device time;
+* the ep layers: one Mixtral-width MoE layer at 8192 tokens over 8
+  virtual ranks, fused (B5) and collective, on CUDA events;
 * serving: Mixtral-8x7B widths with 4 layers, 4 prompts of 256 tokens: a
   prefill and a decode step, host clock around work ended by a
   synchronize (median of 5);
@@ -125,12 +132,14 @@ def worker(tree: str) -> dict:
             lambda: gate.router_cuda(x, w, gcfg), 50, "gate")
 
     from flashmoe_tpu_torch.ops import ragged
-    for wname, e, h, i, k, s_pre in (("mixtral", 8, 4096, 14336, 2, 1024),
-                                     ("qwen3next", 512, 2048, 512, 10,
-                                      8192)):
+    for wname, e, h, i, k, s_pre, act in (
+            ("mixtral", 8, 4096, 14336, 2, 1024, "silu"),
+            ("qwen3next", 512, 2048, 512, 10, 8192, "silu"),
+            ("flashmoe_ref", 64, 2048, 2048, 2, 8192, "gelu")):
+        gated = act == "silu"
         fcfg = config.MoEConfig(num_experts=e, expert_top_k=k,
                                 hidden_size=h, intermediate_size=i,
-                                gated_ffn=True, hidden_act="silu",
+                                gated_ffn=gated, hidden_act=act,
                                 drop_tokens=False, dtype=torch.bfloat16)
         ws = [(torch.randn(*sh, device="cuda", generator=g)
                / sh[-2] ** 0.5).to(torch.bfloat16)
@@ -144,9 +153,10 @@ def worker(tree: str) -> dict:
             plan = ragged.make_ragged_plan(ids[:s], fcfg, expert.ROW_TILE)
             xs = x[:s].contiguous()
             xbuf = ragged.ragged_dispatch(xs, plan, fcfg, expert.ROW_TILE)
-            kw = dict(act_name="silu", gated=True, block_m=expert.ROW_TILE,
+            kw = dict(act_name=act, gated=gated, block_m=expert.ROW_TILE,
                       num_rows=plan.num_rows)
-            rest = (plan.tile_gid, ws[0], b_up, ws[1], b_down, ws[2])
+            rest = (plan.tile_gid, ws[0], b_up, ws[1], b_down,
+                    ws[2] if gated else None)
 
             def b2(xbuf=xbuf, rest=rest, kw=kw):
                 return expert.grouped_ffn_cuda(xbuf, *rest, **kw)
@@ -154,8 +164,14 @@ def worker(tree: str) -> dict:
             def b3(xs=xs, src=plan.src_tok, rest=rest, kw=kw):
                 return expert.grouped_ffn_tokens_cuda(xs, src, *rest, **kw)
 
+            def b6(xbuf=xbuf, rest=rest, kw=kw):
+                return expert.grouped_ffn_res_cuda(xbuf, *rest, **kw)
+
             iters = 50 if tag == "decode" else 10
-            for name, fn in (("b2", b2), ("b3", b3)):
+            fns = (("b2", b2), ("b3", b3))
+            if wname == "mixtral" and tag == "prefill":
+                fns += (("b6", b6),)
+            for name, fn in fns:
                 key = f"ffn_{wname}_{tag}_{name}"
                 res[f"{key}_wrapper_ms"] = events_ms(fn, iters)
                 res[f"{key}_kernel_ms"] = device_ms(fn, 5,
@@ -189,16 +205,24 @@ def worker(tree: str) -> dict:
     cnt = torch.randint(64, 129, (d, d, 1), device="cuda", generator=g)
     b_up = torch.zeros(d, i, device="cuda")
     b_down = torch.zeros(d, h, device="cuda")
-    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    from flashmoe_tpu_torch import quant
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                    ("int8", torch.bfloat16)):
         x_send = torch.randn(d, d, 1, 128, h, device="cuda",
                              generator=g).to(dt)
         ws = [(torch.randn(d, k, n, device="cuda", generator=g)
                / k ** 0.5).to(dt) for k, n in ((h, i), (i, h), (h, i))]
+        sc = {}
+        if tag == "int8":  # B5q: the payloads and their scales
+            pairs = [quant.quantize_channelwise(wt, "int8") for wt in ws]
+            ws = [pl for pl, _ in pairs]
+            sc = dict(zip(("wup_sc", "wdn_sc", "wg_sc"),
+                          (sc_ for _, sc_ in pairs)))
 
-        def call(x_send=x_send, ws=ws):
+        def call(x_send=x_send, ws=ws, sc=sc):
             return fused.fused_shard_cuda(
                 cnt, None, x_send, ws[0], b_up, ws[1], b_down, ws[2],
-                act_name="silu", gated=True, schedule="batched")
+                act_name="silu", gated=True, schedule="batched", **sc)
 
         res[f"fused_{tag}_gated_wrapper_ms"] = events_ms(call, 10)
         res[f"fused_{tag}_gated_kernel_ms"] = device_ms(call, 5, "fused_ep")
@@ -232,7 +256,22 @@ def worker(tree: str) -> dict:
     generate._decode_step(params, cfg, tok, cache, 256)
     res["serve_decode_step_ms"] = host_ms(
         lambda: generate._decode_step(params, cfg, tok, cache, 256), 5)
-    del params, cache, logits, tok
+    del cache, logits, tok
+    torch.cuda.empty_cache()
+
+    # the ep layers: one Mixtral-width MoE layer at 8192 tokens over 8
+    # virtual ranks, fused (B5) and collective (B2 on each rank)
+    from flashmoe_tpu_torch.parallel import ep, mesh
+    moe0 = params["layers"][0]["moe"]
+    m = mesh.local_mesh(8, "cuda")
+    ecfg = cfg.replace(ep=8)
+    x = torch.randn(8192, cfg.hidden_size, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    res["ep_layer_fused_ms"] = events_ms(lambda: fused.fused_ep_moe_layer(
+        moe0, x, ecfg.replace(moe_backend="fused"), m), 3)
+    res["ep_layer_collective_ms"] = events_ms(
+        lambda: ep.ep_moe_layer(moe0, x, ecfg, m), 3)
+    del params, moe0, x
     torch.cuda.empty_cache()
 
     cfg = presets.mixtral_8x7b(num_layers=2, param_dtype=torch.bfloat16,

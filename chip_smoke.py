@@ -12,8 +12,8 @@ Phases, each of which fails the run on any error:
    gives it (plus a small f32 case), and time the kernel, the plain
    version and one PyTorch library call computing the same function: the
    gate, grouped FFN and flash attention of serving, the residual-saving
-   FFN, grouped matmul and transposed grouped matmul of the training
-   step, the two-pass gate's passes at the many-expert layer's widths
+   FFN (its output also against the grouped FFN's, bit for bit), grouped
+   matmul and transposed grouped matmul of the training step, the two-pass gate's passes at the many-expert layer's widths
    (with pass 2 and without; f32 and K = 64 cases too), and the
    gather-fused FFN (also against the grouped FFN on the dispatched
    buffer, bit for bit).  The gate and both FFNs are timed at prefill and
@@ -36,10 +36,11 @@ Phases, each of which fails the run on any error:
    path, ``forward`` at Mixtral widths (4 layers, 4 x 256 tokens) with
    the fused backend (counts reset before, read after) and the
    collective one, each against the one-device forward; the fused
-   kernel (B5) at that path's shapes against its plain version, timed
+   kernel (B5) at that path's shapes against its plain version and its
+   rows against the grouped FFN's on the same rows (bit for bit), timed
    with the library yardstick; then one Mixtral-width MoE layer at 8192
    tokens (dropless) and the FlashMoE reference layer (capacity 32 a
-   rank and expert): B5 against its plain version, the fused layer
+   rank and expert): B5 as at the path's shapes, the fused layer
    against its plain version, the collective layer and (dropless) the
    single-device layer, the in-kernel combine against the layer's, each
    timed, one fused layer profiled;
@@ -492,12 +493,17 @@ def expert_segments(plan, bm):
 
 def res_phase(cfg, params, x):
     """The residual-saving FFN (training forward) at the train step's
-    rows: y, u and g against the plain version."""
+    rows: y, u and g against the plain version; y against B2's output
+    on the same rows, bit for bit (bf16 B6 runs B2's Hopper FFN, its up
+    pass writing u and g beside hidden)."""
     args, kw, plan = ffn_inputs(cfg, params, x)
     live = int(plan.num_rows)
     got = expert.grouped_ffn_res_cuda(*args, **kw)
     want = expert.grouped_ffn_res_plain(*args, **kw)
+    b2 = expert.grouped_ffn_cuda(*args, **kw)
     torch.cuda.synchronize()
+    check(torch.equal(got[0], b2), "ffn_res: y differs from B2's output")
+    del b2
     errs = []
     for name, a, b in zip("yug", got, want):
         nerr = normwise(a, b)
@@ -508,7 +514,8 @@ def res_phase(cfg, params, x):
     print(f"grouped_ffn_res train: rows={args[0].shape[0]} live={live} "
           f"H={cfg.hidden_size} I={cfg.intermediate_size} bf16: " + " ".join(
               f"{n}_normwise_err={e:.3g} {n}_max_abs_err={m:.3g}"
-              for n, e, m in errs) + f" (tol {BF16_NORMWISE_TOL})")
+              for n, e, m in errs) + f" (tol {BF16_NORMWISE_TOL}); "
+          f"y equal to B2's output bit for bit")
     small = config.MoEConfig(
         num_experts=3, expert_top_k=2, hidden_size=128, intermediate_size=256,
         gated_ffn=False, hidden_act="gelu", dtype=torch.float32)
@@ -902,6 +909,42 @@ def gather_phase(cfg, params, x):
         **{f"decode_{key}": v for key, v in dec.items()})
 
 
+def b2_rows(args, kw):
+    """B2 (``grouped_ffn_cuda``) on every row the fused kernel's shard
+    arguments send: for each owner, its experts' received rows (source by
+    source) in one ragged buffer; returned as y[src, owner, e, slot] at
+    the populated slots, zeros elsewhere."""
+    send_cnt, _, x_send, w_up, b_up, w_down, b_down, w_gate = args
+    d, _, nlx, _, h = x_send.shape
+    cnt = send_cnt.tolist()
+    y = torch.zeros_like(x_send)
+    bm = expert.ROW_TILE
+    for r in range(d):
+        rows, gids, pads = [], [], []
+        for e in range(nlx):
+            n = sum(cnt[s][r][e] for s in range(d))
+            rows += [x_send[s, r, e, :cnt[s][r][e]] for s in range(d)]
+            pads.append(-(-n // bm) * bm - n)
+            rows.append(x_send.new_zeros(pads[-1], h))
+            gids += [e] * ((n + pads[-1]) // bm)
+        if not gids:
+            continue
+        own = slice(r * nlx, (r + 1) * nlx)
+        out = expert.grouped_ffn_cuda(
+            torch.cat(rows), torch.tensor(gids, device=x_send.device),
+            w_up[own], b_up[own], w_down[own], b_down[own],
+            None if w_gate is None else w_gate[own],
+            act_name=kw["act_name"], gated=kw["gated"], block_m=bm)
+        at = 0
+        for e in range(nlx):
+            for s in range(d):
+                c = cnt[s][r][e]
+                y[s, r, e, :c] = out[at:at + c]
+                at += c
+            at += pads[e]
+    return y
+
+
 def fused_kernel_row(tag, cfg, params, x, m, iters):
     """B5 on the shard inputs the fused layer builds for tokens x: against
     its plain version at populated rows (or on the combined output),
@@ -914,7 +957,9 @@ def fused_kernel_row(tag, cfg, params, x, m, iters):
     (``payload * scale`` into dt), the bound counts each weight at 1 byte
     and its scales at 4 bytes a channel, and the kernel's output must
     equal, bit for bit, the kernel's on the weights dequantized
-    beforehand.  Returns the kernels-line entry."""
+    beforehand; with full-precision weights, the populated rows (in both
+    orders) equal, bit for bit, B2's on the same rows (``b2_rows``).
+    Returns the kernels-line entry."""
     fi = fused.fused_inputs(params, x, cfg, m)
     kw = {k: v for k, v in fi.kw.items() if k != "use_kernels"}
     send_cnt, _, x_send, w_up, b_up, w_down, b_down, w_gate = fi.args
@@ -953,6 +998,12 @@ def fused_kernel_row(tag, cfg, params, x, m, iters):
                 for k, w in weights.items() if w is not None}
 
     same = ""
+    if not scales and "recv_pos" not in kw:
+        ref = b2_rows(fi.args, kw)[live]
+        check(torch.equal(got, ref) and torch.equal(alt, ref),
+              f"fused_ep {tag}: rows differ from B2's on the same rows")
+        same = " equal_to_b2_rows=True"
+        del ref
     if scales:
         deq = {k: quant.dequantize_channelwise(w, wsc[k], dt)
                for k, w in weights.items() if w is not None}

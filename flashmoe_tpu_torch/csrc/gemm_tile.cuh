@@ -14,10 +14,10 @@
 // LDC), one FBM x LDC block per output, for the caller's epilogue.
 //
 // The B operands reach shared memory through a loader policy: CpAsyncB
-// copies weights in A's dtype; QuantB (ffn_mainloop_q) reads [K, N]
-// weights stored as 1-byte int8 or e4m3 payloads with f32 per-column
-// scales, and writes each element as (payload.f32 * scale) rounded once
-// to A's dtype, so the mainloop computes exactly as on weights
+// copies weights in A's dtype; QuantB (ffn_mainloop_q, the f32 fused
+// kernel's quantized arm) reads [K, N] weights stored as 1-byte int8 or
+// e4m3 payloads with f32 per-column scales, and writes each element as
+// payload.f32 * scale, so the mainloop computes exactly as on weights
 // dequantized beforehand.  Its global loads for the next stage are issued
 // before the current stage's products and stored after them.
 #pragma once
@@ -125,15 +125,6 @@ __device__ __forceinline__ void decode16(const __nv_fp8_e4m3*, uint4 raw,
   }
 }
 
-__device__ __forceinline__ void store16(bf16* dst, const float (&v)[16]) {
-  uint4 o[2];
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(o);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    p[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  reinterpret_cast<uint4*>(dst)[0] = o[0];
-  reinterpret_cast<uint4*>(dst)[1] = o[1];
-}
 __device__ __forceinline__ void store16(float* dst, const float (&v)[16]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)

@@ -39,8 +39,10 @@
 // Two designs, chosen by dtype and entry point (a dispatch, not a
 // fallback):
 //
-// * ffn_hopper: bf16 fm_grouped_ffn and fm_grouped_ffn_tokens, on the
-//   TMA + wgmma mainloop of hopper_gemm.cuh.  The weights are [K, N]
+// * ffn_hopper: bf16 fm_grouped_ffn, fm_grouped_ffn_tokens and
+//   fm_grouped_ffn_res, on the TMA + wgmma mainloop of hopper_gemm.cuh
+//   (the ring, products and epilogue in ffn_hopper.cuh, shared with the
+//   fused expert-parallel kernel).  The weights are [K, N]
 //   row-major (w_up/w_gate [E, H, I], w_down [E, I, H]) and read in place
 //   as MN-major B operands (boxes of 64 columns x 64 K-rows, wgmma with
 //   the transposed-B flag): no copy of a weight is ever made.  The work
@@ -65,6 +67,13 @@
 //   while the next chunk, and then the next tile's products, go on.
 //   Items past *num_rows load nothing; the down pass writes their rows'
 //   zeros.
+//   B6 differs from B2 only in the up pass's epilogue, which writes u and
+//   g from the same accumulators beside hidden, through the same staging
+//   boxes (three TMA stores a chunk), and the zeros of u and g for the
+//   items past *num_rows: its y is B2's out bit for bit.  On an H100 that
+//   up pass took 1.270 ms at the Mixtral prefill's rows against 1.299
+//   with u and g stored straight from the fragments (chip_ablate.py, cut
+//   res_direct).
 //   B3 differs from B2 only in the up pass's A loads: TMA has no row
 //   gather, so the 128 threads of the producer warpgroup copy the item's
 //   rows from x[src_tok[row]] by cp.async (8 threads a row, 16 bytes
@@ -76,17 +85,15 @@
 //   bytes: B3 equals B2 on the dispatched buffer bit for bit.  No split-K,
 //   and one K order and column tile for every T: a row's output never
 //   depends on the other rows of the batch.
-// * ffn_gemm (gemm_tile.cuh): f32 B2 and B3, and B6 in both dtypes, one
-//   64 x 64 output tile per block of 4 warps (WMMA for bf16, SIMT FMA for
-//   f32), row tiles the fastest grid axis; row tiles at or past *num_rows
-//   skip their GEMMs and write zeros (to out, and with RES to u and g, so
-//   that the backward never reads uninitialised memory there).
+// * ffn_gemm (gemm_tile.cuh): f32 B2, B3 and B6, one 64 x 64 output tile
+//   per block of 4 warps (SIMT FMA), row tiles the fastest grid axis;
+//   row tiles at or past *num_rows skip their GEMMs and write zeros (to
+//   out, and with RES to u and g, so that the backward never reads
+//   uninitialised memory there).
+#include "ffn_hopper.cuh"
 #include "gemm_tile.cuh"
-#include "hopper_gemm.cuh"
 
 namespace fm {
-
-enum { MODE_UP = 0, MODE_UP_GATED = 1, MODE_DOWN = 2 };
 
 // One grouped GEMM launch.  MODE_UP / MODE_UP_GATED: A = x [T, K=H] (with
 // GATHER: x [S, K=H], row r of the layout at A[src_tok[r]]), B0 = w_up
@@ -146,22 +153,13 @@ ffn_gemm(const T* __restrict__ A, const int* __restrict__ src_tok,
   }
 }
 
-// ---- the Hopper FFN: bf16 B2 and B3 -----------------------------------
-
-constexpr int FH_STAGES = 4;
-constexpr int FH_CONSUMERS = 2;  // 64-row tiles of a work item
-constexpr int FH_THREADS = 128 * (FH_CONSUMERS + 1);
-// B columns of a stage, all operands: the output tile is 256 columns, or
-// 128 in the gated up pass (its up and gate accumulators side by side)
-constexpr int FH_COLS = 256;
-constexpr int EPI_COLS = 64;     // bf16 columns of one TMA store box
-typedef hg::Ring<FH_STAGES, FH_CONSUMERS, FH_COLS> FhRing;
+// ---- the Hopper FFN: bf16 B2, B3 and B6 -------------------------------
 
 // The ring, then for each consumer warpgroup two bf16 staging boxes of
 // its 64 rows x 64 columns (128-byte swizzled rows) for the epilogue.
 struct FhSmem {
   FhRing ring;
-  alignas(1024) bf16 out[FH_CONSUMERS][2][hg::WG_ROWS * EPI_COLS];
+  alignas(1024) FhBox out[FH_CONSUMERS][2];
 };
 
 // The order of a pass's (work item, column tile) pairs.  Tile t is item
@@ -258,93 +256,19 @@ __device__ __forceinline__ void ffn_produce(
   if (GATHER) cp_async_wait<0>();  // leave no copy in flight at exit
 }
 
-// the f32 bias of a thread's columns in one 64-column chunk: columns
-// 8 jj + 2 (lane % 4) + {0, 1}, from be = the chunk's column 2 (lane % 4)
-__device__ __forceinline__ void ffn_bias(float2 (&bv)[EPI_COLS / 8],
-                                         const float* be) {
-#pragma unroll
-  for (int jj = 0; jj < EPI_COLS / 8; ++jj)
-    bv[jj] = __ldg(reinterpret_cast<const float2*>(be + 8 * jj));
-}
-
-// One output value from the accumulators: d0 (up or down) and d1 (gate).
-// The activation is common.cuh's act_f (accurate expf, IEEE division), as
-// in B5 and B6.  The special function unit's __expf and __fdividef make
-// the gated up pass faster (chip_ablate.py, cut fast_act), but their
-// one-ulp differences from B5's activation flip routing near ties
-// between the single-device and the fused expert-parallel forward, which
-// chip_smoke.py holds to one another.
-template <int MODE, int ACT>
-__device__ __forceinline__ float ffn_epi(float d0, float d1, float b) {
-  const float v = d0 + b;
-  if (MODE == MODE_UP_GATED) return act_f(d1, ACT) * v;
-  if (MODE == MODE_UP) return act_f(v, ACT);
-  return v;
-}
-
-// The epilogue of a consumer warpgroup's 64 x BN tile: 64-column chunks
-// through its two staging boxes in turn (a box is rewritten once the
-// store two chunks back has read it).  bv holds the first chunk's bias,
-// be points at it (the thread's first column).
-template <int MODE, int ACT, int NB, int BN>
-__device__ __forceinline__ void ffn_epilogue(
-    float (&d)[NB][BN / 2], float2 (&bv)[EPI_COLS / 8], const float* be,
-    FhSmem& smem, const CUtensorMap* tout, int& stored, int n0, int N,
-    int row0, int wg, int tid) {
-  const int lane = tid % 32;
-  const int r = tid / 32 * 16 + lane / 4;  // the thread's first row
-#pragma unroll
-  for (int ch = 0; ch < BN / EPI_COLS; ++ch) {
-    if (n0 + EPI_COLS * ch < N) {  // the same for the whole warpgroup
-      char* box = reinterpret_cast<char*>(smem.out[wg][stored++ & 1]);
-      if (tid == 0) hg::bulk_wait_read<1>();
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
-#pragma unroll
-      for (int jj = 0; jj < EPI_COLS / 8; ++jj) {
-        const int j = ch * (EPI_COLS / 8) + jj;
-        const int c = 8 * jj + 2 * (lane % 4);  // column in the box
-        // d[NB - 1] is the gate's accumulator when gated (else unused)
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(
-            ffn_epi<MODE, ACT>(d[0][4 * j], d[NB - 1][4 * j], bv[jj].x),
-            ffn_epi<MODE, ACT>(d[0][4 * j + 1], d[NB - 1][4 * j + 1],
-                               bv[jj].y));
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(
-            ffn_epi<MODE, ACT>(d[0][4 * j + 2], d[NB - 1][4 * j + 2],
-                               bv[jj].x),
-            ffn_epi<MODE, ACT>(d[0][4 * j + 3], d[NB - 1][4 * j + 3],
-                               bv[jj].y));
-        *reinterpret_cast<__nv_bfloat162*>(
-            box + hg::sw128_offset(r, 2 * c)) = lo;
-        *reinterpret_cast<__nv_bfloat162*>(
-            box + hg::sw128_offset(r + 8, 2 * c)) = hi;
-      }
-      if (ch + 1 < BN / EPI_COLS && n0 + EPI_COLS * (ch + 1) < N)
-        ffn_bias(bv, be + EPI_COLS * (ch + 1));
-      hg::fence_async_smem();
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
-      if (tid == 0) {
-        hg::tma_store_2d(tout, box, n0 + EPI_COLS * ch, row0);
-        hg::bulk_commit();
-      }
-    }
-  }
-}
-
 // A consumer warpgroup: its 64-row tile of each work item against BN
-// columns, NB accumulators of 64 x BN in registers; releases a stage one
-// wgmma group behind (wgmma.wait_group completes the whole warpgroup's
-// reads, so one arrival a warpgroup).  With GATHER the A tile was written
-// by cp.async (the generic proxy): a proxy fence after the full barrier's
-// wait orders those writes, which the wait made visible to this thread,
-// before its wgmma reads them through the async proxy.
-template <int MODE, bool GATHER>
-__device__ __forceinline__ void ffn_consume(
-    FhSmem& smem, const CUtensorMap* tout, const int4* work, FfnWalk walk,
-    int grid, int N, int K, const float* bias, bf16* out, int act, int wg,
-    int tid) {
+// columns (ffn_hopper.cuh: ffn_products, then the epilogue).  Items past
+// *num_rows load nothing; the down pass writes their rows' zeros, and so
+// does B6's up pass for u and g (the backward reads them).
+template <int MODE, bool GATHER, bool RES>
+__device__ __forceinline__ void ffn_consume(FhSmem& smem, FfnOut o,
+                                            const int4* work, FfnWalk walk,
+                                            int grid, int N, int K,
+                                            const float* bias, int act,
+                                            int wg, int tid) {
   constexpr int NB = MODE == MODE_UP_GATED ? 2 : 1;
   constexpr int BN = FH_COLS / NB;
-  FhRing& sm = smem.ring;
+  constexpr uint64_t LIMIT = 5000000000ull;
   const int nk = K / hg::BK;
   const int lane = tid % 32;
   hg::RingPos pos;
@@ -354,73 +278,39 @@ __device__ __forceinline__ void ffn_consume(
     const int n0 = walk.col(t) * BN;
     const int row0 = (it.x + wg) * hg::WG_ROWS;
     const bool active = wg < it.y;
-    if (it.z < 0) {  // rows past *num_rows: no loads; the down pass's zeros
-      if (MODE == MODE_DOWN && active)
-        for (int i = tid; i < hg::WG_ROWS * BN / 8; i += 128) {
-          const int c = n0 + (i % (BN / 8)) * 8;
-          if (c < N)
-            *reinterpret_cast<uint4*>(
-                out + (size_t)(row0 + i / (BN / 8)) * N + c) =
-                make_uint4(0, 0, 0, 0);
-        }
-      continue;
-    }
-    if (!active) {  // the item has one tile: keep the ring in step
-      for (int kb = 0; kb < nk; ++kb) {
-        hg::mbar_wait(&sm.full[pos.stage], pos.phase);
-        // every thread of the warpgroup has seen the phase before the
-        // stage can be refilled
-        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
-        if (tid == 0) hg::mbar_arrive(&sm.empty[pos.stage]);
-        pos.next<FH_STAGES>();
+    if (it.z < 0) {  // rows past *num_rows: no loads, zeros
+      if (active && MODE == MODE_DOWN) ffn_zeros<BN>(o.out, row0, n0, N, tid);
+      if (active && RES) {
+        ffn_zeros<BN>(o.U, row0, n0, N, tid);
+        if (MODE == MODE_UP_GATED) ffn_zeros<BN>(o.G, row0, n0, N, tid);
       }
       continue;
     }
-    float d[NB][BN / 2];
-#pragma unroll
-    for (int m = 0; m < NB; ++m)
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) d[m][i] = 0.f;
-    int prev = -1;
-    for (int kb = 0; kb < nk; ++kb) {
-      hg::mbar_wait(&sm.full[pos.stage], pos.phase);
-      if (GATHER) hg::fence_async_smem();
-      hg::wgmma_fence();
-#pragma unroll
-      for (int m = 0; m < NB; ++m)
-        hg::wgmma_stage_mn<BN>(d[m], sm.a[pos.stage][wg],
-                               sm.b[pos.stage] + m * BN * hg::BK);
-      hg::wgmma_commit();
-      hg::wgmma_wait<1>();  // the previous stage's products are done
-      if (prev >= 0 && tid == 0) hg::mbar_arrive(&sm.empty[prev]);
-      prev = pos.stage;
-      pos.next<FH_STAGES>();
+    if (!active) {  // the item has one tile: keep the ring in step
+      ffn_skip<FH_STAGES>(smem.ring, pos, nk, wg, tid, LIMIT);
+      continue;
     }
-    // the first chunk's bias, loaded while the last products drain: the
-    // loads of a chunk go out together, ahead of its stores (issued among
-    // the shared-memory stores they would wait one by one)
-    const float* be = bias + (size_t)it.z * N + n0 + 2 * (lane % 4);
+    float d[NB][BN / 2];
+    const int last = ffn_products<FH_STAGES, NB, BN, GATHER>(
+        smem.ring, pos, nk, wg, tid, d, LIMIT);
     float2 bv[EPI_COLS / 8];
-    ffn_bias(bv, be);
-    hg::wgmma_wait<0>();
-#pragma unroll
-    for (int m = 0; m < NB; ++m) hg::fence_acc(d[m]);
-    if (tid == 0) hg::mbar_arrive(&sm.empty[prev]);
-
+    const float* be = bias + (size_t)it.z * N + n0 + 2 * (lane % 4);
+    ffn_drain<FH_STAGES, NB, BN>(smem.ring, last, tid, d, be, bv);
     // the activation as a constant: a runtime code keeps its branches
     // between the chunk's independent values, which then cannot overlap
     // (the down pass has none)
+#define FM_FFN_EPI(A)                                                     \
+  ffn_epilogue<MODE, A, NB, BN, RES>(d, bv, be, smem.out[wg], o, stored, n0, \
+                                     N, row0, wg, tid)
     if (MODE == MODE_DOWN || act == ACT_RELU)
-      ffn_epilogue<MODE, ACT_RELU, NB, BN>(d, bv, be, smem, tout, stored,
-                                           n0, N, row0, wg, tid);
+      FM_FFN_EPI(ACT_RELU);
     else if constexpr (MODE != MODE_DOWN) {
       if (act == ACT_GELU)
-        ffn_epilogue<MODE, ACT_GELU, NB, BN>(d, bv, be, smem, tout, stored,
-                                             n0, N, row0, wg, tid);
+        FM_FFN_EPI(ACT_GELU);
       else
-        ffn_epilogue<MODE, ACT_SILU, NB, BN>(d, bv, be, smem, tout, stored,
-                                             n0, N, row0, wg, tid);
+        FM_FFN_EPI(ACT_SILU);
     }
+#undef FM_FFN_EPI
   }
   if (tid == 0) hg::bulk_wait<0>();  // the stores have left shared memory
 }
@@ -428,17 +318,21 @@ __device__ __forceinline__ void ffn_consume(
 // One pass of the Hopper FFN.  MODE_UP / MODE_UP_GATED: A = x [T, K=H]
 // through ta (with GATHER: x [S, K] read by src_tok instead), B0 = w_up,
 // B1 = w_gate [E, H, N=I], bias = b_up [E, I], the output hidden [T, I]
-// through tout.  MODE_DOWN: A = hidden [T, K=I], B0 = w_down [E, I, N=H],
-// bias = b_down, the output out [T, H] through tout (zeros past *num_rows
-// written through out).
-template <int MODE, bool GATHER>
+// through tout, and with RES u and g [T, I] (tu / tg; their zeros at U /
+// G).  MODE_DOWN:
+// A = hidden [T, K=I], B0 = w_down [E, I, N=H], bias = b_down, the output
+// out [T, H] through tout (zeros past *num_rows written through out).
+template <int MODE, bool GATHER, bool RES>
 __global__ void __launch_bounds__(FH_THREADS, 1)
 ffn_hopper(const __grid_constant__ CUtensorMap ta,
            const __grid_constant__ CUtensorMap tb0,
            const __grid_constant__ CUtensorMap tb1,
            const __grid_constant__ CUtensorMap tout,
+           const __grid_constant__ CUtensorMap tu,
+           const __grid_constant__ CUtensorMap tg,
            const int4* __restrict__ work, const int* __restrict__ n_work,
            const float* __restrict__ bias, bf16* __restrict__ out,
+           bf16* __restrict__ U, bf16* __restrict__ G,
            const bf16* __restrict__ x, const int* __restrict__ src_tok,
            int N, int K, int act) {
   constexpr int NB = MODE == MODE_UP_GATED ? 2 : 1;
@@ -466,78 +360,68 @@ ffn_hopper(const __grid_constant__ CUtensorMap ta,
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  ffn_consume<MODE, GATHER>(smem, &tout, work, walk, grid, N, K, bias, out,
-                            act, wg, tid);
+  ffn_consume<MODE, GATHER, RES>(smem, FfnOut{&tout, &tu, &tg, out, U, G},
+                                 work, walk, grid, N, K, bias, act, wg, tid);
 }
 
-template <int MODE, bool GATHER>
+template <int MODE, bool GATHER, bool RES>
 int ffn_hopper_pass(int grid, const CUtensorMap& ta, const CUtensorMap& tb0,
                     const CUtensorMap& tb1, const CUtensorMap& tout,
+                    const CUtensorMap& tu, const CUtensorMap& tg,
                     const int4* work, const int* n_work, const float* bias,
-                    void* out, const void* x, const int* src_tok, int N,
-                    int K, int act, cudaStream_t stream) {
+                    void* out, void* u, void* g, const void* x,
+                    const int* src_tok, int N, int K, int act,
+                    cudaStream_t stream) {
   const size_t smem = hg::smem_bytes<FhSmem>();
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_hopper<MODE, GATHER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ffn_hopper<MODE, GATHER, RES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ffn_hopper<MODE, GATHER><<<grid, FH_THREADS, smem, stream>>>(
-      ta, tb0, tb1, tout, work, n_work, bias, (bf16*)out, (const bf16*)x,
-      src_tok, N, K, act);
+  ffn_hopper<MODE, GATHER, RES><<<grid, FH_THREADS, smem, stream>>>(
+      ta, tb0, tb1, tout, tu, tg, work, n_work, bias, (bf16*)out, (bf16*)u,
+      (bf16*)g, (const bf16*)x, src_tok, N, K, act);
   return (int)cudaGetLastError();
 }
 
-// [rows, cols] bf16 row-major in boxes of 64 x 64
-inline bool fh_map_2d(CUtensorMap* map, const void* p, int rows, int cols) {
-  const cuuint64_t d[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t s[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t b[2] = {64, 64};
-  return hg::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 2, d, s, b);
-}
-// w [E, K, N] bf16 in boxes of 64 columns x 64 K-rows of one expert
-inline bool fh_map_w(CUtensorMap* map, const void* p, int E, int K, int N) {
-  const cuuint64_t d[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
-  const cuuint64_t s[2] = {(cuuint64_t)N * sizeof(bf16),
-                           (cuuint64_t)K * N * sizeof(bf16)};
-  const cuuint32_t b[3] = {64, hg::BK, 1};
-  return hg::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 3, d, s, b);
-}
-
 // The bf16 FFN: the work list, the up pass, the down pass.  plan: i32
-// [4 * T / 64 + 1] scratch (the items, then their count).
-template <bool GATHER>
+// [4 * T / 64 + 1] scratch (the items, then their count).  With RES (B6)
+// the up pass also writes u and g [T, I] (g null when not gated).
+template <bool GATHER, bool RES>
 int ffn_hopper_launch(int gated, int act, const void* x, const int* src_tok,
                       const int* tile_gid, int block_m, const int* num_rows,
                       const void* w_up, const void* w_gate,
                       const float* b_up, const void* w_down,
-                      const float* b_down, void* hidden, void* out,
-                      int* plan, int T, int H, int I, int E, int grid,
-                      cudaStream_t stream) {
+                      const float* b_down, void* u, void* g, void* hidden,
+                      void* out, int* plan, int T, int H, int I, int E,
+                      int grid, cudaStream_t stream) {
   if (T == 0) return 0;
-  CUtensorMap tx, tup, tgate, th, tdown, tout;
+  CUtensorMap tx, tup, tgate, th, tdown, tout, tu, tg;
   if (!fh_map_2d(&th, hidden, T, I) || !fh_map_2d(&tout, out, T, H) ||
       !fh_map_w(&tup, w_up, E, H, I) || !fh_map_w(&tdown, w_down, E, I, H) ||
       (gated && !fh_map_w(&tgate, w_gate, E, H, I)) ||
-      (!GATHER && !fh_map_2d(&tx, x, T, H)))
+      (!GATHER && !fh_map_2d(&tx, x, T, H)) ||
+      (RES && !fh_map_2d(&tu, u, T, I)) ||
+      (RES && gated && !fh_map_2d(&tg, g, T, I)))
     return (int)cudaErrorInvalidValue;
   if (!gated) tgate = tup;
   if (GATHER) tx = th;  // unused: the rows come by src_tok
+  if (!RES) tu = th;  // unused
+  if (!RES || !gated) tg = th;
   int4* work = reinterpret_cast<int4*>(plan);
   int* n_work = plan + 4 * (T / hg::WG_ROWS);
   int err = hg::gmm_plan_launch(tile_gid, block_m, num_rows, T, work, n_work,
                                 stream);
   if (err) return err;
-  err = gated ? ffn_hopper_pass<MODE_UP_GATED, GATHER>(
-                    grid, tx, tup, tgate, th, work, n_work, b_up, hidden, x,
-                    src_tok, I, H, act, stream)
-              : ffn_hopper_pass<MODE_UP, GATHER>(
-                    grid, tx, tup, tgate, th, work, n_work, b_up, hidden, x,
-                    src_tok, I, H, act, stream);
+  err = gated ? ffn_hopper_pass<MODE_UP_GATED, GATHER, RES>(
+                    grid, tx, tup, tgate, th, tu, tg, work, n_work, b_up,
+                    hidden, u, g, x, src_tok, I, H, act, stream)
+              : ffn_hopper_pass<MODE_UP, GATHER, RES>(
+                    grid, tx, tup, tgate, th, tu, tg, work, n_work, b_up,
+                    hidden, u, g, x, src_tok, I, H, act, stream);
   if (err) return err;
-  return ffn_hopper_pass<MODE_DOWN, false>(grid, th, tdown, tdown, tout,
-                                           work, n_work, b_down, out,
-                                           nullptr, nullptr, H, I, act,
-                                           stream);
+  return ffn_hopper_pass<MODE_DOWN, false, false>(
+      grid, th, tdown, tdown, tout, tout, tout, work, n_work, b_down, out,
+      nullptr, nullptr, nullptr, nullptr, H, I, act, stream);
 }
 
 // C [64, N] f32 = A [64, K] @ B [K, N], both bf16 row-major, by one
@@ -635,23 +519,23 @@ int grouped_ffn_launch(int gated, int act, const void* x, const int* src_tok,
   return (int)cudaGetLastError();
 }
 
-// B2 (GATHER false) and B3: bf16 on the Hopper FFN, f32 on the 64 x 64
-// tile.
-template <bool GATHER>
+// B2 (GATHER false), B3 (GATHER) and B6 (RES): bf16 on the Hopper FFN,
+// f32 on the 64 x 64 tile.
+template <bool GATHER, bool RES>
 int ffn_entry(int is_bf16, int gated, int act, const void* x,
               const int* src_tok, const int* tile_gid, int block_m,
               const int* num_rows, const void* w_up, const void* w_gate,
               const float* b_up, const void* w_down, const float* b_down,
-              void* hidden, void* out, int* plan, int T, int H, int I, int E,
-              int grid, cudaStream_t stream) {
+              void* u, void* g, void* hidden, void* out, int* plan, int T,
+              int H, int I, int E, int grid, cudaStream_t stream) {
   if (is_bf16)
-    return ffn_hopper_launch<GATHER>(gated, act, x, src_tok, tile_gid,
-                                     block_m, num_rows, w_up, w_gate, b_up,
-                                     w_down, b_down, hidden, out, plan, T, H,
-                                     I, E, grid, stream);
-  return grouped_ffn_launch<float, false, GATHER>(
+    return ffn_hopper_launch<GATHER, RES>(
+        gated, act, x, src_tok, tile_gid, block_m, num_rows, w_up, w_gate,
+        b_up, w_down, b_down, u, g, hidden, out, plan, T, H, I, E, grid,
+        stream);
+  return grouped_ffn_launch<float, RES, GATHER>(
       gated, act, x, src_tok, tile_gid, block_m, num_rows, w_up, w_gate,
-      b_up, w_down, b_down, nullptr, nullptr, hidden, out, T, H, I, stream);
+      b_up, w_down, b_down, u, g, hidden, out, T, H, I, stream);
 }
 
 }  // namespace fm
@@ -671,30 +555,29 @@ extern "C" int fm_grouped_ffn(int is_bf16, int gated, int act,
                               const float* b_down, void* hidden, void* out,
                               int* plan, int T, int H, int I, int E, int grid,
                               cudaStream_t stream) {
-  return fm::ffn_entry<false>(is_bf16, gated, act, x, nullptr, tile_gid,
-                              block_m, num_rows, w_up, w_gate, b_up, w_down,
-                              b_down, hidden, out, plan, T, H, I, E, grid,
-                              stream);
+  return fm::ffn_entry<false, false>(
+      is_bf16, gated, act, x, nullptr, tile_gid, block_m, num_rows, w_up,
+      w_gate, b_up, w_down, b_down, nullptr, nullptr, hidden, out, plan, T,
+      H, I, E, grid, stream);
 }
 
-// x [T, H], tile_gid, block_m, num_rows, the weights and biases as
-// fm_grouped_ffn's, and u [T, I] and g [T, I] (null when not gated), both
-// in x's dtype: two launches on the 64 x 64 tile.
+// fm_grouped_ffn's arguments and u [T, I] and g [T, I] (null when not
+// gated), both in x's dtype, zero past *num_rows.  bf16: three launches on
+// the Hopper FFN, whose up pass writes u and g beside hidden; f32: two on
+// the 64 x 64 tile.
 extern "C" int fm_grouped_ffn_res(int is_bf16, int gated, int act,
                                   const void* x, const int* tile_gid,
                                   int block_m, const int* num_rows,
                                   const void* w_up, const void* w_gate,
                                   const float* b_up, const void* w_down,
                                   const float* b_down, void* u, void* g,
-                                  void* hidden, void* out, int T, int H,
-                                  int I, cudaStream_t stream) {
-  if (is_bf16)
-    return fm::grouped_ffn_launch<fm::bf16, true, false>(
-        gated, act, x, nullptr, tile_gid, block_m, num_rows, w_up, w_gate,
-        b_up, w_down, b_down, u, g, hidden, out, T, H, I, stream);
-  return fm::grouped_ffn_launch<float, true, false>(
-      gated, act, x, nullptr, tile_gid, block_m, num_rows, w_up, w_gate,
-      b_up, w_down, b_down, u, g, hidden, out, T, H, I, stream);
+                                  void* hidden, void* out, int* plan, int T,
+                                  int H, int I, int E, int grid,
+                                  cudaStream_t stream) {
+  return fm::ffn_entry<false, true>(
+      is_bf16, gated, act, x, nullptr, tile_gid, block_m, num_rows, w_up,
+      w_gate, b_up, w_down, b_down, u, g, hidden, out, plan, T, H, I, E,
+      grid, stream);
 }
 
 // fm_grouped_ffn's arguments with x [S, H] in token order and src_tok i32
@@ -708,10 +591,10 @@ extern "C" int fm_grouped_ffn_tokens(int is_bf16, int gated, int act,
                                      void* hidden, void* out, int* plan,
                                      int T, int H, int I, int E, int grid,
                                      cudaStream_t stream) {
-  return fm::ffn_entry<true>(is_bf16, gated, act, x, src_tok, tile_gid,
-                             block_m, num_rows, w_up, w_gate, b_up, w_down,
-                             b_down, hidden, out, plan, T, H, I, E, grid,
-                             stream);
+  return fm::ffn_entry<true, false>(
+      is_bf16, gated, act, x, src_tok, tile_gid, block_m, num_rows, w_up,
+      w_gate, b_up, w_down, b_down, nullptr, nullptr, hidden, out, plan, T,
+      H, I, E, grid, stream);
 }
 
 // C [64, N] f32 = A [64, K] @ B [K, N], A and B bf16 row-major, N 128 or

@@ -91,13 +91,17 @@ __device__ __forceinline__ uint64_t global_ns() {
 }
 
 // Wait until the phase of parity `parity` has completed.  A ring out of
-// step (a protocol fault) would spin forever: trap after 5 s instead, so
-// the launch fails with an error rather than holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// step (a protocol fault) would spin forever: trap after limit_ns (5 s by
+// default) instead, so the launch fails with an error rather than holding
+// the card.  A kernel whose producer itself waits on flags with a timeout
+// of its own (fused_ep.cu) passes a longer limit, so that the flag's
+// message comes out first.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity,
+                                          uint64_t limit_ns = 5000000000ull) {
   if (mbar_try_wait(bar, parity)) return;
   const uint64_t t0 = global_ns();
   while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - t0 > 5000000000ull) {
+    if (global_ns() - t0 > limit_ns) {
       printf("hopper_gemm: mbarrier wait timed out (block %d thread %d)\n",
              blockIdx.x, threadIdx.x);
       __trap();
@@ -112,6 +116,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// A tensor map in global memory that the host wrote before the launch:
+// acquired for the tensormap proxy at system scope (a descriptor that
+// proxy cached from earlier contents of the same address is not used),
+// then prefetched.  Maps passed as __grid_constant__ parameters need
+// neither.
+__device__ __forceinline__ void tensormap_acquire(const CUtensorMap* map) {
+  asm volatile(
+      "fence.proxy.tensormap::generic.acquire.sys [%0], 128;\n" ::"l"(
+          (uint64_t)map)
+      : "memory");
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)map) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -416,18 +433,19 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tensor of `rank` dims of `type` (dims innermost first, strides in
 // bytes of dims 1..rank-1) cut in boxes of `box` (128 bytes of the
-// innermost dim at most), 128-byte swizzle, zero fill out of bounds on
-// loads, out-of-bounds elements dropped on stores.  Returns false when the
-// encoding is refused.
+// innermost dim at most), 128-byte swizzle unless `swizzle` says
+// otherwise, zero fill out of bounds on loads, out-of-bounds elements
+// dropped on stores.  Returns false when the encoding is refused.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type,
                      const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, type, (cuuint32_t)rank,
             const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

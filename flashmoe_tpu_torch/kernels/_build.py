@@ -61,9 +61,10 @@ SIGNATURES = {
     # a, b, c, K, N, stream
     "fm_hopper_tile_mn": [P, P, P, I, I, P],
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
-    # w_gate, b_up, w_down, b_down, u, g, hidden, out, T, H, I, stream
-    "fm_grouped_ffn_res": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, I,
-                           I, I, P],
+    # w_gate, b_up, w_down, b_down, u, g, hidden, out, plan, T, H, I, E,
+    # grid, stream
+    "fm_grouped_ffn_res": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, P,
+                           I, I, I, I, I, P],
     # dtype_is_bf16, transpose_w, out_f32, x, tile_gid, block_m, num_rows,
     # w, out, T, K, N, stream
     "fm_grouped_matmul": [I, I, I, P, P, I, P, P, P, I, I, I, P],
@@ -78,12 +79,12 @@ SIGNATURES = {
     # dtype_is_bf16, gated, weight code, out (int*)
     "fm_fused_ep_max_blocks": [I, I, I, ctypes.POINTER(I)],
     # dtype_is_bf16, gated, weight code, act, D, nlx, cap, ch, H, I, k,
-    # combine, rows_pad, G, grp, seq, work_base, timeout_ns, x_send,
+    # combine, rows_pad, G, n_total, seq, work_base, timeout_ns, x_send,
     # send_cnt, order, recv_pos, w_sorted, w_up, w_gate, b_up, w_down,
-    # b_down, s_up, s_gate, s_down, peers, out, stream
+    # b_down, s_up, s_gate, s_down, peers, host_peers, maps, out, stream
     "fm_fused_ep": [I, I, I, I, I, I, I, I, I, I, I, I, I, I, I,
                     ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong, P,
-                    P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
+                    P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P],
 }
 
 

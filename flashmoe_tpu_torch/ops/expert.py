@@ -210,10 +210,10 @@ def _ffn_kernel(name, res, x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
               None if nrow is None else nrow.data_ptr(), w_up.data_ptr(),
               w_gate.data_ptr() if gated else None, b_up32.data_ptr(),
               w_down.data_ptr(), b_down32.data_ptr())
-    # bf16 B2 and B3 (the Hopper FFN): the work list's buffer and the
+    # bf16 B2, B3 and B6 (the Hopper FFN): the work list's buffer and the
     # persistent grid
     plan = torch.empty((4 * (t // ROW_TILE) + 1,), dtype=torch.int32,
-                       device=x.device) if bf16 and not res else None
+                       device=x.device) if bf16 else None
     tail = (None if plan is None else plan.data_ptr(), t, h, i,
             w_up.shape[0], _sm_count(x.device.index))
     lib = _build.library()
@@ -226,7 +226,7 @@ def _ffn_kernel(name, res, x, tile_gid, w_up, b_up, w_down, b_down, w_gate,
         elif res:
             err = lib.fm_grouped_ffn_res(
                 *common, u.data_ptr(), None if g is None else g.data_ptr(),
-                hidden.data_ptr(), out.data_ptr(), t, h, i,
+                hidden.data_ptr(), out.data_ptr(), *tail,
                 _build.stream_of(x))
         else:
             err = lib.fm_grouped_ffn(*common, hidden.data_ptr(),
@@ -265,7 +265,9 @@ def grouped_ffn_res_cuda(x, tile_gid, w_up, b_up, w_down, b_down,
     ``csrc/grouped_ffn.cu``) on CUDA tensors: ``(y, u, g)`` as
     :func:`grouped_ffn_res_plain`, with :func:`grouped_ffn_cuda`'s
     arguments and limits.  Rows at or past ``num_rows`` are zero in y, u
-    and g."""
+    and g.  bf16 runs :func:`grouped_ffn_cuda`'s Hopper FFN, whose up pass
+    also writes u and g (y is :func:`grouped_ffn_cuda`'s output bit for
+    bit); f32 the 64 x 64 tile."""
     out = _ffn_kernel("grouped_ffn_res_cuda", True, x, tile_gid, w_up, b_up,
                       w_down, b_down, w_gate, act_name, gated, block_m,
                       num_rows)

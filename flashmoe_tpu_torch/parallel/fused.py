@@ -24,10 +24,13 @@ The four schedule names of the JAX kernel stay, and map to two
 processing orders of the one kernel: ``stream`` and ``resident`` take the
 tasks (source, local expert, row tile) source-major in ``src_order``;
 ``batched`` and ``rowwin`` take the own slab first, then the remote slabs
-expert-major.  The TPU schedules' VMEM budgets have no counterpart: every
-order holds one 64-row tile's operands in a block's static shared memory
-(about 34 KB of the 227 KB an H100 block may use, a static assert in the
-kernel), whatever the capacity, source count or expert width.
+expert-major.  A task is an item of up to two 64-row tiles of one expert
+(paired across a unit's sources, :func:`unit_items`) against one column
+tile of ``TASK_COLS`` (half that in a gated up pass).  The TPU schedules'
+VMEM budgets have no counterpart: bf16 runs one block of 384 threads per
+SM with a ring of TMA stages in dynamic shared memory, f32 one 64 x 64
+tile's operands in a block's static shared memory, whatever the
+capacity, source count or expert width.
 
 Under ``cfg.expert_quant`` (``flashmoe_tpu/parallel/fused.py:1451-1530,
 2078-2120``) full-precision weights are quantized first and
@@ -59,11 +62,14 @@ from flashmoe_tpu_torch.ops.gate import router
 from flashmoe_tpu_torch.parallel.ep import layer_output, local_capacity
 from flashmoe_tpu_torch.quant.core import is_quant_dtype
 
-#: the kernel's row tile and output-column chunk (csrc/gemm_tile.cuh)
+#: the kernel's row tile and the JAX schedule's column chunk
 ROW_TILE = 64
 COL_TILE = 64
-#: column chunks in one task of the kernel (a 64 x 256 strip)
-COL_GROUP = 4
+#: output columns of a task (csrc/ffn_hopper.cuh FH_COLS): a down task's,
+#: an up task's unless gated (then half: up and gate side by side)
+TASK_COLS = 256
+#: bytes of one TMA map (CUtensorMap) in the bf16 kernel's map buffer
+MAP_BYTES = 128
 SCHEDULES = ("batched", "resident", "stream", "rowwin")
 #: how long a wait inside the kernel may spin before it traps
 TIMEOUT_S = 5.0
@@ -145,23 +151,42 @@ def _fuse_combine_enabled(cfg: MoEConfig, d_world: int) -> bool:
             and d_world > 1)
 
 
-def _groups(dim: int) -> int:
-    """Tasks across a dimension: 256-column groups of 64-column chunks."""
-    return -(-(dim // COL_TILE) // COL_GROUP)
+def col_tiles(dim: int, gated: bool = False) -> int:
+    """Column tiles of a task across ``dim`` output columns:
+    ``TASK_COLS`` wide, half that in a gated up pass."""
+    cols = TASK_COLS // (2 if gated else 1)
+    return -(-dim // cols)
+
+
+def unit_items(srcs, e: int, nlx: int, n_tiles: int) -> list:
+    """The items of one unit (the sources ``srcs`` of local expert e):
+    its tiles ``(src * nlx + e) * n_tiles + t`` taken tile-major (tile t
+    of every source in turn), then consecutive ones paired, ``(first,
+    second)``, second -1 for an item of one: one tile per consumer
+    warpgroup of the Hopper kernel (the f32 kernel takes them in turn).
+    At the ep path's shapes a slab holds about 32 rows, one partly filled
+    tile: pairing across the unit's sources keeps both of a block's
+    consumer warpgroups busy, where pairing within a slab would pair a
+    tile with an empty one (on an H100 3.50 ms against 4.52 unpaired,
+    ``chip_ablate.py``, cut ``b5_unpaired``)."""
+    tiles = [(s * nlx + e) * n_tiles + t for t in range(n_tiles)
+             for s in srcs]
+    return [(tiles[i], tiles[i + 1] if i + 1 < len(tiles) else -1)
+            for i in range(0, len(tiles), 2)]
 
 
 def task_order(src_order: np.ndarray, nlx: int, n_tiles: int, n_up: int,
                n_down: int, schedule: str) -> np.ndarray:
-    """[D, D * nlx * n_tiles * (n_up + n_down), 2] int32: each rank's
-    tasks, as the kernel reads them: ``(src * nlx + e) * n_tiles + t``
-    and ``kind << 16 | group`` (kind 0 up, 1 down), in the schedule's
-    order.  A unit is one source's slab of one expert (``stream``,
-    ``resident``), or the own slab first and then all remote slabs of one
-    expert together (``batched``, ``rowwin``); each unit lists its up
-    tasks group by group across its tiles, then its down tasks, so that
-    every down task comes after the up tasks it waits for."""
+    """[D, n_total, 4] int32: each rank's tasks, as the kernel reads them:
+    an item's two tile codes (:func:`unit_items`), ``kind << 16 |
+    column tile`` (kind 0 up, 1 down) and 0, in the schedule's order.  A
+    unit is one source's slab of one expert (``stream``, ``resident``), or
+    the own slab first and then all remote slabs of one expert together
+    (``batched``, ``rowwin``); each unit lists its up tasks column tile by
+    column tile across its items, then its down tasks, so that every down
+    task comes after the up tasks it waits for and the blocks running
+    together share each weight strip in L2."""
     d = src_order.shape[0]
-    tiles = np.arange(n_tiles)
     out = []
     for r in range(d):
         srcs = [int(s) for s in src_order[r]]
@@ -172,12 +197,12 @@ def task_order(src_order: np.ndarray, nlx: int, n_tiles: int, n_up: int,
             units = [([s], e) for s in srcs for e in range(nlx)]
         rows = []
         for ss, e in units:
-            codes = ((np.asarray(ss)[:, None] * nlx + e) * n_tiles
-                     + tiles[None, :]).reshape(-1)
+            items = np.asarray(unit_items(ss, e, nlx, n_tiles), np.int64)
+            zero = np.zeros((len(items), 1), np.int64)
             for kind, n in ((0, n_up), (1, n_down)):
                 for j in range(n):
-                    rows.append(np.stack([codes, np.full_like(
-                        codes, kind << 16 | j)], -1))
+                    rows.append(np.concatenate(
+                        [items, zero + (kind << 16 | j), zero], 1))
         out.append(np.concatenate(rows))
     return np.stack(out).astype(np.int32)
 
@@ -335,10 +360,11 @@ class _Flags:
     them; the data regions are allocated for each call."""
 
     def __init__(self, key, d, n_flags, device):
-        stride = -(-(16 + 4 * n_flags) // 256) * 256
+        self.stride = -(-(16 + 4 * n_flags) // 256) * 256
         self.key = key
-        self.mem = torch.zeros(d * stride, dtype=torch.uint8, device=device)
-        self.peers = self.mem.data_ptr() + stride * torch.arange(
+        self.mem = torch.zeros(d * self.stride, dtype=torch.uint8,
+                               device=device)
+        self.peers = self.mem.data_ptr() + self.stride * torch.arange(
             d, dtype=torch.int64, device=device)
         self.seq = 0
         self.work_base = 0
@@ -392,6 +418,12 @@ def _rank_table(t) -> torch.Tensor:
     step = t.stride(0) * t.element_size()
     return t.data_ptr() + step * torch.arange(t.shape[0], dtype=torch.int64,
                                               device=t.device)
+
+
+def _rank_addresses(t) -> list:
+    """The addresses of :func:`_rank_table`, on the host."""
+    step = t.stride(0) * t.element_size()
+    return [t.data_ptr() + step * r for r in range(t.shape[0])]
 
 
 def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
@@ -456,7 +488,7 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
             f"{name}: {d} ranks x {g} blocks exceed the {most} blocks this "
             f"card keeps resident at once; every block may wait on "
             f"another, so such a grid could deadlock")
-    n_up, n_down = _groups(i_dim), _groups(h)
+    n_up, n_down = col_tiles(i_dim, gated), col_tiles(h)
     dev, dt = x_send.device, x_send.dtype
     flags = _flags_for(dev, d, nlx, n_tiles, n_up, n_down)
     okey = (so.tobytes(), schedule)
@@ -470,6 +502,14 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
     hidden = torch.empty((d, d, nlx, ch, i_dim), dtype=dt, device=dev)
     peers = torch.stack([_rank_table(x_recv), _rank_table(ret),
                          _rank_table(hidden), flags.peers])
+    # the same table on the host: the bf16 kernel's TMA maps are encoded
+    # from it into a device buffer, [3 + 2 D] maps
+    host_peers = torch.tensor(
+        [a for t in (x_recv, ret, hidden) for a in _rank_addresses(t)]
+        + [flags.mem.data_ptr() + flags.stride * r for r in range(d)],
+        dtype=torch.int64)
+    maps = (torch.empty((3 + 2 * d) * MAP_BYTES, dtype=torch.uint8,
+                        device=dev) if dt == torch.bfloat16 else None)
     out = (torch.empty((d, rows_pad // k, h), dtype=torch.float32,
                        device=dev) if combine else None)
     # the flags keep this call's sequence number only if it launched
@@ -479,7 +519,7 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
             int(dt == torch.bfloat16), int(gated), wq,
             exp._ACT_CODE[act_name],
             d, nlx, c, ch, h, i_dim, k, int(combine), rows_pad, g,
-            COL_GROUP, seq, flags.work_base, int(timeout_s * 1e9),
+            order.shape[1], seq, flags.work_base, int(timeout_s * 1e9),
             x_send.data_ptr(), cnt32.data_ptr(), order.data_ptr(),
             recv_pos.data_ptr() if combine else None,
             w_sorted.data_ptr() if combine else None, w_up.data_ptr(),
@@ -487,7 +527,8 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
             w_down.data_ptr(), b_down32.data_ptr(),
             *(scales[k].data_ptr() if k in scales else None
               for k in ("w_up", "w_gate", "w_down")),
-            peers.data_ptr(),
+            peers.data_ptr(), host_peers.data_ptr(),
+            maps.data_ptr() if maps is not None else None,
             out.data_ptr() if combine else None, _build.stream_of(x_send))
     _build.check(err, "fm_fused_ep")
     flags.seq = seq

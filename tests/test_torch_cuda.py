@@ -910,3 +910,171 @@ def test_grouped_ffn_hopper_decode_rows_equal_prefill_rows(gen, tokens):
                 plan.tile_gid, *weights, **kw)
         outs.append(y[plan.position.reshape(-1)])
     assert torch.equal(outs[1], outs[0][:8])
+
+
+# ----------------------------------------------------------------------
+# B6, B5 and B5q on the Hopper FFN's mainloop: equal to B2 bit for bit
+# ----------------------------------------------------------------------
+
+_RES_CASES = [(gated, act, i) for gated, act in
+              ((True, "silu"), (True, "gelu"), (False, "gelu"),
+               (False, "relu")) for i in (320, 14336)]
+
+
+@pytest.mark.parametrize(
+    "gated,act,i", _RES_CASES,
+    ids=[f"{'gated' if g else 'plain'}_{a}_i{i}" for g, a, i in _RES_CASES])
+def test_grouped_ffn_res_hopper_y_equals_b2(gen, gated, act, i):
+    """bf16 B6 runs B2's Hopper FFN, whose up pass also writes u and g: its
+    y equals B2's out bit for bit (num_rows below T, an odd run of tiles,
+    an expert without rows, I a multiple of 64 but not of the column
+    tile); u and g within the bf16 tolerance of the plain version and
+    zero past num_rows; a second call equal bit for bit."""
+    e, h = 4, 192
+    tiles = (3, 0, 2, 1)
+    t = sum(tiles) * expert.ROW_TILE
+    gid = _gmm_rows(gen, t, tiles)
+    xbuf = torch.randn(t, h, device="cuda", generator=gen,
+                       dtype=torch.bfloat16)
+    w = lambda *sh: (torch.randn(*sh, device="cuda", generator=gen)
+                     / sh[-2] ** 0.5).to(torch.bfloat16)
+    weights = (w(e, h, i), torch.randn(e, i, device="cuda", generator=gen),
+               w(e, i, h), torch.randn(e, h, device="cuda", generator=gen),
+               w(e, h, i) if gated else None)
+    nrow = torch.tensor(t - expert.ROW_TILE - 64 * (i > 1000),
+                        device="cuda")
+    kw = dict(act_name=act, gated=gated, block_m=expert.ROW_TILE,
+              num_rows=nrow)
+    got = expert.grouped_ffn_res_cuda(xbuf, gid, *weights, **kw)
+    again = expert.grouped_ffn_res_cuda(xbuf, gid, *weights, **kw)
+    b2 = expert.grouped_ffn_cuda(xbuf, gid, *weights, **kw)
+    want = expert.grouped_ffn_res_plain(xbuf, gid, *weights, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], b2)
+    live = int(nrow)
+    for name, a, b, c in zip("yug", got, want, again):
+        assert (a is None) == (b is None) == (c is None), name
+        if a is None:
+            continue
+        assert torch.equal(a, c), name
+        assert _normwise(a, b) <= BF16_TOL, name
+        assert not a[live:].any(), name
+
+
+def _b2_rows(args, kw):
+    """B2 (``grouped_ffn_cuda``) on every row the fused kernel's shard
+    arguments send: for each owner, its experts' received rows (source
+    by source) in one ragged buffer; returned as y[src, owner, e, slot]
+    at the populated slots, zeros elsewhere."""
+    send_cnt, _, x_send, w_up, b_up, w_down, b_down, w_gate = args
+    d, _, nlx, _, h = x_send.shape
+    cnt = send_cnt.tolist()
+    y = torch.zeros_like(x_send)
+    bm = expert.ROW_TILE
+    for r in range(d):
+        rows, gids, places = [], [], []
+        for e in range(nlx):
+            n = sum(cnt[s][r][e] for s in range(d))
+            for s in range(d):
+                rows.append(x_send[s, r, e, :cnt[s][r][e]])
+            pad = -(-n // bm) * bm - n
+            rows.append(x_send.new_zeros(pad, h))
+            gids += [e] * ((n + pad) // bm)
+            places.append(pad)
+        if not gids:
+            continue
+        own = slice(r * nlx, (r + 1) * nlx)
+        out = expert.grouped_ffn_cuda(
+            torch.cat(rows), torch.tensor(gids, device="cuda"), w_up[own],
+            b_up[own], w_down[own], b_down[own],
+            None if w_gate is None else w_gate[own], act_name=kw["act_name"],
+            gated=kw["gated"], block_m=bm)
+        at = 0
+        for e in range(nlx):
+            for s in range(d):
+                c = cnt[s][r][e]
+                y[s, r, e, :c] = out[at:at + c]
+                at += c
+            at += places[e]
+    return y
+
+
+def _combine_like_kernel(y, send_cnt, recv_pos, w_sorted, k):
+    """The in-kernel combine of the rows y[src, owner, e, slot]: each
+    returned row at its sorted row of its source, then per token the f32
+    sum, in order, of each nonzero weight times its row."""
+    d, _, nlx, cap, h = y.shape
+    rows_pad = w_sorted.shape[1]
+    live = torch.arange(cap, device="cuda") < send_cnt[..., None]
+    out = []
+    for s in range(d):
+        ys = torch.zeros(rows_pad, h, dtype=y.dtype, device="cuda")
+        pos = recv_pos[:, s].long()  # [owner, e, slot]
+        ys[pos[live[s]]] = y[s][live[s]]
+        acc = torch.zeros(rows_pad // k, h, device="cuda")
+        for j in range(k):
+            w = w_sorted[s, j::k][:, None]
+            acc = torch.where(w != 0, acc + ys[j::k].float() * w, acc)
+        out.append(acc)
+    return torch.stack(out)
+
+
+# ep 16 at 8 blocks a rank fills 128 of an H100's 132 SMs: the TMA maps of
+# every rank travel in a device buffer, not in the kernel's parameters
+_B5_CASES = [(d, combine, cap) for d in (1, 3, 8) for combine in (False, True)
+             for cap in (32, 96)] + [(16, False, 96), (16, True, 32)]
+
+
+@pytest.mark.parametrize(
+    "d,combine,cap", _B5_CASES,
+    ids=[f"ep{d}_{'combine' if c else 'slabs'}_cap{cap}"
+         for d, c, cap in _B5_CASES])
+def test_fused_ep_hopper_rows_equal_b2(gen, d, combine, cap):
+    """bf16 B5 (the Hopper kernel: items of two tiles paired across
+    sources, column tiles of 128 gated and 256 down, epilogues straight
+    from the fragments) returns each populated row equal, bit for bit, to
+    B2 on the same rows (the same K order, column tiles, epilogue and
+    act_f); with the in-kernel combine, the combined rows equal the same
+    f32 combine of B2's rows.  Both processing orders, capacities below
+    and above the 64-row tile, H and I that are not multiples of the
+    column tile; two calls in a row give identical results."""
+    from flashmoe_tpu_torch.parallel import fused
+
+    args, kw = _fused_inputs(gen, d, True, combine, d > 2, cap=cap, h=320,
+                             i=320)
+    ref = _b2_rows(args, kw)
+    live = torch.arange(cap, device="cuda") < args[0][..., None]
+    if combine:
+        ref = _combine_like_kernel(ref, args[0], kw["recv_pos"],
+                                   kw["w_sorted"], kw["k"])
+    for schedule in ("stream", "rowwin"):
+        got = fused.fused_shard_cuda(*args, schedule=schedule, **kw)
+        again = fused.fused_shard_cuda(*args, schedule=schedule, **kw)
+        torch.cuda.synchronize()
+        if not combine:
+            got, again = got[live], again[live]
+        assert torch.equal(got, again), schedule
+        assert torch.equal(got, ref if combine else ref[live]), schedule
+
+
+def test_fused_ep_bf16_arms_take_one_hopper_block_per_sm(gen):
+    """The bf16 arms of B5 and B5q (full precision, int8, e4m3; gated or
+    not) launch the Hopper kernel, one block of 384 threads per SM (its
+    ring fills the SM's shared memory); the f32 arms keep the 64 x 64
+    tile, several blocks an SM.  A call past 128 ranks is refused before
+    any launch, bf16 as f32."""
+    from flashmoe_tpu_torch.parallel import fused
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    xb = torch.zeros(1, device="cuda", dtype=torch.bfloat16)
+    xf = torch.zeros(1, device="cuda")
+    for gated in (True, False):
+        for wq in (0, 1, 2):
+            assert fused.max_blocks(xb, gated, wq) == sms
+            assert fused.max_blocks(xf, gated, wq) > sms
+    args, kw = _fused_inputs(gen, 129, False, False, False, cap=32, nlx=1,
+                             h=64, i=64)
+    before = fused.fused_shard_cuda.launches
+    with pytest.raises(ValueError, match="D <= 128"):
+        fused.fused_shard_cuda(*args, **kw)
+    assert fused.fused_shard_cuda.launches == before

@@ -1,11 +1,12 @@
 """PyTorch port: the pure-Python grid of the Hopper grouped FFN (CPU).
-The bf16 B2 and B3 kernels (``csrc/grouped_ffn.cu``) walk the grouped
+The bf16 B2, B3 and B6 kernels (``csrc/grouped_ffn.cu``) walk the grouped
 matmul's work list against column blocks of their weights; here that walk
 (``ffn_tile_walk``) is held against a brute-force expectation on random
 plans, and the function it implies (each tile's rows through its expert's
-up and down passes, zeros past num_rows) against the JAX package's
-``grouped_ffn`` and ``grouped_ffn_tokens`` (Pallas, interpret mode) on
-the same numpy inputs, f32 at tests/test_expert.py's 2e-4."""
+up and down passes, zeros past num_rows; B6's u and g beside hidden)
+against the JAX package's ``grouped_ffn``, ``grouped_ffn_tokens`` and
+``_grouped_ffn_res`` (Pallas, interpret mode) on the same numpy inputs,
+f32 at tests/test_expert.py's 2e-4."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,11 +88,14 @@ def _inputs(e, h, i, gated, seed):
     return p, rng
 
 
-def _walk_ffn(x, gid, p, act_name, gated, num_rows, sms):
+def _walk_ffn_res(x, gid, p, act_name, gated, num_rows, sms):
     """The FFN computed tile by tile over ffn_tile_walk, as the two
     passes of the Hopper kernel do: the up pass writes hidden for the
-    walked tiles with an expert (f32 bias, activation), the down pass
-    each tile's output, and zeros for the tiles past num_rows."""
+    walked tiles with an expert (f32 bias, activation), and with them the
+    residuals the residual-saving forward keeps, u = up + b_up and g, the
+    gate's product (zeros for the tiles past num_rows); the down pass
+    each tile's output, and zeros for the tiles past num_rows.  Returns
+    (out, u, g), g None when not gated."""
     t, h = x.shape
     i = p["w_up"].shape[2]
     act = activation_fn(act_name)
@@ -99,21 +103,33 @@ def _walk_ffn(x, gid, p, act_name, gated, num_rows, sms):
     gid_t = torch.from_numpy(gid)
     nrow = None if num_rows is None else torch.tensor(num_rows)
     hidden = torch.full((t, i), float("nan"))
+    u = torch.full((t, i), float("nan"))
+    g = torch.full((t, i), float("nan")) if gated else None
     for t0, tiles, e, n0, n1 in texp.ffn_tile_walk(
             gid_t, ROW, t, i, sms, 2 if gated else 1, nrow):
-        if e < 0:
-            continue
         r = slice(t0 * ROW, (t0 + tiles) * ROW)
-        up = x[r] @ w["w_up"][e, :, n0:n1] + w["b_up"][e, n0:n1]
-        hidden[r, n0:n1] = (act(x[r] @ w["w_gate"][e, :, n0:n1]) * up
-                            if gated else act(up))
+        if e < 0:
+            u[r, n0:n1] = 0.0
+            if gated:
+                g[r, n0:n1] = 0.0
+            continue
+        u[r, n0:n1] = x[r] @ w["w_up"][e, :, n0:n1] + w["b_up"][e, n0:n1]
+        if gated:
+            g[r, n0:n1] = x[r] @ w["w_gate"][e, :, n0:n1]
+        hidden[r, n0:n1] = (act(g[r, n0:n1]) * u[r, n0:n1] if gated
+                            else act(u[r, n0:n1]))
     out = torch.full((t, h), float("nan"))
     for t0, tiles, e, n0, n1 in texp.ffn_tile_walk(gid_t, ROW, t, h, sms,
                                                    1, nrow):
         r = slice(t0 * ROW, (t0 + tiles) * ROW)
         out[r, n0:n1] = 0.0 if e < 0 else \
             hidden[r] @ w["w_down"][e, :, n0:n1] + w["b_down"][e, n0:n1]
-    return out
+    return out, u, g
+
+
+def _walk_ffn(x, gid, p, act_name, gated, num_rows, sms):
+    """The output of :func:`_walk_ffn_res`: the two passes of B2."""
+    return _walk_ffn_res(x, gid, p, act_name, gated, num_rows, sms)[0]
 
 
 _CASES = [(True, "silu"), (False, "gelu"), (False, "relu")]
@@ -159,3 +175,33 @@ def test_ffn_tile_walk_computes_jax_grouped_ffn_tokens(gated, act):
     got = _walk_ffn(torch.from_numpy(x)[torch.from_numpy(src).long()], gid,
                     p, act, gated, None, 4)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("gated,act", _CASES, ids=["gated_silu", "gelu",
+                                                   "relu"])
+def test_ffn_tile_walk_computes_jax_grouped_ffn_res(gated, act):
+    """The residual-saving forward (B6, the Hopper FFN whose up pass also
+    writes u and g): the walk's y, u and g against JAX's
+    ``_grouped_ffn_res`` (Pallas, interpret mode) on the same inputs, with
+    and without a ragged tail (zeros past num_rows in all three), in both
+    walk orders."""
+    e, h, i = 4, 192, 320
+    p, rng = _inputs(e, h, i, gated, seed=41)
+    gid = np.array([1, 1, 3, 0, 0, 0, 2], np.int32)
+    x = rng.standard_normal((gid.size * ROW, h)).astype(np.float32)
+    want = [np.asarray(a) for a in jexp._grouped_ffn_res(
+        jnp.asarray(x), jnp.asarray(gid), p["w_up"], p["b_up"], p["w_down"],
+        p["b_down"], p.get("w_gate"), act_name=act, gated=gated,
+        block_m=ROW, block_i=64, interpret=True)]
+    for num_rows, sms in ((None, 8), (4 * ROW, 8), (4 * ROW, 4)):
+        got = _walk_ffn_res(torch.from_numpy(x), gid, p, act, gated,
+                            num_rows, sms)
+        for name, a, ref in zip("yug", got, want):
+            if name == "g" and not gated:
+                assert a is None
+                continue
+            ref = ref.copy()
+            if num_rows is not None:
+                ref[num_rows:] = 0.0
+            np.testing.assert_allclose(a.numpy(), ref, rtol=2e-4,
+                                       atol=2e-4, err_msg=name)

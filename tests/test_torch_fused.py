@@ -235,16 +235,20 @@ def test_task_order_puts_up_tasks_first():
     so = fused.default_ring(3)
     for schedule in SCHEDULES:
         order = fused.task_order(so, 2, 2, 3, 2, schedule)
-        assert order.shape == (3, 3 * 2 * 2 * 5, 2)
+        # 12 tiles a rank, paired into 6 items of 5 tasks each
+        assert order.shape == (3, 6 * 5, 4)
         for r in range(3):
             seen = set()
-            for code, kg in order[r]:
-                if kg >> 16:
-                    assert all((code, j) in seen for j in range(3))
+            for a, b, kj, _ in order[r]:
+                codes = [c for c in (a, b) if c >= 0]
+                if kj >> 16:
+                    assert all((c, j) in seen for c in codes
+                               for j in range(3))
                 else:
-                    seen.add((code, kg & 0xffff))
+                    seen.update((c, kj & 0xffff) for c in codes)
             if schedule in ("batched", "rowwin"):
-                first = order[r][: 2 * 2 * 5, 0] // (2 * 2)
+                # the own slab's two items (one a expert), up and down
+                first = order[r][: 2 * 5, :2] // (2 * 2)
                 assert (first == r).all()
 
 
