@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time this tree's gate, grouped FFN, grouped matmul and fused EP kernel,
-and the serving, expert-parallel and training paths that run them,
+"""Time this tree's gate, grouped FFN, grouped matmul, transposed grouped
+matmul, flash attention and fused EP kernel, and the serving,
+expert-parallel and training paths that run them,
 against another tree of the port on one card:
 
     python3 chip_ab.py --other DIR [--rounds 2]
@@ -26,6 +27,12 @@ so both are measured on the same card in the same call.  Per run:
   8 experts, 64 rows of padding past num_rows; K 4096 -> N 14336 and
   K 14336 -> N 4096, bf16 in, f32 out): ``grouped_matmul_cuda`` on CUDA
   events, and its kernels' device time;
+* the transposed grouped matmul (B8) at the same rows, d_w_up (K 4096,
+  N 14336) and d_w_down (K 14336, N 4096), f32 out: ``tgmm_cuda`` on
+  CUDA events, and its kernel's device time;
+* flash attention (B9) at the prefill's shape ([4, 32, 256, 128], 8 kv
+  heads, causal, bf16): ``flash_attention_cuda`` on CUDA events, and its
+  kernel's device time;
 * the residual-saving FFN (B6) at the Mixtral prefill's rows (2048 live
   of about 2560, the train step's shape): ``grouped_ffn_res_cuda`` on
   CUDA events, and its kernels' device time;
@@ -199,6 +206,37 @@ def worker(tree: str) -> dict:
         res[f"gmm_{tag}_kernel_ms"] = device_ms(call, 10, "gmm")
         del a, wt
     torch.cuda.empty_cache()
+
+    # the transposed grouped matmul (B8) at the same rows: d_w_up = x^T
+    # d_up and d_w_down = hidden^T dy, f32 [8, K, N] out
+    for tag, k, n in (("d_w_up", 4096, 14336), ("d_w_down", 14336, 4096)):
+        a = torch.randn(t, k, device="cuda", generator=g,
+                        dtype=torch.bfloat16)
+        b = torch.randn(t, n, device="cuda", generator=g,
+                        dtype=torch.bfloat16)
+
+        def call(a=a, b=b):
+            return expert.tgmm_cuda(a, b, gid, 8, num_rows=nrow)
+
+        res[f"tgmm_{tag}_wrapper_ms"] = events_ms(call, 10)
+        res[f"tgmm_{tag}_kernel_ms"] = device_ms(call, 5, "tgmm")
+        del a, b
+    torch.cuda.empty_cache()
+
+    # flash attention (B9) at the prefill's shape: Mixtral's 32 query and
+    # 8 kv heads, 4 prompts of 256 tokens, causal
+    from flashmoe_tpu_torch.ops import attention
+    q = torch.randn(4, 32, 256, 128, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    kv = [torch.randn(4, 8, 256, 128, device="cuda", generator=g,
+                      dtype=torch.bfloat16) for _ in range(2)]
+
+    def flash():
+        return attention.flash_attention_cuda(q, *kv)
+
+    res["flash_prefill_wrapper_ms"] = events_ms(flash, 200)
+    res["flash_prefill_kernel_ms"] = device_ms(flash, 50, "flash")
+    del q, kv
 
     from flashmoe_tpu_torch.parallel import fused
     d, h, i = 8, 4096, 14336

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the Hopper FFN's time goes: time bf16 B2, B3, B6 and B5 in builds
-of this tree with one piece of the Hopper FFN (``csrc/grouped_ffn.cu``,
-``csrc/ffn_hopper.cuh``, the fused kernel's task list) knocked out, on
-one card:
+"""Where the Hopper kernels' time goes: time bf16 B2, B3, B6, B5, B8 and B9
+in builds of this tree with one piece of a kernel (``csrc/grouped_ffn.cu``,
+``csrc/ffn_hopper.cuh``, the fused kernel's task list, ``csrc/tgmm.cu``,
+``csrc/flash_attention.cu``) knocked out, on one card:
 
-    python3 chip_ablate.py [--cuts base,noact,...]
+    python3 chip_ablate.py [--cuts base,noact,...] [--groups ffn,b5,b8,b9]
 
 Each cut is a copy of ``flashmoe_tpu_torch`` (under a temporary
 directory) with the cut's text patches applied; each copy
@@ -30,7 +30,25 @@ other on the same card.  The cuts (``base`` is the tree as it is):
   warpgroup of the block idles), not two paired across sources;
 * ``b5q_noconvert`` / ``b5q_nofence``: B5q's consumer warpgroups
   convert nothing into the B tile (their loads and barriers stay) / skip
-  each thread's proxy fence before the warpgroup's barrier.
+  each thread's proxy fence before the warpgroup's barrier;
+* ``b8_store_wait``: B8's consumer warpgroups wait until a tile's TMA
+  stores have completed, and only then release the ring's last stage, so
+  the stores no longer drain under the next tile's loads and products;
+* ``b9_one_stage``: B9's K/V ring holds one stage, so each key block
+  loads only after the last one's products;
+* ``b9_report``: B9's barrier waits print a message before they trap,
+  as the other Hopper kernels' do; the printf is a call inside the wgmma
+  pipeline, so ptxas serializes every wgmma of the kernel (C7510);
+* ``b8_quiet``: B8's barrier waits trap without the message, so that
+  ptxas no longer serializes its wgmma;
+* ``b9_accurate_exp``: B9's softmax takes the accurate ``expf`` in place
+  of ``__expf`` (the special function unit's ex2.approx of x log2 e);
+* ``b9_per_block``: B9 launches one block a work item instead of its
+  persistent grid (each block then takes one item);
+* ``b9_nos``: B9 issues no S = Q K^T products (their loads, waits and
+  barriers stay);
+* ``b9_three_tiles``: B9 with three consumer warpgroups, three tiles a
+  work item, at 160 registers (the producer at 24).
 
 The epilogue pieces (``noact``, ``fast_act``, ``mma2x``) live in
 ``ffn_hopper.cuh`` and cut B5 as well; ``nostore`` cuts only the staging
@@ -43,8 +61,13 @@ tokens and of 4; Qwen3-Next's MoE widths: E 512, H 2048, I 512, top-10 of
 and B3's wrapper time on CUDA events, and each kernel's device time from
 torch.profiler; B6's at the Mixtral prefill's rows; B5's and B5q's
 (int8) at the ep path's shapes (8 ranks of one Mixtral expert each, slabs
-of 128 rows, 16-48 sent).  Prints one line a cut and shape, then one JSON object
-with every result as the last line.  Needs a CUDA device.
+of 128 rows, 16-48 sent); B8's at the train step's two shapes (2560 rows,
+2496 live, d_w_up K 4096 N 14336, d_w_down K 14336 N 4096); B9's at the
+prefill's ([4, 32, 256, 128], 8 kv heads, causal), and its device time
+at T 64 and 1024.  ``--groups`` keeps
+some of them: ``ffn`` (B2, B3, B6), ``b5`` (B5, B5q), ``b8``, ``b9``.
+Prints one line a cut and shape, then one JSON object with every result
+as the last line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -62,6 +85,8 @@ GFFN = "flashmoe_tpu_torch/csrc/grouped_ffn.cu"
 FH = "flashmoe_tpu_torch/csrc/ffn_hopper.cuh"
 FUSED = "flashmoe_tpu_torch/parallel/fused.py"
 EP = "flashmoe_tpu_torch/csrc/fused_ep.cu"
+TGMM = "flashmoe_tpu_torch/csrc/tgmm.cu"
+FLASH = "flashmoe_tpu_torch/csrc/flash_attention.cu"
 
 _STORES = ("""    *reinterpret_cast<__nv_bfloat162*>(box + hg::sw128_offset(r, 2 * c)) =
         lo;
@@ -99,6 +124,12 @@ _RES_DIRECT = """      if constexpr (RES) {
           ffn_direct<MODE, ACT, 2, NB, BN>(d, bv, ch, o.G + at,
                                            o.G + at + (size_t)8 * N, lane);
       }"""
+_B8_RELEASE = "    if (prev >= 0 && tid == 0) hg::mbar_arrive(&sm.empty[prev]);\n"
+_B8_STORE = """    const int row0 = tl.k0 + wg * hg::WG_ROWS;
+    if (row0 < K)  // the same for the whole warpgroup
+      hg::store_f32(d, smem.out[wg][0], smem.out[wg][1], &tout, row0, tl.n0,
+                    N, wg, tid, tl.e);
+"""
 _PAIRED = """    return [(tiles[i], tiles[i + 1] if i + 1 < len(tiles) else -1)
             for i in range(0, len(tiles), 2)]"""
 
@@ -150,8 +181,43 @@ CUTS = {
                      "  if (tid == 0) {\n    hg::mbar_arrive(&sm.ring.full[s]);",
                      "  wg_sync(wg);\n"
                      "  if (tid == 0) {\n    hg::mbar_arrive(&sm.ring.full[s]);")],
+    # B8's consumers wait until a tile's stores have completed, and only
+    # then release the ring's last stage, before the next tile
+    "b8_store_wait": [(TGMM, _B8_RELEASE + _B8_STORE,
+                       _B8_STORE + "    if (tid == 0) hg::bulk_wait<0>();\n"
+                       "    asm volatile(\"bar.sync %0, 128;\\n\" ::\"r\"(1 + wg));\n"
+                       + _B8_RELEASE)],
+    # B9's K/V ring of one stage: each key block loads after the last
+    # one's products
+    "b9_one_stage": [(FLASH, "constexpr int FA_STAGES = 3;",
+                      "constexpr int FA_STAGES = 1;")],
+    # B9's barrier waits print before they trap, as the other Hopper
+    # kernels' do: a printf call inside the wgmma pipeline, so ptxas
+    # serializes every wgmma of the kernel (its info C7510); B8's trap
+    # without the message, so that its wgmma are not serialized
+    "b9_report": [(FLASH, "hg::mbar_wait<false>(", "hg::mbar_wait(")],
+    "b8_quiet": [(TGMM, "hg::mbar_wait(", "hg::mbar_wait<false>(")],
+    # B9's softmax on the accurate expf in place of the special function
+    # unit's exponential (__expf: ex2.approx of x log2 e)
+    "b9_accurate_exp": [(FLASH, "const float p = __expf(",
+                         "const float p = expf(")],
+    # B9 on a grid of one work item a block, in place of the persistent
+    # snake (the first design of PR 9: each wave paid its loads' and
+    # stores' latency)
+    "b9_per_block": [(FLASH, "const int grid = min(items, flash_sms());",
+                      "const int grid = items;")],
+    # B9 issues no S = Q K^T products
+    "b9_nos": [(FLASH, "    hg::wgmma_m64n64k16(s, ",
+                "    if (false) hg::wgmma_m64n64k16(s, ")],
+    # B9 with three consumer warpgroups (three tiles a work item) at 160
+    # registers, the producer at 24
+    "b9_three_tiles": [
+        (FLASH, "constexpr int FA_CONSUMERS = 2;", "constexpr int FA_CONSUMERS = 3;"),
+        (FLASH, "setmaxnreg.dec.sync.aligned.u32 40;", "setmaxnreg.dec.sync.aligned.u32 24;"),
+        (FLASH, "setmaxnreg.inc.sync.aligned.u32 232;", "setmaxnreg.inc.sync.aligned.u32 160;")],
 }
 
+GROUPS = ("ffn", "b5", "b8", "b9")
 SHAPES = (("mixtral", 8, 4096, 14336, 2, 1024),
           ("qwen3next", 512, 2048, 512, 10, 8192))
 
@@ -181,7 +247,7 @@ def make_tree(root: str, cut: str) -> str:
     return tree
 
 
-def worker(tree: str) -> dict:
+def worker(tree: str, groups: list[str]) -> dict:
     sys.path.insert(0, tree)
     import torch
     from torch.autograd import DeviceType
@@ -221,7 +287,7 @@ def worker(tree: str) -> dict:
 
     res = {}
     g = torch.Generator(device="cuda").manual_seed(0)
-    for name, e, h, i, k, s_pre in SHAPES:
+    for name, e, h, i, k, s_pre in SHAPES if "ffn" in groups else ():
         cfg = MoEConfig(num_experts=e, expert_top_k=k, hidden_size=h,
                         intermediate_size=i, gated_ffn=True,
                         hidden_act="silu", drop_tokens=False,
@@ -262,6 +328,46 @@ def worker(tree: str) -> dict:
         del ws, x
         torch.cuda.empty_cache()
 
+    if "b8" in groups:  # B8 at the train step's rows (2048 live of 2560)
+        gid = torch.tensor([e for e, c in enumerate((5, 5, 6, 4, 5, 5, 5, 5))
+                            for _ in range(c)], device="cuda")
+        rows = gid.numel() * 64
+        nrow = torch.tensor(rows - 64, device="cuda")
+        for tag, k, n in (("d_w_up", 4096, 14336),
+                          ("d_w_down", 14336, 4096)):
+            a = torch.randn(rows, k, device="cuda", generator=g,
+                            dtype=torch.bfloat16)
+            b = torch.randn(rows, n, device="cuda", generator=g,
+                            dtype=torch.bfloat16)
+
+            def b8(a=a, b=b):
+                return expert.tgmm_cuda(a, b, gid, 8, num_rows=nrow)
+
+            res[f"b8_{tag}"] = {"b8_ms": events_ms(b8, 10),
+                                "b8_kernels_ms": kernels_ms(b8, 5)}
+            del a, b
+        torch.cuda.empty_cache()
+    if "b9" in groups:  # B9 at the prefill's shape
+        from flashmoe_tpu_torch.ops import attention
+        q, k, v = (torch.randn(4, nh, 256, 128, device="cuda", generator=g,
+                               dtype=torch.bfloat16) for nh in (32, 8, 8))
+
+        def b9():
+            return attention.flash_attention_cuda(q, k, v)
+
+        res["b9_prefill"] = {"b9_ms": events_ms(b9, 200),
+                             "b9_kernels_ms": kernels_ms(b9, 50)}
+        # the same heads at one key block a tile (T 64) up to 16 (T
+        # 1024): a fixed cost a call against the cost a key block
+        for t in (64, 1024):
+            qt, kt, vt = (torch.randn(4, nh, t, 128, device="cuda",
+                                      generator=g, dtype=torch.bfloat16)
+                          for nh in (32, 8, 8))
+            res[f"b9_t{t}"] = {"b9_kernels_ms": kernels_ms(
+                lambda: attention.flash_attention_cuda(qt, kt, vt), 50)}
+    if "b5" not in groups:
+        return res
+
     # B5 at the ep path's shapes: 8 ranks of one Mixtral expert each,
     # slabs of 128 rows of which 16-48 are sent, SwiGLU, batched
     from flashmoe_tpu_torch.parallel import fused
@@ -298,19 +404,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cuts", default=",".join(CUTS),
                     help="comma-separated cuts (default: all)")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma-separated kernels to time in every cut: "
+                    "ffn (B2, B3, B6), b5 (B5, B5q), b8, b9 (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    groups = args.groups.split(",")
     if args.worker:
-        print(json.dumps(worker(args.worker)))
+        print(json.dumps(worker(args.worker, groups)))
         return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_ablate: no CUDA device", file=sys.stderr)
         return 2
     cuts = args.cuts.split(",")
-    unknown = [c for c in cuts if c not in CUTS]
+    unknown = [c for c in cuts if c not in CUTS] + [
+        k for k in groups if k not in GROUPS]
     if unknown:
-        print(f"chip_ablate: unknown cuts {unknown}", file=sys.stderr)
+        print(f"chip_ablate: unknown cuts or groups {unknown}",
+              file=sys.stderr)
         return 2
     print(gpu_line())
     out = {}
@@ -331,7 +443,8 @@ def main() -> int:
                 return 1
         for cut, tree in trees.items():
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--worker", tree],
+                [sys.executable, os.path.abspath(__file__), "--worker", tree,
+                 "--groups", args.groups],
                 capture_output=True, text=True, timeout=900, cwd=tree)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], proc.stderr[-4000:],

@@ -18,9 +18,13 @@ Phases, each of which fails the run on any error:
    gather-fused FFN (also against the grouped FFN on the dispatched
    buffer, bit for bit).  The gate and both FFNs are timed at prefill and
    decode (the grouped FFN's decode rows also held, bit for bit, against
-   the same tokens' rows inside the prefill), the grouped matmul at both
-   of the train step's shapes; the gate and grouped matmul as the bare C
-   call, with the wrapper's time beside it;
+   the same tokens' rows inside the prefill), the grouped matmul and the
+   transposed grouped matmul at both of the train step's shapes; the
+   gate, grouped matmul, transposed grouped matmul and flash attention as
+   the bare C call, with the wrapper's time beside it; the last two also
+   as their kernels' device time from torch.profiler beside the library
+   call's (the transposed grouped matmul's with a bf16 output and with an
+   f32 one, each with its own byte bound);
 3. capacity arm: one MoE layer of the FlashMoE reference config (E=64,
    top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain,
    forward (explicit dispatch and gather-fused) and the gradients of
@@ -184,6 +188,35 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, words=None) -> tuple[float | None, str]:
+    """Mean device milliseconds a call of ``fn`` spends in the kernels
+    whose names hold one of ``words`` (every kernel with None), from
+    torch.profiler over ``iters`` calls after one warm-up call; and those
+    kernels' names.  (None, "") when the profiler recorded no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and (words is None or any(w in e.key for w in words))]
+    if not rows:
+        return None, ""
+    names = "; ".join(k[:60] for k, _ in rows)
+    return sum(us for _, us in rows) / 1e3 / iters, names
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def gpu_line() -> str:
@@ -469,16 +502,39 @@ def flash_phase():
     one("f32", *qkv(1, 4, 2, 100, 64, torch.float32))
     b, n, t, d = q.shape
     nkv = k.shape[1]
-    return dict(
+    # the bare C call on arguments made once, the wrapper (checks, output,
+    # the call), the kernel's and SDPA's device time
+    args, _o = attention.flash_args(q, k, v)
+    lib = _build.library()
+    check(lib.fm_flash_attention(*args) == 0, "fm_flash_attention launch")
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    rec = dict(
         name="flash_attention", route="cuda",
         source="flashmoe_tpu_torch/csrc/flash_attention.cu",
         replaces="flashmoe_tpu/ops/attention.py:54", max_abs_err=err,
-        ms=cuda_ms(lambda: attention.flash_attention_cuda(q, k, v), 50),
+        ms=cuda_ms(lambda: lib.fm_flash_attention(*args), 200),
+        wrapper_ms=cuda_ms(lambda: attention.flash_attention_cuda(q, k, v),
+                           200),
+        device_ms=device_ms(lambda: lib.fm_flash_attention(*args), 50,
+                            ("flash",))[0],
         plain_ms=cuda_ms(lambda: attention.flash_attention_plain(q, k, v), 20),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 50),
+        library_ms=cuda_ms(library, 200),
         **bound(bytes_=2 * (2 * b * n * t * d + 2 * b * nkv * t * d),
-                    flops=4 * b * n * d * t * (t + 1) / 2))
+                flops=4 * b * n * d * t * (t + 1) / 2))
+    rec["library_device_ms"], lib_names = device_ms(library, 50)
+    print(f"flash_attention prefill [{b}, {n}, {t}, {d}] kv heads {nkv} "
+          f"bf16 causal: kernel_ms={rec['ms']:.5f} (bare "
+          f"fm_flash_attention) wrapper_ms={rec['wrapper_ms']:.5f} "
+          f"device_ms={fmt_ms(rec['device_ms'])} (profiler) "
+          f"library_ms={rec['library_ms']:.5f} library_device_ms="
+          f"{fmt_ms(rec['library_device_ms'])} ({lib_names}) "
+          f"plain_ms={rec['plain_ms']:.5f} bound_ms={rec['bound_ms']:.5f} "
+          f"({rec['bound_by']}) ({gpu_line()})")
+    return rec
 
 
 def expert_segments(plan, bm):
@@ -683,24 +739,76 @@ def tgmm_phase(cfg, params, x):
                 out[ex] = a_in[lo:hi].T @ b_in[lo:hi]
             return out
 
-        ms = cuda_ms(lambda: expert.tgmm_cuda(a_in, b_in, gid, e,
-                                              num_rows=nrow), 10)
-        b = bound(bytes_=rows * (k + n) * 2 + e * k * n * 4,
-                  flops=2 * rows * k * n)
-        lib_ms = cuda_ms(library, 10)
+        # the bare C call on arguments made once beside the wrapper; the
+        # kernel's device time; two library yardsticks, per-expert x_e^T
+        # @ dy_e with a bf16 output (half of B8's output bytes) and with
+        # an f32 one (torch.mm's out_dtype, where the installed torch has
+        # it), each with its own byte bound
+        bare, _dw, _ranges = expert.tgmm_args(a_in, b_in, gid, e,
+                                              num_rows=nrow)
+        lib = _build.library()
+        check(lib.fm_tgmm(*bare) == 0, "fm_tgmm launch")
+
+        def library(a_in=a_in, b_in=b_in):
+            out = torch.empty((e, k, n), device="cuda", dtype=torch.bfloat16)
+            for ex, lo, hi in segs:
+                out[ex] = a_in[lo:hi].T @ b_in[lo:hi]
+            return out
+
+        def library_f32(a_in=a_in, b_in=b_in):
+            out = torch.empty((e, k, n), device="cuda", dtype=torch.float32)
+            for ex, lo, hi in segs:
+                torch.mm(a_in[lo:hi].T, b_in[lo:hi], out_dtype=torch.float32,
+                         out=out[ex])
+            return out
+
+        try:
+            ref = library_f32()
+            torch.cuda.synchronize()
+            f32_ok = True
+        except (TypeError, RuntimeError) as exc:
+            f32_ok = False
+            print(f"tgmm {tag}: torch.mm takes no out_dtype here ({exc!r:.120})")
+        r = dict(
+            ms=cuda_ms(lambda: lib.fm_tgmm(*bare), 10),
+            wrapper_ms=cuda_ms(lambda: expert.tgmm_cuda(
+                a_in, b_in, gid, e, num_rows=nrow), 10),
+            device_ms=device_ms(lambda: lib.fm_tgmm(*bare), 5,
+                                ("tgmm",))[0],
+            library_ms=cuda_ms(library, 10),
+            library_device_ms=device_ms(library, 5)[0],
+            library_bound_ms=(rows * (k + n) * 2 + e * k * n * 2)
+            / HBM_BPS * 1e3,
+            library_f32_ms=cuda_ms(library_f32, 10) if f32_ok else None,
+            library_f32_device_ms=device_ms(library_f32, 5)[0]
+            if f32_ok else None,
+            **bound(bytes_=rows * (k + n) * 2 + e * k * n * 4,
+                    flops=2 * rows * k * n))
+        if f32_ok:
+            del ref
         print(f"tgmm {tag}: [{t}, {k}]^T @ [{t}, {n}] bf16 per expert -> "
               f"f32 [{e}, {k}, {n}], live rows {rows}: max_abs_err={err:.3g} "
-              f"(rtol = atol = {F32_TOL}) ms={ms:.4f} "
-              f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}) "
-              f"library_ms={lib_ms:.4f}")
+              f"(rtol = atol = {F32_TOL}) kernel_ms={r['ms']:.4f} (bare "
+              f"fm_tgmm) wrapper_ms={r['wrapper_ms']:.4f} "
+              f"device_ms={fmt_ms(r['device_ms'])} (profiler) "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']:.4f} library_device_ms="
+              f"{fmt_ms(r['library_device_ms'])} (bf16 out, byte bound "
+              f"{r['library_bound_ms']:.4f}) library_f32_ms="
+              f"{fmt_ms(r['library_f32_ms'])} library_f32_device_ms="
+              f"{fmt_ms(r['library_f32_device_ms'])} (f32 out, byte bound "
+              f"{r['bound_ms']:.4f}) ({gpu_line()})")
+        del _dw
         if rec is None:
             rec = dict(
                 name="tgmm", route="cuda",
                 source="flashmoe_tpu_torch/csrc/tgmm.cu",
                 replaces="flashmoe_tpu/ops/expert.py:574", max_abs_err=err,
-                ms=ms, library_ms=lib_ms, plain_ms=cuda_ms(
+                plain_ms=cuda_ms(
                     lambda: expert.tgmm_plain(a_in, b_in, gid, e,
-                                              num_rows=nrow), 3), **b)
+                                              num_rows=nrow), 3), **r)
+        else:
+            rec.update({f"{tag}_{key}": v for key, v in r.items()})
     # an expert that owns no row comes back exactly zero
     sg = torch.Generator(device="cuda").manual_seed(12)
     sx = torch.randn(192, 64, device="cuda", generator=sg)

@@ -101,14 +101,13 @@ constexpr int HG_BN = 256;       // columns of a block tile: wgmma N
 constexpr int HG_STAGES = 4;
 constexpr int HG_CONSUMERS = 2;  // 64-row tiles of a work item
 constexpr int HG_THREADS = 128 * (HG_CONSUMERS + 1);
-constexpr int EPI_COLS = 32;     // f32 columns of one TMA store box
 typedef hg::Ring<HG_STAGES, HG_CONSUMERS, HG_BN> HgRing;
 
 // The ring, then for each consumer warpgroup two f32 staging boxes of its
 // 64 rows x 32 columns (128-byte swizzled rows) for the TMA epilogue.
 struct HgSmem {
   HgRing ring;
-  alignas(1024) float out[HG_CONSUMERS][2][hg::WG_ROWS * EPI_COLS];
+  alignas(1024) float out[HG_CONSUMERS][2][hg::WG_ROWS * hg::F32_BOX];
 };
 
 template <typename OutT>
@@ -211,45 +210,7 @@ int hg::gmm_plan_launch(const int* tile_gid, int block_m,
 // weight tile run side by side.  The blocks stride over the tiles by the
 // largest count <= gridDim.x that is coprime to n_work (the others exit;
 // hg::stride_grid), so each block meets every item residue in turn rather
-// than a fixed few.
-//
-// The f32 epilogue of one consumer warpgroup's 64 x 256 tile: eight
-// chunks of 32 columns, each written from the registers into one of the
-// warpgroup's two staging boxes and handed to a TMA store, which drains
-// while the next chunk, and then the next tile's products, go on.  A box
-// is reused once the store two chunks back has read it.
-__device__ __forceinline__ void hg_store_f32(float (&d)[128], float* stage0,
-                                             float* stage1,
-                                             const CUtensorMap* tout, int row0,
-                                             int n0, int N, int wg, int tid) {
-  const int warp = tid / 32, lane = tid % 32;
-  const int r = warp * 16 + lane / 4;
-#pragma unroll
-  for (int ch = 0; ch < HG_BN / EPI_COLS; ++ch) {
-    if (n0 + EPI_COLS * ch < N) {  // the same for the whole warpgroup
-      float* stage = ch & 1 ? stage1 : stage0;
-      if (tid == 0) hg::bulk_wait_read<1>();
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
-      char* base = reinterpret_cast<char*>(stage);
-#pragma unroll
-      for (int jj = 0; jj < EPI_COLS / 8; ++jj) {
-        const int j = ch * (EPI_COLS / 8) + jj;
-        const int b = 4 * (8 * jj + 2 * (lane % 4));  // byte in the row
-        *reinterpret_cast<float2*>(base + hg::sw128_offset(r, b)) =
-            make_float2(d[4 * j], d[4 * j + 1]);
-        *reinterpret_cast<float2*>(base + hg::sw128_offset(r + 8, b)) =
-            make_float2(d[4 * j + 2], d[4 * j + 3]);
-      }
-      hg::fence_async_smem();
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
-      if (tid == 0) {
-        hg::tma_store_2d(tout, stage, n0 + EPI_COLS * ch, row0);
-        hg::bulk_commit();
-      }
-    }
-  }
-}
-
+// than a fixed few.  The f32 epilogue is hg::store_f32.
 template <typename OutT>
 __global__ void __launch_bounds__(HG_THREADS, 1)
 gmm_hopper(const __grid_constant__ CUtensorMap tx,
@@ -347,8 +308,8 @@ gmm_hopper(const __grid_constant__ CUtensorMap tx,
     hg::fence_acc(d);
     if (tid == 0) hg::mbar_arrive(&sm.empty[prev]);
     if constexpr (std::is_same<OutT, float>::value) {
-      hg_store_f32(d, smem.out[wg][0], smem.out[wg][1], &tout,
-                   (it.x + wg) * hg::WG_ROWS, n0, N, wg, tid);
+      hg::store_f32(d, smem.out[wg][0], smem.out[wg][1], &tout,
+                    (it.x + wg) * hg::WG_ROWS, n0, N, wg, tid);
     } else {
 #pragma unroll
       for (int j = 0; j < HG_BN / 8; ++j) {
@@ -431,7 +392,7 @@ extern "C" int fm_grouped_matmul_hopper(int out_f32, const void* x,
   const cuuint32_t wb[3] = {hg::BK, HG_BN, 1};
   const cuuint64_t od[2] = {(cuuint64_t)N, (cuuint64_t)T};
   const cuuint64_t os[1] = {(cuuint64_t)N * sizeof(float)};
-  const cuuint32_t ob[2] = {EPI_COLS, hg::WG_ROWS};
+  const cuuint32_t ob[2] = {hg::F32_BOX, hg::WG_ROWS};
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (!hg::make_map(&tx, bf, x, 2, xd, xs, xb) ||
       !hg::make_map(&tw, bf, w, 3, wd, ws, wb))

@@ -25,7 +25,15 @@
 //     epilogue can hand its tile to the copy engine and go on;
 //   * MN-major B ([K, N] row-major weights, boxes of 64 columns by BK
 //     K-rows; wgmma with imm-trans-b = 1) for the forward FFN
-//     (grouped_ffn.cu), in m64n256k16 and m64n128k16.
+//     (grouped_ffn.cu), in m64n256k16 and m64n128k16;
+//   * MN-major A (imm-trans-a = 1, the same box) for the transposed
+//     grouped matmul (tgmm.cu), whose x^T dy contracts over rows;
+//   * m64n64k16 with both operands K-major, and A in registers (the
+//     accumulator layout, converted pairwise to bf16) against an MN-major
+//     B in m64n64k16 and m64n128k16, for flash attention
+//     (flash_attention.cu);
+//   * the f32 epilogue through swizzled staging boxes and TMA stores
+//     (store_f32), shared by the grouped matmul and the transposed one.
 #pragma once
 
 #include <cuda.h>
@@ -95,15 +103,22 @@ __device__ __forceinline__ uint64_t global_ns() {
 // default) instead, so the launch fails with an error rather than holding
 // the card.  A kernel whose producer itself waits on flags with a timeout
 // of its own (fused_ep.cu) passes a longer limit, so that the flag's
-// message comes out first.
+// message comes out first.  REPORT prints which block and thread timed
+// out before the trap.  That printf is a function call, and ptxas
+// serializes every wgmma of a kernel that has a call inside its wgmma
+// pipeline (its info C7510: each product then waits for the last), so
+// flash attention (flash_attention.cu), whose products wait on one
+// another, traps without a message (chip_ablate.py, cut b9_report).
+template <bool REPORT = true>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity,
                                           uint64_t limit_ns = 5000000000ull) {
   if (mbar_try_wait(bar, parity)) return;
   const uint64_t t0 = global_ns();
   while (!mbar_try_wait(bar, parity)) {
     if (global_ns() - t0 > limit_ns) {
-      printf("hopper_gemm: mbarrier wait timed out (block %d thread %d)\n",
-             blockIdx.x, threadIdx.x);
+      if constexpr (REPORT)
+        printf("hopper_gemm: mbarrier wait timed out (block %d thread %d)\n",
+               blockIdx.x, threadIdx.x);
       __trap();
     }
   }
@@ -142,6 +157,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 }
 
 // shared -> global by TMA, completing in the issuing thread's bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3, %4}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
                                              const void* src, int c0,
                                              int c1) {
@@ -207,10 +231,11 @@ template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 256] += A[64 x 16] * B[16 x 256]: A K-major, B K-major (TB 0,
-// B stored [256, 16]) or MN-major (TB 1, B stored [16, 256]), both in
+// d[64 x 256] += A[64 x 16] * B[16 x 256]: A K-major (TA 0, A stored
+// [64, 16]) or MN-major (TA 1, A stored [16, 64]), B K-major (TB 0, B
+// stored [256, 16]) or MN-major (TB 1, B stored [16, 256]), both in
 // shared memory
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -228,7 +253,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
       "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
       "%122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -257,7 +282,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // d[64 x 128] += A[64 x 16] * B[16 x 128]: A K-major, B K-major (TB 0)
@@ -291,6 +316,101 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64]: A and B K-major (B stored
+// [64, 16]), both in shared memory (flash attention's S = Q K^T)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x BN] += A[64 x 16] * B[16 x BN] with A in registers (four
+// 32-bit registers of bf16 pairs a thread, in the accumulator layout of
+// an m64n16 product: a[0] row r, columns 2 (lane % 4) + {0, 1}; a[1]
+// row r + 8; a[2], a[3] the same rows 8 columns on) and B MN-major in
+// shared memory (imm-trans-b = 1, B stored [16, BN]); BN 64 or 128
+// (flash attention's O += P V)
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // One stage's worth of wgmma: the 64 x BK slice of A against the 256 x BK
@@ -345,6 +465,66 @@ __device__ __forceinline__ void wgmma_stage_mn(float (&d)[BN / 2],
 #pragma unroll
   for (int k = 0; k < BK / 16; ++k)
     wgmma_k16_mn<BN>(d, da + 2 * k, db + (MN_K16 >> 4) * k);
+}
+
+// One stage with both operands MN-major (the transposed grouped matmul's
+// x^T dy, contracted over rows): A is a box of BK K-rows by the 64 output
+// rows, stored [BK, 64] as an MN-major B box is (imm-trans-a = 1; its 64
+// rows fill one swizzle atom, so the leading offset goes unused), B
+// is BN / 64 boxes of BK x 64; both advance 16 K-rows a k16 step.
+__device__ __forceinline__ void wgmma_stage_tn(float (&d)[128], const bf16* a,
+                                               const bf16* b) {
+  const uint64_t da = sw128_desc_mn(a), db = sw128_desc_mn(b);
+#pragma unroll
+  for (int k = 0; k < BK / 16; ++k)
+    wgmma_m64n256k16<1, 1>(d, da + (MN_K16 >> 4) * k,
+                           db + (MN_K16 >> 4) * k);
+}
+
+// The f32 epilogue of one consumer warpgroup's 64 x 256 tile: eight
+// chunks of F32_BOX columns, each written from the registers into one of
+// the warpgroup's two staging boxes (64 rows of 128 bytes, swizzled) and
+// handed to a TMA store at (n0 + F32_BOX ch, row0) of a 2-D map, or
+// (n0 + F32_BOX ch, row0, c2) of a 3-D one when c2 >= 0.  The stores
+// drain while the next chunk, and then the next tile's products, go on; a
+// box is reused once the store two chunks back has read it.  Chunks at or
+// past N are skipped (the map clips a chunk's own overhang).
+constexpr int F32_BOX = 32;  // f32 columns of one TMA store box
+
+__device__ __forceinline__ void store_f32(float (&d)[128], float* stage0,
+                                          float* stage1,
+                                          const CUtensorMap* tout, int row0,
+                                          int n0, int N, int wg, int tid,
+                                          int c2 = -1) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int r = warp * 16 + lane / 4;
+#pragma unroll
+  for (int ch = 0; ch < 256 / F32_BOX; ++ch) {
+    if (n0 + F32_BOX * ch < N) {  // the same for the whole warpgroup
+      float* stage = ch & 1 ? stage1 : stage0;
+      if (tid == 0) bulk_wait_read<1>();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
+      char* base = reinterpret_cast<char*>(stage);
+#pragma unroll
+      for (int jj = 0; jj < F32_BOX / 8; ++jj) {
+        const int j = ch * (F32_BOX / 8) + jj;
+        const int b = 4 * (8 * jj + 2 * (lane % 4));  // byte in the row
+        *reinterpret_cast<float2*>(base + sw128_offset(r, b)) =
+            make_float2(d[4 * j], d[4 * j + 1]);
+        *reinterpret_cast<float2*>(base + sw128_offset(r + 8, b)) =
+            make_float2(d[4 * j + 2], d[4 * j + 3]);
+      }
+      fence_async_smem();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
+      if (tid == 0) {
+        if (c2 >= 0)
+          tma_store_3d(tout, stage, n0 + F32_BOX * ch, row0, c2);
+        else
+          tma_store_2d(tout, stage, n0 + F32_BOX * ch, row0);
+        bulk_commit();
+      }
+    }
+  }
 }
 
 // A persistent grid walking `items` work items in turn: the largest

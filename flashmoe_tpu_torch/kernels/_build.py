@@ -71,8 +71,11 @@ SIGNATURES = {
     # out_f32, x, tile_gid, block_m, num_rows, w, out, plan, T, K, N, E,
     # grid, stream
     "fm_grouped_matmul_hopper": [I, P, P, I, P, P, P, P, I, I, I, I, I, P],
-    # dtype_is_bf16, x, dy, row_start, row_end, dw, E, K, N, stream
-    "fm_tgmm": [I, P, P, P, P, P, I, I, I, P],
+    # dtype_is_bf16, x, dy, row_start, row_end, dw, T, E, K, N, grid,
+    # stream
+    "fm_tgmm": [I, P, P, P, P, P, I, I, I, I, I, P],
+    # form, a, b, c, K, N, stream
+    "fm_hopper_check": [I, P, P, P, I, I, P],
     # dtype_is_bf16, q, k, v, o, B, N, NKV, T, D, scale, causal, stream
     "fm_flash_attention": [I, P, P, P, P, I, I, I, I, I, ctypes.c_float, I,
                            P],

@@ -49,8 +49,11 @@ from flashmoe_tpu_torch.ops import dispatch as dsp
 #: must be a multiple of it
 ROW_TILE = 64
 #: output columns of a Hopper kernel's widest tile (csrc/grouped_matmul.cu
-#: HG_BN, csrc/grouped_ffn.cu FH_COLS)
+#: HG_BN, csrc/grouped_ffn.cu FH_COLS, csrc/tgmm.cu TG_BN)
 HOPPER_COLS = 256
+#: output rows (K) of the Hopper transposed grouped matmul's tile: two
+#: consumer warpgroups of 64 (csrc/tgmm.cu TG_BM)
+TGMM_ROWS = 128
 #: largest intermediate chunk of the plain version's down-GEMM accumulation
 PLAIN_BLOCK_I = 512
 
@@ -375,6 +378,42 @@ def hopper_tile_mn_cuda(a, b):
 
 hopper_tile_mn_cuda.launches = 0
 
+#: the wgmma operand forms of ``fm_hopper_check`` (csrc/hopper_check.cu):
+#: name -> (form code, a's shape, b's shape, c's shape) for a depth K and
+#: output width N
+HOPPER_FORMS = {
+    # c [64, 256] = a^T b, a [K, 64] and b [K, 256] MN-major (tgmm)
+    "tn": (0, lambda k, n: (k, 64), lambda k, n: (k, 256), 256),
+    # c [64, 64] = a b^T, both K-major (flash attention's Q K^T)
+    "nt": (1, lambda k, n: (64, k), lambda k, n: (64, k), 64),
+    # c [64, N] = a b, a in registers, b [K, N] MN-major (P V), N 64 or 128
+    "rs": (2, lambda k, n: (64, k), lambda k, n: (k, n), None),
+}
+
+
+def hopper_form_cuda(form: str, a, b):
+    """One wgmma operand form of the Hopper kernels on one block
+    (``fm_hopper_check``): ``tn`` gives a^T b (a [K, 64], b [K, 256]),
+    ``nt`` a b^T (a and b [64, K]), ``rs`` a b with a [64, K] in registers
+    and b [K, N], N 64 or 128; f32 out.  bf16 CUDA tensors, K a multiple
+    of 64.  Its plain version is ``dot_f32`` of the same operands."""
+    code, ash, bsh, width = HOPPER_FORMS[form]
+    k = a.shape[0] if form == "tn" else a.shape[1]
+    n = width or b.shape[1]
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or k % 64 \
+            or tuple(a.shape) != ash(k, n) or tuple(b.shape) != bsh(k, n) \
+            or (form == "rs" and n not in (64, 128)):
+        raise ValueError(f"hopper_form_cuda {form}: got {a.dtype} "
+                         f"{tuple(a.shape)}, {b.dtype} {tuple(b.shape)}")
+    _build.require_cuda("hopper_form_cuda", a, b)
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _build.library().fm_hopper_check(
+            code, a.data_ptr(), b.data_ptr(), c.data_ptr(), k, n,
+            _build.stream_of(a))
+    _build.check(err, "fm_hopper_check")
+    return c
+
 
 # ----------------------------------------------------------------------
 # the backward kernels: grouped matmul and transposed grouped matmul
@@ -572,6 +611,86 @@ def tgmm_plain(x, dy, tile_gid, num_experts: int, *, num_rows=None):
     return dw
 
 
+def tgmm_row_ranges(tile_gid, block_m: int, num_experts: int,
+                    num_rows=None):
+    """Each expert's rows ``[start[e], end[e])`` of an expert-major layout
+    (``tile_gid`` nondecreasing): a searchsorted over the tiles, cut at
+    ``num_rows`` rounded up to the row tile.  int32 [E] each."""
+    gid = tile_gid.long()
+    experts = torch.arange(num_experts, device=gid.device)
+    start = torch.searchsorted(gid, experts) * block_m
+    end = torch.searchsorted(gid, experts, right=True) * block_m
+    if num_rows is not None:
+        live = (num_rows.reshape(()).long() + block_m - 1) \
+            // block_m * block_m
+        end = torch.minimum(end, live)
+        start = torch.minimum(start, end)
+    return start.to(torch.int32), end.to(torch.int32)
+
+
+def tgmm_tiles(num_experts: int, k: int, n: int) -> int:
+    """Output tiles of the Hopper transposed grouped matmul: TGMM_ROWS x
+    HOPPER_COLS of each expert's [K, N]."""
+    return num_experts * -(-k // TGMM_ROWS) * -(-n // HOPPER_COLS)
+
+
+def tgmm_tile_walk(row_start, row_end, k: int, n: int, sms: int):
+    """The bf16 transposed grouped matmul's schedule (``tgmm_hopper`` in
+    ``csrc/tgmm.cu``) in Python: its persistent grid of ``min(tiles,
+    sms)`` blocks strides over the output tiles, tile t going to block
+    ``t % grid``; tile t is (expert e, k rows [k0, k1), n columns [n0,
+    n1)) with n fastest, then k, then e, cut at K and N.  Each tile sums
+    its expert's 64-row steps ``[start, end)`` in increasing row order.
+    Returns ``(block, e, k0, k1, n0, n1, steps)`` for each tile in walk
+    order; an expert with no rows has no steps (its tiles are zeros)."""
+    e_count = len(row_start)
+    kt, nt = -(-k // TGMM_ROWS), -(-n // HOPPER_COLS)
+    total = tgmm_tiles(e_count, k, n)
+    grid = min(total, sms)
+    walk = []
+    for t in range(total):
+        e, rem = divmod(t, kt * nt)
+        k0, n0 = rem // nt * TGMM_ROWS, rem % nt * HOPPER_COLS
+        lo, hi = int(row_start[e]), int(row_end[e])
+        steps = [(r, r + ROW_TILE) for r in range(lo, hi, ROW_TILE)]
+        walk.append((t % grid, e, k0, min(k0 + TGMM_ROWS, k), n0,
+                     min(n0 + HOPPER_COLS, n), steps))
+    return walk
+
+
+def tgmm_walk_plain(x, dy, walk, num_experts: int):
+    """dW by :func:`tgmm_tile_walk`'s tiles: each tile's f32 sum over its
+    row steps in order, written once.  Elements no tile covers stay NaN,
+    so a gap in the walk shows."""
+    dw = torch.full((num_experts, x.shape[1], dy.shape[1]), float("nan"),
+                    dtype=torch.float32, device=x.device)
+    for _, e, k0, k1, n0, n1, steps in walk:
+        acc = torch.zeros((k1 - k0, n1 - n0), dtype=torch.float32,
+                          device=x.device)
+        for r0, r1 in steps:
+            acc += dot_f32(x[r0:r1, k0:k1].T, dy[r0:r1, n0:n1])
+        dw[e, k0:k1, n0:n1] = acc
+    return dw
+
+
+def tgmm_args(x, dy, tile_gid, num_experts: int, *, num_rows=None):
+    """The arguments of one call of ``fm_tgmm`` on checked CUDA tensors,
+    with its output and the row ranges it reads made here: ``(args, dw,
+    (start, end))``; the ranges must outlive the call.  bf16 runs on a
+    persistent grid of one block per SM at most."""
+    t, k = x.shape
+    n = dy.shape[1]
+    start, end = tgmm_row_ranges(tile_gid, _tile_rows(x, tile_gid),
+                                 num_experts, num_rows)
+    dw = torch.empty((num_experts, k, n), dtype=torch.float32,
+                     device=x.device)
+    grid = min(tgmm_tiles(num_experts, k, n), _sm_count(x.device.index))
+    args = (int(x.dtype == torch.bfloat16), x.data_ptr(), dy.data_ptr(),
+            start.data_ptr(), end.data_ptr(), dw.data_ptr(), t, num_experts,
+            k, n, grid, _build.stream_of(x))
+    return args, dw, (start, end)
+
+
 def tgmm_cuda(x, dy, tile_gid, num_experts: int, *, num_rows=None):
     """The transposed grouped matmul kernel (``csrc/tgmm.cu``) on CUDA
     tensors: :func:`tgmm_plain`'s function.  ``tile_gid`` must be
@@ -590,25 +709,12 @@ def tgmm_cuda(x, dy, tile_gid, num_experts: int, *, num_rows=None):
     if any(d % ROW_TILE for d in (k, n, bm)):
         raise ValueError(f"tgmm_cuda needs K, N and the row tile % "
                          f"{ROW_TILE} == 0, got {k}, {n}, {bm}")
-    gid = tile_gid.long()
-    experts = torch.arange(num_experts, device=gid.device)
-    start = torch.searchsorted(gid, experts) * bm
-    end = torch.searchsorted(gid, experts, right=True) * bm
-    if num_rows is not None:
-        live = (num_rows.reshape(()).long() + bm - 1) // bm * bm
-        end = torch.minimum(end, live)
-        start = torch.minimum(start, end)
-    start = start.to(torch.int32)
-    end = end.to(torch.int32)
-    _build.require_cuda("tgmm_cuda", x, dy, start, end)
-    dw = torch.empty((num_experts, k, n), dtype=torch.float32,
-                     device=x.device)
-    lib = _build.library()
+    _build.require_cuda("tgmm_cuda", x, dy)
+    args, dw, ranges = tgmm_args(x, dy, tile_gid, num_experts,
+                                 num_rows=num_rows)
+    _build.require_cuda("tgmm_cuda", x, dy, *ranges)  # tile_gid's device
     with torch.cuda.device(x.device):
-        err = lib.fm_tgmm(int(x.dtype == torch.bfloat16), x.data_ptr(),
-                          dy.data_ptr(), start.data_ptr(), end.data_ptr(),
-                          dw.data_ptr(), num_experts, k, n,
-                          _build.stream_of(x))
+        err = _build.library().fm_tgmm(*args)
     _build.check(err, "fm_tgmm")
     tgmm_cuda.launches += 1
     return dw

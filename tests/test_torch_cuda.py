@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from flashmoe_tpu_torch.config import MoEConfig
+from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import init_moe_params
 from flashmoe_tpu_torch.ops import attention, expert, gate, ragged
 from flashmoe_tpu_torch.ops.moe import moe_layer
@@ -1078,3 +1079,100 @@ def test_fused_ep_bf16_arms_take_one_hopper_block_per_sm(gen):
     with pytest.raises(ValueError, match="D <= 128"):
         fused.fused_shard_cuda(*args, **kw)
     assert fused.fused_shard_cuda.launches == before
+
+
+# ----------------------------------------------------------------------
+# the Hopper transposed grouped matmul (bf16 B8) and flash attention
+# (bf16 B9) on TMA + wgmma, and the operand forms they add
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("form,k,n", [
+    ("tn", 64, 256), ("tn", 320, 256), ("nt", 64, 64), ("nt", 128, 64),
+    ("rs", 64, 64), ("rs", 256, 64), ("rs", 64, 128), ("rs", 256, 128)],
+    ids=["tn_k64", "tn_k320", "nt_k64", "nt_k128", "rs_n64_k64",
+         "rs_n64_k256", "rs_n128_k64", "rs_n128_k256"])
+def test_hopper_forms_match_matmul(gen, form, k, n):
+    """Each new wgmma operand form alone on one block against torch.matmul
+    in f32 on the same bf16 inputs: A MN-major (tn: a^T b, a [K, 64]),
+    both K-major at n64 (nt: a b^T), A in registers against an MN-major B
+    (rs: a b); f32 sums of the same products in another order, within
+    1e-5 of the largest output."""
+    code, ash, bsh, _ = expert.HOPPER_FORMS[form]
+    a = torch.randn(*ash(k, n), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    b = torch.randn(*bsh(k, n), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    got = expert.hopper_form_cuda(form, a, b)
+    want = {"tn": lambda: a.float().T @ b.float(),
+            "nt": lambda: a.float() @ b.float().T,
+            "rs": lambda: a.float() @ b.float()}[form]()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# E, K, N, 64-row tiles of each expert, live rows cut (64-row tiles)
+_TGMM_CASES = [
+    (1, 192, 320, (3,), None),
+    (3, 64, 448, (2, 0, 1), 2),
+    (8, 4096, 14336, (5, 5, 6, 4, 5, 5, 5, 5), 39),
+    (8, 14336, 4096, (5, 5, 0, 4, 5, 5, 5, 5), 33),
+    (64, 128, 192, tuple([0, 1, 2, 0] * 16), 50),
+]
+
+
+@pytest.mark.parametrize("e,k,n,tiles,live", _TGMM_CASES,
+                         ids=["e1_odd", "e3_empty_cut", "e8_d_w_up",
+                              "e8_d_w_down_empty", "e64_cut"])
+def test_tgmm_hopper_matches_plain(gen, e, k, n, tiles, live):
+    """bf16 B8 against its plain version, elementwise at f32 2e-4 (the
+    JAX package's f32 tolerance; f32 sums of the same bf16 products in
+    another order); every expert that owns no live row exactly 0 (written
+    by the kernel: the output is filled with NaN first); two calls
+    bit-equal (no atomics, one summation order).  Rows past the live cut
+    hold garbage the kernel must not read."""
+    gid = torch.tensor([g for g, c in enumerate(tiles) for _ in range(c)],
+                       device="cuda")
+    t = gid.numel() * 64
+    x = torch.randn(t, k, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(t, n, device="cuda", generator=gen).to(torch.bfloat16)
+    nrow = None
+    if live is not None:
+        nrow = torch.tensor(live * 64, device="cuda")
+        x[live * 64:] = float("nan")
+    args, dw, _ranges = expert.tgmm_args(x, dy, gid, e, num_rows=nrow)
+    dw.fill_(float("nan"))
+    assert _build.library().fm_tgmm(*args) == 0
+    want = expert.tgmm_plain(x, dy, gid, e, num_rows=nrow)
+    assert torch.isfinite(dw).all()
+    assert bool(((dw - want).abs() <= 2e-4 + 2e-4 * want.abs()).all())
+    owners = set(gid[:(live or len(gid))].tolist())
+    for ex in range(e):
+        if ex not in owners:
+            assert not dw[ex].any(), f"expert {ex} owns no row"
+    again = expert.tgmm_cuda(x, dy, gid, e, num_rows=nrow)
+    assert torch.equal(again, dw)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("ratio", [1, 4, 8])
+@pytest.mark.parametrize("t", [1, 63, 64, 200, 256, 272, 1024])
+def test_flash_hopper_matches_plain(gen, t, ratio, d, causal):
+    """bf16 B9 against its plain version at normwise 1e-2 (bf16 output
+    rounding, p rounded to bf16 at other points of an online softmax):
+    GQA ratios 1, 4 and 8 (tiles packing 1, 4 and 8 heads), T from one
+    token to 16 key blocks, T not a multiple of the tile; two calls
+    bit-equal."""
+    nkv = 2
+    q = torch.randn(2, nkv * ratio, t, d, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    k = torch.randn(2, nkv, t, d, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    v = torch.randn(2, nkv, t, d, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    got = attention.flash_attention_cuda(q, k, v, causal=causal)
+    want = attention.flash_attention_plain(q, k, v, causal=causal)
+    assert torch.isfinite(got).all()
+    assert _normwise(got, want) <= BF16_TOL
+    assert torch.equal(attention.flash_attention_cuda(q, k, v,
+                                                      causal=causal), got)
