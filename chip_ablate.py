@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the Hopper kernels' time goes: time bf16 B2, B3, B6, B5, B8 and B9
-in builds of this tree with one piece of a kernel (``csrc/grouped_ffn.cu``,
-``csrc/ffn_hopper.cuh``, the fused kernel's task list, ``csrc/tgmm.cu``,
-``csrc/flash_attention.cu``) knocked out, on one card:
+"""Where the Hopper kernels' time goes: time bf16 B2, B3, B6, B5, B8, B9,
+B4a and B4b in builds of this tree with one piece of a kernel
+(``csrc/grouped_ffn.cu``, ``csrc/ffn_hopper.cuh``, the fused kernel's
+task list, ``csrc/tgmm.cu``, ``csrc/flash_attention.cu``,
+``csrc/gate_tiled.cu``) knocked out, on one card:
 
     python3 chip_ablate.py [--cuts base,noact,...] [--groups ffn,b5,b8,b9]
 
@@ -48,7 +49,20 @@ other on the same card.  The cuts (``base`` is the tree as it is):
 * ``b9_nos``: B9 issues no S = Q K^T products (their loads, waits and
   barriers stay);
 * ``b9_three_tiles``: B9 with three consumer warpgroups, three tiles a
-  work item, at 160 registers (the producer at 24).
+  work item, at 160 registers (the producer at 24);
+* ``b4_nospill``: B4a writes no logits;
+* ``b4_notopk``: B4a runs no selection rounds (its top-k stays empty);
+* ``b4_wide``: B4a's other warpgroup split, each consumer 256 columns
+  of a 512-expert tile (m64n256k16) with a ring of 2 stages of 72 KB, in
+  place of 128 columns of a 256-expert tile with 4 stages of 40 KB;
+* ``b4_report``: B4a's barrier waits print a message before they trap
+  (ptxas then serializes its wgmma, C7510);
+* ``b4_spill_direct``: B4a spills the logits straight from the
+  fragments, as where E % 4 != 0, not by TMA from the staging boxes;
+* ``b4_one_chain``: B4a's selection rounds scan each row's logits in
+  one dependent chain, not in four;
+* ``b4_fast_exp``: B4a's sums of exp on ``__expf``;
+* ``b4b_scalar``: B4b reads the logits 4 bytes a thread, not 16.
 
 The epilogue pieces (``noact``, ``fast_act``, ``mma2x``) live in
 ``ffn_hopper.cuh`` and cut B5 as well; ``nostore`` cuts only the staging
@@ -64,8 +78,10 @@ torch.profiler; B6's at the Mixtral prefill's rows; B5's and B5q's
 of 128 rows, 16-48 sent); B8's at the train step's two shapes (2560 rows,
 2496 live, d_w_up K 4096 N 14336, d_w_down K 14336 N 4096); B9's at the
 prefill's ([4, 32, 256, 128], 8 kv heads, causal), and its device time
-at T 64 and 1024.  ``--groups`` keeps
-some of them: ``ffn`` (B2, B3, B6), ``b5`` (B5, B5q), ``b8``, ``b9``.
+at T 64 and 1024; B4a's (with the logits) and B4b's at Qwen3-Next's
+widths (H 2048, E 512, top-10, bf16) at S 8192 and 4.  ``--groups``
+keeps some of them: ``ffn`` (B2, B3, B6), ``b5`` (B5, B5q), ``b8``,
+``b9``, ``b4``.
 Prints one line a cut and shape, then one JSON object with every result
 as the last line.  Needs a CUDA device.
 """
@@ -87,6 +103,7 @@ FUSED = "flashmoe_tpu_torch/parallel/fused.py"
 EP = "flashmoe_tpu_torch/csrc/fused_ep.cu"
 TGMM = "flashmoe_tpu_torch/csrc/tgmm.cu"
 FLASH = "flashmoe_tpu_torch/csrc/flash_attention.cu"
+GT = "flashmoe_tpu_torch/csrc/gate_tiled.cu"
 
 _STORES = ("""    *reinterpret_cast<__nv_bfloat162*>(box + hg::sw128_offset(r, 2 * c)) =
         lo;
@@ -215,9 +232,38 @@ CUTS = {
         (FLASH, "constexpr int FA_CONSUMERS = 2;", "constexpr int FA_CONSUMERS = 3;"),
         (FLASH, "setmaxnreg.dec.sync.aligned.u32 40;", "setmaxnreg.dec.sync.aligned.u32 24;"),
         (FLASH, "setmaxnreg.inc.sync.aligned.u32 232;", "setmaxnreg.inc.sync.aligned.u32 160;")],
+    # B4a writes no logits (its staging boxes and TMA stores idle)
+    "b4_nospill": [(GT, "      if (logits != nullptr) {\n        if (spill_tma)",
+                    "      if (logits != nullptr && E < 0) {\n"
+                    "        if (spill_tma)")],
+    # B4a runs no selection rounds (no top-k; its (m, se) stay)
+    "b4_notopk": [(GT, "  for (;;) {\n    float bv[2];",
+                   "  for (; K < 0;) {\n    float bv[2];")],
+    # B4a's other warpgroup split: each consumer takes 256 columns of a
+    # 512-expert tile (m64n256k16), x read once per 512 experts; a stage
+    # is then 72 KB, so the ring holds 2
+    "b4_wide": [(GT, "constexpr int G1_ET = 256;", "constexpr int G1_ET = 512;"),
+                (GT, "return fm::pass1_hopper_launch<4>(",
+                 "return fm::pass1_hopper_launch<2>(")],
+    # B4a's barrier waits print before they trap (a call in the kernel:
+    # ptxas serializes its wgmma, C7510)
+    "b4_report": [(GT, "hg::mbar_wait<false>(", "hg::mbar_wait(")],
+    # B4a spills the logits from the fragments (8-byte stores), as it
+    # does where E % 4 != 0, not through the staging boxes and TMA
+    "b4_spill_direct": [(GT, "const int spill_tma = logits != nullptr && "
+                         "E % 4 == 0;",
+                         "const int spill_tma = logits != nullptr && E < 0;")],
+    # B4a's selection rounds scan a row's logits in one chain, not four
+    "b4_one_chain": [(GT, "constexpr int G1_SCAN = 4;",
+                      "constexpr int G1_SCAN = 1;")],
+    # B4a's sum of exp(logit - m) on the special function unit's __expf
+    "b4_fast_exp": [(GT, "part += expf(", "part += __expf(")],
+    # B4b reads the logits 4 bytes a thread, not 16
+    "b4b_scalar": [(GT, "  if (E % 4 == 0)\n    fm::gate_pass2<true>",
+                    "  if (E < 0)\n    fm::gate_pass2<true>")],
 }
 
-GROUPS = ("ffn", "b5", "b8", "b9")
+GROUPS = ("ffn", "b5", "b8", "b9", "b4")
 SHAPES = (("mixtral", 8, 4096, 14336, 2, 1024),
           ("qwen3next", 512, 2048, 512, 10, 8192))
 
@@ -365,6 +411,30 @@ def worker(tree: str, groups: list[str]) -> dict:
                           for nh in (32, 8, 8))
             res[f"b9_t{t}"] = {"b9_kernels_ms": kernels_ms(
                 lambda: attention.flash_attention_cuda(qt, kt, vt), 50)}
+    if "b4" in groups:  # B4a, B4b at Qwen3-Next's widths, S 8192 and 4
+        from flashmoe_tpu_torch.ops import gate
+        w = (torch.randn(2048, 512, device="cuda", generator=g)
+             / 45).to(torch.bfloat16)
+        xg = torch.randn(8192, 2048, device="cuda", generator=g,
+                         dtype=torch.bfloat16)
+        for tag, s in (("s8192", 8192), ("s4", 4)):
+            x = xg[:s].contiguous()
+
+            def b4a(x=x):
+                return gate.gate_pass1_cuda(x, w, 10, True)
+
+            logits, m, se, _, top_i = b4a()
+
+            def b4b(logits=logits, m=m, se=se, top_i=top_i):
+                return gate.gate_pass2_cuda(logits, m, se, top_i, 512)
+
+            iters = 200 if s == 4 else 50
+            res[f"b4_{tag}"] = {"b4a_ms": events_ms(b4a, iters),
+                                "b4b_ms": events_ms(b4b, iters),
+                                "b4a_kernels_ms": kernels_ms(b4a, 20),
+                                "b4b_kernels_ms": kernels_ms(b4b, 20)}
+        del xg, logits
+        torch.cuda.empty_cache()
     if "b5" not in groups:
         return res
 
@@ -406,7 +476,8 @@ def main() -> int:
                     help="comma-separated cuts (default: all)")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated kernels to time in every cut: "
-                    "ffn (B2, B3, B6), b5 (B5, B5q), b8, b9 (default: all)")
+                    "ffn (B2, B3, B6), b5 (B5, B5q), b8, b9, b4 (B4a, B4b; "
+                    "default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     groups = args.groups.split(",")

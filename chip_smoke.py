@@ -14,17 +14,20 @@ Phases, each of which fails the run on any error:
    gate, grouped FFN and flash attention of serving, the residual-saving
    FFN (its output also against the grouped FFN's, bit for bit), grouped
    matmul and transposed grouped matmul of the training step, the two-pass gate's passes at the many-expert layer's widths
-   (with pass 2 and without; f32 and K = 64 cases too), and the
+   (with pass 2 and without; S 4, E 300, f32 and K = 64 cases too; a
+   token's pass-1 outputs alone bit for bit against the same token's in
+   S 8192; both passes twice bit for bit), and the
    gather-fused FFN (also against the grouped FFN on the dispatched
    buffer, bit for bit).  The gate and both FFNs are timed at prefill and
    decode (the grouped FFN's decode rows also held, bit for bit, against
    the same tokens' rows inside the prefill), the grouped matmul and the
    transposed grouped matmul at both of the train step's shapes; the
-   gate, grouped matmul, transposed grouped matmul and flash attention as
-   the bare C call, with the wrapper's time beside it; the last two also
-   as their kernels' device time from torch.profiler beside the library
-   call's (the transposed grouped matmul's with a bf16 output and with an
-   f32 one, each with its own byte bound);
+   gate, grouped matmul, transposed grouped matmul, flash attention and
+   the two-pass gate's passes (at S 8192 and 4) as the bare C call, with
+   the wrapper's time beside it; the last three also as their kernels'
+   device time from torch.profiler beside the library call's (the
+   transposed grouped matmul's with a bf16 output and with an f32 one,
+   each with its own byte bound);
 3. capacity arm: one MoE layer of the FlashMoE reference config (E=64,
    top-2, H=I=2048, 8192 tokens, capacity 256), kernels against plain,
    forward (explicit dispatch and gather-fused) and the gradients of
@@ -71,7 +74,9 @@ Phases, each of which fails the run on any error:
    ``collect_stats`` (the many-expert path: counts reset before each,
    read after), each against the plain versions and ``reference_moe``,
    the stats against the plain run's; then forward and backward in
-   training against a plain run replaying its routing;
+   training against a plain run replaying its routing, and the share of
+   tokens whose top-k the router's backward (router_plain, recomputed)
+   would choose otherwise than B4a did;
 8. train: Mixtral-8x7B's widths with 2 layers, bf16 weights and AdamW:
    three ``make_train_step`` steps on 4 x 257 tokens (the training path:
    counts reset before the first step, read after it); every gradient
@@ -869,9 +874,13 @@ def check_tiled_gate(tag, x, w, cfg, need_stats):
 
 def gate_tiled_phase():
     """The two-pass gate (B4a, B4b) at the many-expert layer's widths (S
-    8192, H 2048, E 512, K 10, bf16), with pass 2 and without; the JAX
-    tests' f32 case (E 1280, K 2, H 128) and K = 64.  B4b is also held
-    alone against its plain version on the kernel's pass-1 outputs."""
+    8192, H 2048, E 512, K 10, bf16), with pass 2 and without; at S 4
+    (decode), E 300 with S 1000, the JAX tests' f32 case (E 1280, K 2, H
+    128) and K = 64.  B4a's outputs for tokens alone (S 1 to 4) bit for
+    bit against the same tokens' inside S 8192, both passes called twice
+    bit for bit, B4b alone against its plain version on the kernel's
+    pass-1 outputs.  Times: the bare C calls, the wrappers and the
+    kernels' device time, at S 8192 and at S 4."""
     cfg = many_expert_cfg()
     s, h, e, k = cfg.tokens, cfg.hidden_size, cfg.num_experts, \
         cfg.expert_top_k
@@ -889,9 +898,30 @@ def gate_tiled_phase():
                      / math.sqrt(128), f32, True)
     check_tiled_gate("k64", x[:1024].contiguous(), w,
                      cfg.replace(expert_top_k=64), True)
+    check_tiled_gate("decode_s4", x[:4].contiguous(), w, cfg, True)
+    w300 = (torch.randn(h, 300, device="cuda", generator=g)
+            / math.sqrt(h)).to(torch.bfloat16)
+    check_tiled_gate("e300_s1000", x[:1000].contiguous(), w300,
+                     cfg.replace(num_experts=300), True)
 
-    logits, m, se, _, top_i = gate.gate_pass1_cuda(x, w, k, True)
+    # a token's pass-1 outputs are the same bits alone as in S 8192, and
+    # both passes give the same bits twice
+    full = gate.gate_pass1_cuda(x, w, k, True)
+    again = gate.gate_pass1_cuda(x, w, k, True)
+    check(all(torch.equal(a, b) for a, b in zip(full, again)),
+          "gate_pass1: two calls differ")
+    for s0, n in ((0, 4), (61, 4), (4093, 3), (8191, 1)):
+        part = gate.gate_pass1_cuda(x[s0:s0 + n].contiguous(), w, k, True)
+        check(all(torch.equal(a, b[s0:s0 + n]) for a, b in zip(part, full)),
+              f"gate_pass1: tokens {s0}..{s0 + n} alone differ from S {s}")
+    logits, m, se, _, top_i = full
     got = gate.gate_pass2_cuda(logits, m, se, top_i, e)
+    check(all(torch.equal(a, b) for a, b in zip(
+        got, gate.gate_pass2_cuda(logits, m, se, top_i, e))),
+        "gate_pass2: two calls differ")
+    print("gate_tiled: pass 1 of tokens alone (S 1-4) equal bit for bit to "
+          "the same tokens in S 8192; both passes called twice equal bit "
+          "for bit")
     want = gate.gate_pass2_plain(logits, m, se, top_i, e)
     torch.cuda.synchronize()
     p2_err = max_abs(got[0], want[0])
@@ -905,38 +935,71 @@ def gate_tiled_phase():
           f"max_abs_err={p2_err:.3g} (rtol 1e-5) counts exact zsum_rel_err="
           f"{abs(float(got[2]) - float(want[2])) / float(want[2]):.3g}")
 
-    def library1():
-        torch.topk(torch.softmax(torch.matmul(x, w).float(), -1), k)
+    lib = _build.library()
 
-    def library2():
-        torch.softmax(logits, -1).sum(0)
-        torch.bincount(top_i.reshape(-1), minlength=e)
-        torch.logsumexp(logits, -1).square().sum()
+    def times(xs):
+        """Both passes' bare C calls (arguments made once), wrappers,
+        device time, plain versions and library calls on tokens xs."""
+        n = xs.shape[0]
+        a1, o1, _keep = gate.gate_pass1_args(xs, w, k, True)
+        check(lib.fm_gate_pass1(*a1) == 0, "fm_gate_pass1 launch")
+        lg, mm, ss, _, ti = o1
+        a2, _o2, _scr = gate.gate_pass2_args(lg, mm, ss, ti)
+        check(lib.fm_gate_pass2(*a2) == 0, "fm_gate_pass2 launch")
+        iters = 200 if n < 64 else 50
 
-    pass1 = dict(
-        name="gate_pass1", route="cuda",
-        source="flashmoe_tpu_torch/csrc/gate_tiled.cu",
-        replaces="flashmoe_tpu/ops/gate.py:223", max_abs_err=err,
-        ms=cuda_ms(lambda: gate.gate_pass1_cuda(x, w, k, True), 20),
-        plain_ms=cuda_ms(lambda: gate.gate_pass1_plain(x, w, k, True), 5),
-        library_ms=cuda_ms(library1, 20),
-        **bound(bytes_=2 * s * h + 2 * h * e + 4 * s * e + 8 * s + 8 * s * k,
-                flops=2 * s * h * e))
-    pass2 = dict(
-        name="gate_pass2", route="cuda",
-        source="flashmoe_tpu_torch/csrc/gate_tiled.cu",
-        replaces="flashmoe_tpu/ops/gate.py:308", max_abs_err=p2_err,
-        ms=cuda_ms(lambda: gate.gate_pass2_cuda(logits, m, se, top_i, e), 20),
-        plain_ms=cuda_ms(
-            lambda: gate.gate_pass2_plain(logits, m, se, top_i, e), 5),
-        library_ms=cuda_ms(library2, 20),
-        **bound(bytes_=4 * s * e + 8 * s + 4 * s * k + 8 * e + 4,
-                flops=4 * s * e, peak=F32_FLOPS))
-    for rec in (pass1, pass2):
-        print(f"{rec['name']}: S={s} H={h} E={e} K={k} bf16: "
-              f"ms={rec['ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']}) plain_ms={rec['plain_ms']:.4f} "
-              f"library_ms={rec['library_ms']:.4f}")
+        def library1():
+            torch.topk(torch.softmax(torch.matmul(xs, w).float(), -1), k)
+
+        def library2():
+            torch.softmax(lg, -1).sum(0)
+            torch.bincount(ti.reshape(-1), minlength=e)
+            torch.logsumexp(lg, -1).square().sum()
+
+        p1 = dict(
+            ms=cuda_ms(lambda: lib.fm_gate_pass1(*a1), iters),
+            wrapper_ms=cuda_ms(lambda: gate.gate_pass1_cuda(xs, w, k, True),
+                               iters),
+            device_ms=device_ms(lambda: lib.fm_gate_pass1(*a1), 20,
+                                ("gate_pass1",))[0],
+            plain_ms=cuda_ms(lambda: gate.gate_pass1_plain(xs, w, k, True),
+                             5),
+            library_ms=cuda_ms(library1, iters),
+            library_device_ms=device_ms(library1, 20)[0],
+            **bound(bytes_=2 * n * h + 2 * h * e + 4 * n * e + 8 * n
+                    + 8 * n * k, flops=2 * n * h * e))
+        p2 = dict(
+            ms=cuda_ms(lambda: lib.fm_gate_pass2(*a2), iters),
+            wrapper_ms=cuda_ms(
+                lambda: gate.gate_pass2_cuda(lg, mm, ss, ti, e), iters),
+            device_ms=device_ms(lambda: lib.fm_gate_pass2(*a2), 20,
+                                ("gate_pass2",))[0],
+            plain_ms=cuda_ms(
+                lambda: gate.gate_pass2_plain(lg, mm, ss, ti, e), 5),
+            library_ms=cuda_ms(library2, iters),
+            library_device_ms=device_ms(library2, 20)[0],
+            **bound(bytes_=4 * n * e + 8 * n + 4 * n * k + 8 * e + 4,
+                    flops=4 * n * e, peak=F32_FLOPS))
+        return p1, p2
+
+    pass1, pass2 = times(x)
+    d1, d2 = times(x[:4].contiguous())
+    pass1.update(name="gate_pass1", route="cuda",
+                 source="flashmoe_tpu_torch/csrc/gate_tiled.cu",
+                 replaces="flashmoe_tpu/ops/gate.py:223", max_abs_err=err)
+    pass2.update(name="gate_pass2", route="cuda",
+                 source="flashmoe_tpu_torch/csrc/gate_tiled.cu",
+                 replaces="flashmoe_tpu/ops/gate.py:308", max_abs_err=p2_err)
+    for rec, dec in ((pass1, d1), (pass2, d2)):
+        for tag, r in (("S=8192", rec), ("S=4", dec)):
+            print(f"{rec['name']}: {tag} H={h} E={e} K={k} bf16: "
+                  f"kernel_ms={r['ms']:.5f} (bare C call) wrapper_ms="
+                  f"{r['wrapper_ms']:.5f} device_ms={fmt_ms(r['device_ms'])} "
+                  f"(profiler) bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+                  f"plain_ms={r['plain_ms']:.4f} library_ms="
+                  f"{r['library_ms']:.5f} library_device_ms="
+                  f"{fmt_ms(r['library_device_ms'])} ({gpu_line()})")
+        rec.update({f"s4_{key}": v for key, v in dec.items()})
     return [pass1, pass2]
 
 
@@ -1859,6 +1922,17 @@ def many_expert_phase():
     layer_backward("many_expert training backward",
                    cfg.replace(is_training=True), params, x,
                    ("gate_pass1", "gate_pass2"))
+    # the router's backward recomputes router_plain on the forward's
+    # inputs: the tokens whose recomputed top-k differs from B4a's ids
+    pid = gate.router_plain(x, params["gate_w"],
+                            cfg.replace(is_training=True)).expert_idx
+    kid = rk.expert_idx
+    in_order = int((kid != pid).any(-1).sum())
+    as_sets = int((kid.sort(-1).values != pid.sort(-1).values).any(-1).sum())
+    print(f"many_expert training backward: router_plain's recomputed top-k "
+          f"differs from B4a's ids on {in_order} of {x.shape[0]} tokens "
+          f"({in_order / x.shape[0]:.3g}) in order, {as_sets} "
+          f"({as_sets / x.shape[0]:.3g}) as sets")
     del params
     torch.cuda.empty_cache()
     return launches

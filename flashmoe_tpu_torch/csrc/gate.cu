@@ -501,40 +501,6 @@ int gate_dispatch(const void* x, const void* w, int S, int H, int E, int K,
 #undef FM_GATE
 }
 
-// Adds the per-block partials in block order (deterministic): the
-// two-pass gate's pass 2 (gate_tiled.cu) reduces its partials here.
-__global__ void gate_reduce(const float* __restrict__ part_probs,
-                            const int* __restrict__ part_cnt,
-                            const float* __restrict__ part_z, int nb, int E,
-                            float* __restrict__ probs_sum,
-                            int* __restrict__ counts,
-                            float* __restrict__ zsum) {
-  for (int e = threadIdx.x; e <= E; e += blockDim.x) {
-    if (e < E) {
-      float p = 0.f;
-      int c = 0;
-      for (int b = 0; b < nb; ++b) {
-        p += part_probs[(size_t)b * E + e];
-        c += part_cnt[(size_t)b * E + e];
-      }
-      probs_sum[e] = p;
-      counts[e] = c;
-    } else {
-      float z = 0.f;
-      for (int b = 0; b < nb; ++b) z += part_z[b];
-      *zsum = z;
-    }
-  }
-}
-
-int gate_reduce_launch(const float* part_probs, const int* part_cnt,
-                       const float* part_z, int nb, int E, float* probs_sum,
-                       int* counts, float* zsum, cudaStream_t stream) {
-  gate_reduce<<<1, 256, 0, stream>>>(part_probs, part_cnt, part_z, nb, E,
-                                     probs_sum, counts, zsum);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace fm
 
 // One launch, RouterOutput's six fields out: combine f32 [S, K], idx i64

@@ -33,7 +33,8 @@
 //     B in m64n64k16 and m64n128k16, for flash attention
 //     (flash_attention.cu);
 //   * the f32 epilogue through swizzled staging boxes and TMA stores
-//     (store_f32), shared by the grouped matmul and the transposed one.
+//     (store_f32), shared by the grouped matmul, the transposed one and
+//     the two-pass gate's pass 1 (gate_tiled.cu, its spilled logits).
 #pragma once
 
 #include <cuda.h>
@@ -481,17 +482,19 @@ __device__ __forceinline__ void wgmma_stage_tn(float (&d)[128], const bf16* a,
                            db + (MN_K16 >> 4) * k);
 }
 
-// The f32 epilogue of one consumer warpgroup's 64 x 256 tile: eight
-// chunks of F32_BOX columns, each written from the registers into one of
-// the warpgroup's two staging boxes (64 rows of 128 bytes, swizzled) and
-// handed to a TMA store at (n0 + F32_BOX ch, row0) of a 2-D map, or
-// (n0 + F32_BOX ch, row0, c2) of a 3-D one when c2 >= 0.  The stores
-// drain while the next chunk, and then the next tile's products, go on; a
-// box is reused once the store two chunks back has read it.  Chunks at or
-// past N are skipped (the map clips a chunk's own overhang).
+// The f32 epilogue of one consumer warpgroup's 64 x BN tile (BN 256,
+// or 128 for the two-pass gate): BN / 32 chunks of F32_BOX columns, each
+// written from the registers into one of the warpgroup's two staging
+// boxes (64 rows of 128 bytes, swizzled) and handed to a TMA store at
+// (n0 + F32_BOX ch, row0) of a 2-D map, or (n0 + F32_BOX ch, row0, c2) of
+// a 3-D one when c2 >= 0.  The stores drain while the next chunk, and
+// then the next tile's products, go on; a box is reused once the store
+// two chunks back has read it.  Chunks at or past N are skipped (the map
+// clips a chunk's own overhang).
 constexpr int F32_BOX = 32;  // f32 columns of one TMA store box
 
-__device__ __forceinline__ void store_f32(float (&d)[128], float* stage0,
+template <int BN = 256>
+__device__ __forceinline__ void store_f32(float (&d)[BN / 2], float* stage0,
                                           float* stage1,
                                           const CUtensorMap* tout, int row0,
                                           int n0, int N, int wg, int tid,
@@ -499,7 +502,7 @@ __device__ __forceinline__ void store_f32(float (&d)[128], float* stage0,
   const int warp = tid / 32, lane = tid % 32;
   const int r = warp * 16 + lane / 4;
 #pragma unroll
-  for (int ch = 0; ch < 256 / F32_BOX; ++ch) {
+  for (int ch = 0; ch < BN / F32_BOX; ++ch) {
     if (n0 + F32_BOX * ch < N) {  // the same for the whole warpgroup
       float* stage = ch & 1 ? stage1 : stage0;
       if (tid == 0) bulk_wait_read<1>();

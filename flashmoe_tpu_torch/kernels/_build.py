@@ -51,8 +51,8 @@ SIGNATURES = {
     # stream
     "fm_gate_pass1": [I, P, P, I, I, I, I, I, P, P, P, P, P, P],
     # logits, m, se, top_i, S, E, K, part_probs, part_counts, part_z,
-    # probs_sum, counts, zsum, stream
-    "fm_gate_pass2": [P, P, P, P, I, I, I, P, P, P, P, P, P, P],
+    # tickets, probs_sum, counts, zsum, stream
+    "fm_gate_pass2": [P, P, P, P, I, I, I, P, P, P, P, P, P, P, P],
     # dtype_is_bf16, gated, act, x, src_tok, tile_gid, block_m, num_rows,
     # w_up, w_gate, b_up, w_down, b_down, hidden, out, plan, T, H, I, E,
     # grid, stream

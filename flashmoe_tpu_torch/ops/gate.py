@@ -40,7 +40,8 @@ GATE_MAX_TOP_K = 32
 #: csrc/gate_tiled.cu TILED_KMAX = 64).  Beyond that the plain router
 #: runs, as JAX runs router_xla.
 TILED_MAX_MERGE = 128
-#: token rows and expert columns of a pass-1 tile (csrc/gate_tiled.cu)
+#: token rows of a pass-1 work item, and expert columns of the f32 arm's
+#: tile (csrc/gate_tiled.cu); H is a multiple of it
 GATE_TILE = 64
 #: the JAX package's single-tile gate budget and lane width: JAX router
 #: takes its single-tile gate while gate_vmem_bytes stays within it
@@ -130,8 +131,9 @@ def gate_slices(h: int, split: int, dtype: torch.dtype) -> list[range]:
             for i in range(split)]
 
 
-#: per device, the gate kernel's ticket counters: zeros that every launch
-#: leaves zero (its last blocks reset them), grown when a launch needs more
+#: per device, the ticket counters of the gate kernel and of the two-pass
+#: gate's pass 2: zeros that every launch leaves zero (its last blocks
+#: reset them), grown when a launch needs more
 _TICKETS: dict[torch.device, torch.Tensor] = {}
 
 
@@ -266,12 +268,218 @@ def router_tiled_plain(x, gate_w, cfg: MoEConfig,
                          need_stats)
 
 
+#: bf16 pass 1 (csrc/gate_tiled.cu gate_pass1_hopper): the expert tile,
+#: whose columns its consumer warpgroups split, and the warpgroups
+PASS1_EXPERT_TILE = 256
+PASS1_CONSUMERS = 2
+#: pass 2's panels of tokens and chunks of experts (csrc/gate_tiled.cu
+#: P2_ROWS, P2_COLS)
+PASS2_ROWS = 64
+PASS2_COLS = 128
+
+
+def gate_pass1_items(s: int, e: int) -> list[tuple[int, range, list]]:
+    """bf16 pass 1's work items for S tokens and E experts, in order:
+    ``(token tile, its rows, expert tiles)``, the rows clipped at S, each
+    expert tile ``(first expert, [columns of warpgroup 0, of 1])`` with
+    the columns clipped at E (an empty range: that warpgroup skips the
+    tile).  An item holds one 64-token tile against all E experts: E is
+    never split across blocks, and the expert tiles and the column split
+    follow E alone."""
+    cols = PASS1_EXPERT_TILE // PASS1_CONSUMERS
+    tiles = [(e0, [range(min(e0 + wg * cols, e), min(e0 + (wg + 1) * cols,
+                                                     e))
+                   for wg in range(PASS1_CONSUMERS)])
+             for e0 in range(0, e, PASS1_EXPERT_TILE)]
+    return [(t, range(t * GATE_TILE, min((t + 1) * GATE_TILE, s)), tiles)
+            for t in range(-(-s // GATE_TILE))]
+
+
+def gate_pass1_block_walk(s: int, sms: int) -> list[tuple[int, int]]:
+    """``(block, token tile)`` as bf16 pass 1's persistent grid takes its
+    items on a card of ``sms`` SMs: min(tiles, sms) blocks, block b the
+    tiles b, b + grid, b + 2 grid, ..., in that order."""
+    tiles = -(-s // GATE_TILE)
+    grid = min(tiles, sms)
+    return [(b, t) for b in range(grid) for t in range(b, tiles, grid)]
+
+
+def _gate_rank(v, i, k: int):
+    """The first k of rows of (value, id) candidates by larger value, then
+    lower id (a stable sort by id, then by value)."""
+    i, o = torch.sort(i, dim=-1, stable=True)
+    v = v.gather(-1, o)
+    v, o = torch.sort(v, dim=-1, descending=True, stable=True)
+    return v[:, :k], i.gather(-1, o)[:, :k]
+
+
+def _gate_select(blk, cols: range, lv, li, k: int):
+    """One expert tile's selection rounds for a warpgroup's rows, as the
+    kernel runs them (``g1_tile``): each round takes, per row, the largest
+    logit of the tile ranked below the last one taken (larger value, then
+    lower id) and above the row's K-th entry, and inserts it into the
+    row's list; a round in which no row finds one ends the tile.  The
+    lists [rows, k] hold -inf and a large id where not yet filled."""
+    rows = blk.shape[0]
+    ids = torch.arange(cols.start, cols.stop)[None, :]
+    pv = torch.full((rows, 1), float("inf"))
+    pi = torch.full((rows, 1), -1, dtype=torch.int64)
+    big = torch.iinfo(torch.int64).max
+    while True:
+        thr = lv[:, k - 1:k]
+        cand = (blk > thr) & ((blk < pv) | ((blk == pv) & (ids > pi)))
+        if not cand.any():
+            return lv, li
+        bv = torch.where(cand, blk, -torch.inf).max(-1, keepdim=True).values
+        bi = torch.where(cand & (blk == bv), ids, big).min(
+            -1, keepdim=True).values
+        found = cand.any(-1, keepdim=True)
+        nv, ni = _gate_rank(torch.cat([lv, bv], -1), torch.cat([li, bi], -1),
+                            k)
+        lv = torch.where(found, nv, lv)
+        li = torch.where(found, ni, li)
+        pv = torch.where(found, bv, pv)
+        pi = torch.where(found, bi, pi)
+
+
+def gate_pass1_walk(x, gate_w, k: int):
+    """The function of bf16 pass 1's schedule in plain torch, f32, on CPU
+    tensors: ``(m, se, top_p, top_i)`` as :func:`gate_pass1_plain` gives
+    them (top_i int64).  Per item (:func:`gate_pass1_items`) and consumer
+    warpgroup, the expert tiles in order: the running (m, se) from -1e30
+    and 0, the tile's max and sum of exp(logit - m_new), the running sum
+    rescaled by exp(m - m_new) as ``_gate_pass1_kernel`` does; the
+    warpgroup's top-k carried through the selection rounds
+    (:func:`_gate_select`).  Then the two warpgroups merged as the kernel
+    merges them: m the larger, se = se0 exp(m0 - m) + se1 exp(m1 - m),
+    the lists by larger value, then lower id."""
+    logits = dot_f32(x, gate_w)
+    s, e = logits.shape
+    big = torch.iinfo(torch.int64).max
+    m, se = torch.empty(s), torch.empty(s)
+    top_p = torch.empty(s, k)
+    top_i = torch.empty(s, k, dtype=torch.int64)
+    for _, rows, tiles in gate_pass1_items(s, e):
+        lg = logits[rows.start:rows.stop]
+        n = lg.shape[0]
+        parts = []
+        for wg in range(PASS1_CONSUMERS):
+            m_run = torch.full((n,), -1e30)
+            se_run = torch.zeros(n)
+            lv = torch.full((n, k), -torch.inf)
+            li = torch.full((n, k), big, dtype=torch.int64)
+            for _, cols in tiles:
+                c = cols[wg]
+                if not len(c):
+                    continue
+                blk = lg[:, c.start:c.stop]
+                m_new = torch.maximum(m_run, blk.max(-1).values)
+                part = torch.exp(blk - m_new[:, None]).sum(-1)
+                se_run = se_run * torch.exp(m_run - m_new) + part
+                m_run = m_new
+                lv, li = _gate_select(blk, c, lv, li, k)
+            parts.append((m_run, se_run, lv, li))
+        (m0, se0, lv0, li0), (m1, se1, lv1, li1) = parts
+        mm = torch.maximum(m0, m1)
+        sse = se0 * torch.exp(m0 - mm) + se1 * torch.exp(m1 - mm)
+        v, i = _gate_rank(torch.cat([lv0, lv1], -1),
+                          torch.cat([li0, li1], -1), k)
+        sl = slice(rows.start, rows.stop)
+        m[sl], se[sl], top_i[sl] = mm, sse, i
+        top_p[sl] = torch.exp(v - mm[:, None]) \
+            / torch.clamp(sse, min=1e-30)[:, None]
+    return m, se, top_p, top_i
+
+
+def gate_pass2_plan(s: int, e: int) -> list[tuple[range, range]]:
+    """Pass 2's blocks for S tokens and E experts, in launch order (the
+    expert chunk fastest): ``(panel rows, chunk columns)``, 64 tokens by
+    128 experts, clipped at S and E.  The last block of a chunk to finish
+    adds the chunk's partials in panel order."""
+    return [(range(p, min(p + PASS2_ROWS, s)), range(c, min(c + PASS2_COLS,
+                                                            e)))
+            for p in range(0, s, PASS2_ROWS) for c in range(0, e, PASS2_COLS)]
+
+
+#: pass 2's warps: warp w of a block adds its panel's rows w, w + 8, ...
+_PASS2_WARPS = 8
+
+
+def gate_pass2_walk(logits, m, se, top_i, num_experts: int):
+    """The function of pass 2's plan in plain torch, on CPU tensors:
+    :func:`gate_pass2_plain`'s outputs (counts int64).  Per block of
+    :func:`gate_pass2_plan`, exp(l - m) / max(se, 1e-30) of its panel and
+    chunk, each warp's rows added in order, then the warps in order; the
+    counts of the ids in the chunk; the panel's sum of lse^2.  Each
+    chunk's partials then added in panel order, the first half and the
+    second half apart, then the two; the z terms in panel order."""
+    s, e = logits.shape
+    plan = gate_pass2_plan(s, e)
+    panels = -(-s // PASS2_ROWS)
+    den = torch.clamp(se, min=1e-30)
+    part_p = torch.zeros(panels, e)
+    part_c = torch.zeros(panels, e, dtype=torch.int64)
+    part_z = torch.zeros(panels)
+    for rows, cols in plan:
+        b = rows.start // PASS2_ROWS
+        p = torch.exp(logits[rows.start:rows.stop, cols.start:cols.stop]
+                      - m[rows.start:rows.stop, None]) \
+            / den[rows.start:rows.stop, None]
+        acc = torch.zeros(cols.stop - cols.start)
+        for w in range(_PASS2_WARPS):
+            wsum = torch.zeros_like(acc)
+            for r in range(w, p.shape[0], _PASS2_WARPS):
+                wsum = wsum + p[r]
+            acc = acc + wsum
+        part_p[b, cols.start:cols.stop] = acc
+        ids = top_i[rows.start:rows.stop].reshape(-1).long()
+        ids = ids[(ids >= cols.start) & (ids < cols.stop)]
+        part_c[b] += torch.bincount(ids, minlength=e)
+        if cols.start == 0:
+            lse = m[rows.start:rows.stop] \
+                + torch.log(den[rows.start:rows.stop])
+            part_z[b] = torch.sum(lse * lse)
+    half = panels // 2
+    probs_sum = part_p[:half].sum(0) + part_p[half:].sum(0)
+    return probs_sum, part_c.sum(0), part_z.sum()
+
+
+def gate_pass1_args(x, gate_w, k: int, need_logits: bool):
+    """The arguments of one launch of pass 1 (``fm_gate_pass1``) on checked
+    CUDA tensors of one dtype, with its outputs made here: ``(args,
+    (logits, m, se, top_p, top_i))``.  bf16 reads x in place (TMA fills
+    rows past S with zeros) and gate_w too unless E % 8 != 0, which pads
+    gate_w's columns to a multiple of 8 (the map's 16-byte row stride);
+    f32 pads x's rows to the 64-token tile and gate_w's columns to the
+    64-expert tile."""
+    s, h = x.shape
+    e = gate_w.shape[1]
+    if x.dtype == torch.bfloat16:
+        px = -(-e // 8) * 8
+    else:
+        px = -(-e // GATE_TILE) * GATE_TILE
+        sp = -(-s // GATE_TILE) * GATE_TILE
+        if sp != s:
+            x = F.pad(x, (0, 0, 0, sp - s))
+    if px != e:
+        gate_w = F.pad(gate_w, (0, px - e))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = (torch.empty((s, e), **f32) if need_logits else None,
+           torch.empty((s,), **f32), torch.empty((s,), **f32),
+           torch.empty((s, k), **f32),
+           torch.empty((s, k), dtype=torch.int32, device=x.device))
+    args = (int(x.dtype == torch.bfloat16), x.data_ptr(), gate_w.data_ptr(),
+            s, h, e, px, k, None if out[0] is None else out[0].data_ptr(),
+            *(t.data_ptr() for t in out[1:]), _build.stream_of(x))
+    return args, out, (x, gate_w)
+
+
 def gate_pass1_cuda(x, gate_w, k: int, need_logits: bool):
     """Pass 1 of the two-pass gate (``fm_gate_pass1``) on CUDA tensors:
     :func:`gate_pass1_plain`'s outputs, top_i int32.  x: [S, H] and
     gate_w: [H, E], bf16 or f32 (mixed dtypes are upcast to f32, which is
-    exact); H % 64 == 0 and 1 <= K <= min(E, 64).  Rows are padded to the
-    64-token tile and columns to the 64-expert tile here, where needed."""
+    exact); H % 64 == 0 and 1 <= K <= min(E, 64).  bf16 x is read in
+    place; see :func:`gate_pass1_args` for the padding f32 takes."""
     s, h = x.shape
     e = gate_w.shape[1]
     if gate_w.shape[0] != h:
@@ -288,40 +496,45 @@ def gate_pass1_cuda(x, gate_w, k: int, need_logits: bool):
                          f"K={k}")
     _build.refuse_autograd("gate_pass1_cuda", x, gate_w)
     dt = x.dtype if x.dtype == gate_w.dtype else torch.float32
-    sp = -(-s // GATE_TILE) * GATE_TILE
-    px = -(-e // GATE_TILE) * GATE_TILE
-    x, gate_w = x.to(dt), gate_w.to(dt)
-    if sp != s:
-        x = F.pad(x, (0, 0, 0, sp - s))
-    if px != e:
-        gate_w = F.pad(gate_w, (0, px - e))
-    x, gate_w = x.contiguous(), gate_w.contiguous()
+    x, gate_w = x.to(dt).contiguous(), gate_w.to(dt).contiguous()
     _build.require_cuda("gate_pass1_cuda", x, gate_w)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    logits = torch.empty((s, e), **f32) if need_logits else None
-    m = torch.empty((s,), **f32)
-    se = torch.empty((s,), **f32)
-    top_p = torch.empty((s, k), **f32)
-    top_i = torch.empty((s, k), dtype=torch.int32, device=x.device)
-    lib = _build.library()
+    args, out, _keep = gate_pass1_args(x, gate_w, k, need_logits)
     with torch.cuda.device(x.device):
-        err = lib.fm_gate_pass1(
-            int(dt == torch.bfloat16), x.data_ptr(), gate_w.data_ptr(), s, h,
-            e, px, k, None if logits is None else logits.data_ptr(),
-            m.data_ptr(), se.data_ptr(), top_p.data_ptr(), top_i.data_ptr(),
-            _build.stream_of(x))
+        err = _build.library().fm_gate_pass1(*args)
     _build.check(err, "fm_gate_pass1")
     gate_pass1_cuda.launches += 1
-    return logits, m, se, top_p, top_i
+    return out
 
 
 gate_pass1_cuda.launches = 0
+
+def gate_pass2_args(logits, m, se, top_i):
+    """The arguments of one launch of pass 2 (``fm_gate_pass2``) on checked
+    CUDA tensors (top_i int32), with its outputs and scratch made here:
+    ``(args, (probs_sum, counts, zsum), scratch)``.  The launch takes the
+    gate kernels' ticket counters, so launches on one device run in one
+    stream's order."""
+    s, e = logits.shape
+    nb = -(-s // PASS2_ROWS)
+    dev = logits.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    scratch = (torch.empty((nb, e), **f32), torch.empty((nb, e), **i32),
+               torch.empty((nb,), **f32))
+    out = (torch.empty((e,), **f32), torch.empty((e,), **i32),
+           torch.empty((), **f32))
+    args = (logits.data_ptr(), m.data_ptr(), se.data_ptr(), top_i.data_ptr(),
+            s, e, top_i.shape[1], *(t.data_ptr() for t in scratch),
+            _tickets(dev, -(-e // PASS2_COLS)).data_ptr(),
+            *(t.data_ptr() for t in out), _build.stream_of(logits))
+    return args, out, scratch
 
 
 def gate_pass2_cuda(logits, m, se, top_i, num_experts: int):
     """Pass 2 of the two-pass gate (``fm_gate_pass2``) on CUDA tensors:
     :func:`gate_pass2_plain`'s outputs, counts int32.  logits f32 [S, E],
-    m and se f32 [S], top_i [S, K] with K <= 64."""
+    m and se f32 [S], top_i [S, K] with K <= 64.  One launch
+    (:func:`gate_pass2_args`)."""
     s, e = logits.shape
     k = top_i.shape[1]
     if e != num_experts or m.shape != (s,) or se.shape != (s,) \
@@ -335,25 +548,12 @@ def gate_pass2_cuda(logits, m, se, top_i, num_experts: int):
     _build.refuse_autograd("gate_pass2_cuda", logits, m, se)
     top_i = top_i.to(torch.int32).contiguous()
     _build.require_cuda("gate_pass2_cuda", logits, m, se, top_i)
-    nb = -(-s // 32)  # csrc/gate_tiled.cu P2_ROWS
-    f32 = dict(dtype=torch.float32, device=logits.device)
-    i32 = dict(dtype=torch.int32, device=logits.device)
-    part_p = torch.empty((nb, e), **f32)
-    part_c = torch.empty((nb, e), **i32)
-    part_z = torch.empty((nb,), **f32)
-    probs_sum = torch.empty((e,), **f32)
-    counts = torch.empty((e,), **i32)
-    zsum = torch.empty((), **f32)
-    lib = _build.library()
+    args, out, _scratch = gate_pass2_args(logits, m, se, top_i)
     with torch.cuda.device(logits.device):
-        err = lib.fm_gate_pass2(
-            logits.data_ptr(), m.data_ptr(), se.data_ptr(), top_i.data_ptr(),
-            s, e, k, part_p.data_ptr(), part_c.data_ptr(), part_z.data_ptr(),
-            probs_sum.data_ptr(), counts.data_ptr(), zsum.data_ptr(),
-            _build.stream_of(logits))
+        err = _build.library().fm_gate_pass2(*args)
     _build.check(err, "fm_gate_pass2")
     gate_pass2_cuda.launches += 1
-    return probs_sum, counts, zsum
+    return out
 
 
 gate_pass2_cuda.launches = 0

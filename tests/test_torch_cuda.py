@@ -238,9 +238,12 @@ NEAR_TIE = 1e-4
 @pytest.mark.parametrize("dtype,s,e,k", [
     (torch.bfloat16, 100, 300, 2), (torch.bfloat16, 64, 512, 10),
     (torch.float32, 37, 1280, 2), (torch.bfloat16, 4, 512, 64),
-    (torch.float32, 70, 300, 33)],
+    (torch.float32, 70, 300, 33), (torch.bfloat16, 1000, 300, 10),
+    (torch.bfloat16, 1000, 300, 64), (torch.float32, 1000, 300, 64),
+    (torch.bfloat16, 130, 301, 3), (torch.bfloat16, 70, 1280, 1)],
     ids=["bf16_e300", "bf16_e512k10", "f32_e1280", "bf16_decode_k64",
-         "f32_k33"])
+         "f32_k33", "bf16_e300_s1000", "bf16_e300_s1000_k64",
+         "f32_e300_s1000_k64", "bf16_e301", "bf16_e1280_k1"])
 def test_gate_pass1_kernel_matches_plain(gen, dtype, s, e, k):
     """Logits, m and se against the plain version; the top-k ids distinct
     and, read in the plain logits, the plain top-k values but at near
@@ -264,8 +267,9 @@ def test_gate_pass1_kernel_matches_plain(gen, dtype, s, e, k):
     assert gate.gate_pass1_cuda(x, w, k, False)[0] is None
 
 
-@pytest.mark.parametrize("s,e,k", [(100, 300, 2), (257, 1280, 64)],
-                         ids=["e300", "e1280k64"])
+@pytest.mark.parametrize("s,e,k", [(100, 300, 2), (257, 1280, 64),
+                                   (8192, 512, 10), (130, 301, 3)],
+                         ids=["e300", "e1280k64", "s8192_e512", "e301"])
 def test_gate_pass2_kernel_matches_plain(gen, s, e, k):
     """On the same pass-1 outputs: probability sums and the z sum at f32
     summation-order tolerance, counts exact."""
@@ -277,6 +281,90 @@ def test_gate_pass2_kernel_matches_plain(gen, s, e, k):
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     assert torch.equal(got[1].long(), want[1])
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+
+
+def test_gate_pass1_batch_invariant_and_repeatable(gen):
+    """bf16 pass 1 at the many-expert layer's widths (H 2048, E 512, top-10):
+    a token's logits, m, se, weights and ids are the same bits alone (S 1
+    to 4, decode) as inside S 8192, and two calls give the same bits."""
+    x = torch.randn(8192, 2048, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    w = (torch.randn(2048, 512, device="cuda", generator=gen)
+         / 45).to(torch.bfloat16)
+    full = gate.gate_pass1_cuda(x, w, 10, True)
+    again = gate.gate_pass1_cuda(x, w, 10, True)
+    for a, b in zip(full, again):
+        assert torch.equal(a, b)
+    for s0, n in ((0, 4), (61, 4), (4093, 3), (8191, 1)):
+        part = gate.gate_pass1_cuda(x[s0:s0 + n].contiguous(), w, 10, True)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[s0:s0 + n])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_gate_pass1_top_k_spread_over_the_quad(gen, dtype):
+    """Logits whose top-10 is spread over the four threads of a quad in
+    the first expert tile (each thread two large logits, tied across
+    threads, and one medium; all else small): the kernel's ids equal the
+    plain top-k exactly, in every row of a 64-row tile and past it."""
+    s, e, k = 70, 300, 10
+    lg = -1.0 - (np.arange(e) % 7)[None, :] * 0.125 + np.zeros((s, 1))
+    for q in range(4):
+        lg[:, 2 * q] = 16 + 2 * q
+        lg[:, 8 + 2 * q] = 12 + 2 * q
+        lg[:, 16 + 2 * q] = 4 + 0.5 * q
+    lg[:, 24:128:3] += 0.25 * (np.arange(s) % 4)[:, None]
+    x = torch.zeros(s, 128, device="cuda", dtype=dtype)
+    x[:, :64] = torch.eye(64, device="cuda", dtype=dtype).repeat(2, 1)[:s]
+    w = torch.zeros(128, e, device="cuda", dtype=dtype)
+    w[:64] = torch.from_numpy(lg[:64]).to("cuda", dtype)
+    got = gate.gate_pass1_cuda(x, w, k, True)
+    want = gate.gate_pass1_plain(x, w, k, True)
+    assert torch.equal(got[4].long(), want[4])
+    assert sorted(got[4][0].tolist()) == [0, 2, 4, 6, 8, 10, 12, 14, 20, 22]
+
+
+def test_gate_pass2_repeatable_and_counts_exact(gen):
+    """Pass 2 at S 8192, E 512, K 10 twice: the same bits, and the counts
+    the ids' bincount exactly."""
+    x = torch.randn(8192, 2048, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    w = (torch.randn(2048, 512, device="cuda", generator=gen)
+         / 45).to(torch.bfloat16)
+    logits, m, se, _, top_i = gate.gate_pass1_cuda(x, w, 10, True)
+    a = gate.gate_pass2_cuda(logits, m, se, top_i, 512)
+    b = gate.gate_pass2_cuda(logits, m, se, top_i, 512)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    assert torch.equal(a[1].long(),
+                       torch.bincount(top_i.reshape(-1).long(),
+                                      minlength=512))
+
+
+@pytest.mark.parametrize("s,e", [(1000, 512), (100, 300)],
+                         ids=["s1000", "e300"])
+def test_gate_pass1_reads_x_in_place(gen, monkeypatch, s, e):
+    """bf16 pass 1 hands the kernel x's own data at an S that is not a
+    multiple of the 64-token tile (no padded copy), and gate_w's own data
+    where E % 8 == 0."""
+    x = torch.randn(s, 256, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    w = (torch.randn(256, e, device="cuda", generator=gen) / 16).to(
+        torch.bfloat16)
+    lib = _build.library()
+    real, seen = lib.fm_gate_pass1, []
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(lib, "fm_gate_pass1", record)
+    got = gate.gate_pass1_cuda(x, w, 4, True)
+    assert len(seen) == 1 and seen[0][1] == x.data_ptr()
+    assert (seen[0][2] == w.data_ptr()) == (e % 8 == 0)
+    want = gate.gate_pass1_plain(x, w, 4, True)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
 
 
 def test_router_takes_tiled_gate_and_its_gradient(gen):
