@@ -332,7 +332,7 @@ def worker(tree: str, groups: list[str]) -> dict:
         # virtual ranks, fused (B5) and collective (B2 on each rank)
         from flashmoe_tpu_torch.parallel import ep, fused, mesh
         moe0 = params["layers"][0]["moe"]
-        m = mesh.local_mesh(8, "cuda")
+        m = mesh.local_mesh(8, device="cuda")
         ecfg = cfg.replace(ep=8)
         x = torch.randn(8192, cfg.hidden_size, device="cuda", generator=g,
                         dtype=torch.bfloat16)

@@ -41,16 +41,29 @@ Phases, each of which fails the run on any error:
    against the dense oracle ``reference_moe``;
 5. ep: expert parallelism over 8 virtual ranks of a local mesh: the ep
    path, ``forward`` at Mixtral widths (4 layers, 4 x 256 tokens) with
-   the fused backend (counts reset before, read after) and the
-   collective one, each against the one-device forward; the fused
-   kernel (B5) at that path's shapes against its plain version and its
-   rows against the grouped FFN's on the same rows (bit for bit), timed
-   with the library yardstick; then one Mixtral-width MoE layer at 8192
-   tokens (dropless) and the FlashMoE reference layer (capacity 32 a
-   rank and expert): B5 as at the path's shapes, the fused layer
-   against its plain version, the collective layer and (dropless) the
-   single-device layer, the in-kernel combine against the layer's, each
-   timed, one fused layer profiled;
+   the fused backend (counts reset before, read after), the collective
+   one and the dropless ragged one, each against the one-device forward;
+   the fused kernel (B5) at that path's shapes against its plain version
+   and its rows against the grouped FFN's on the same rows (bit for
+   bit), timed with the library yardstick; then one Mixtral-width MoE
+   layer at 8192 tokens (dropless) and the FlashMoE reference layer
+   (capacity 32 a rank and expert): B5 as at the path's shapes, the
+   fused layer against its plain version, the collective layer and
+   (dropless) the single-device layer, the in-kernel combine against the
+   layer's, each timed, one fused layer profiled.  On that Mixtral layer
+   the expert-parallel training paths, each with its counts reset
+   before and read after: the ragged layer (``moe_backend='ragged'``: B1
+   and B2 on each rank, B2 handed the live row count) against its plain
+   version, the dense exchange, the collective and single-device layers,
+   counts exact, timed and profiled, its backward against a plain run
+   replaying its routing, ``decode_moe_rows`` on one row a rank; the
+   collective layer over 4 ep x 2 tp ranks, forward and backward against
+   ep 8 and the single-device layer, timed with its weight-slice copy;
+   the fused layer's backward (B5 forward, B7's w [E, K, N] recompute,
+   B7 and B8) against a plain run, the collective layer's gradients and
+   the in-kernel combine's; each layer's forward+backward timed and
+   profiled; and B7's w [E, K, N] f32-output arm alone at the
+   recompute's shape, timed with its bound and ``torch.mm``;
 6. quantized expert storage: Mixtral-8x7B at its published widths and
    all 32 layers with its experts stored as int8 (random bf16 weights
    quantized layer by layer, ``quant.quantize_ffn_params``): the store's
@@ -81,9 +94,21 @@ Phases, each of which fails the run on any error:
    three ``make_train_step`` steps on 4 x 257 tokens (the training path:
    counts reset before the first step, read after it); every gradient
    against the plain versions', the loss lower after one SGD step, and the
-   step's device time split into the optimizer and ``value_and_grad``.
+   step's device time split into the optimizer and ``value_and_grad``;
+9. ep train: ``make_train_step`` over a local mesh at the same widths,
+   state and batch, each with the ragged layer (ep 8), the fused layer
+   (ep 8) and the collective layer at ep 4 x tp 2: at the initial
+   weights every gradient of ``value_and_grad`` over the mesh against the
+   plain versions' on the same mesh with the routing replayed; then three
+   AdamW steps (counts reset before the first step, read after it):
+   losses finite, step 0's against the one-device step's, step time on
+   the host clock and on the device, and the idle share; then three
+   steps without the load-balancing loss (a mean of the ranks' own over
+   a mesh) against the one-device steps without it.
 
-The second-to-last line of stdout is the kernels' JSON line, the last
+The second-to-last line of stdout is the kernels' JSON line (each
+kernel's launches on the main path of the slice that ported it, and, in
+``launches_by_path``, on the paths of phases 5 and 9 that ran it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -109,7 +134,8 @@ from flashmoe_tpu_torch.models import (generate, presets,  # noqa: E402
                                        reference, transformer)
 from flashmoe_tpu_torch.ops import (attention, expert, gate,  # noqa: E402
                                     moe, ragged)
-from flashmoe_tpu_torch.parallel import ep, fused, mesh  # noqa: E402
+from flashmoe_tpu_torch.parallel import (ep, fused, mesh,  # noqa: E402
+                                         ragged_ep)
 from flashmoe_tpu_torch.runtime import trainer  # noqa: E402
 from flashmoe_tpu_torch.tree import tree_leaves  # noqa: E402
 
@@ -1250,7 +1276,7 @@ def ep_layer_phase(tag, cfg, params, x, iters):
     combine against the layer's, and, dropless, the single-device layer:
     the same routing, so the same tokens meet the same experts.  Timed on
     CUDA events; one fused and one collective layer profiled."""
-    m = mesh.local_mesh(cfg.ep, "cuda")
+    m = mesh.local_mesh(cfg.ep, device="cuda")
     fcfg = cfg.replace(moe_backend="fused")
     rk = gate.router_cuda(x, params["gate_w"], cfg)
     rp = gate.router_plain(x, params["gate_w"], cfg)
@@ -1305,20 +1331,21 @@ def ep_layer_phase(tag, cfg, params, x, iters):
     return fused_row, times, got
 
 
-def ep_forward_phase(cfg, params):
+def ep_forward_phase(cfg, params, backends=("fused", "collective")):
     """The ep path: ``forward`` at Mixtral widths over 8 virtual ranks,
-    4 x 256 tokens, with the fused backend (counts reset before, read
-    after) and the collective one, each against the one-device forward
-    within the serve phase's tolerances."""
+    4 x 256 tokens, with each of ``backends`` (the fused one, the
+    collective one, the dropless ragged one; counts reset before, read
+    after), each against the one-device forward within the serve phase's
+    tolerances.  Returns each backend's launches."""
     g = torch.Generator(device="cuda").manual_seed(3)
     b = 4
     tokens = torch.randint(0, cfg.vocab_size, (b, 256), device="cuda",
                            generator=g)
     with RoutingLog() as one:
         want, _ = transformer.forward(params, tokens, cfg)
-    m = mesh.local_mesh(8, "cuda")
+    m = mesh.local_mesh(8, device="cuda")
     out = {}
-    for backend in ("fused", "collective"):
+    for backend in backends:
         ecfg = cfg.replace(ep=8, moe_backend=backend)
         reset_counts()
         torch.cuda.synchronize()
@@ -1367,25 +1394,32 @@ def ep_forward_phase(cfg, params):
               f"{SERVE_NEAR_TIE}, first-order flips {gap_first:.3g}) "
               f"launches={counts}")
         out[backend] = counts
-    return out["fused"]
+    return out
 
 
 def ep_phase(cfg, params):
     """Expert parallelism over 8 virtual ranks on the card: the ep path
     (``forward`` with a mesh), B5 at the shapes it gives the kernel, one
     Mixtral-width MoE layer at 8192 tokens and the FlashMoE reference
-    layer.  Returns (B5's kernels-line entry, the ep path's launches)."""
-    launches = ep_forward_phase(cfg, params)
+    layer, then that Mixtral layer's dropless ragged, tensor-parallel and
+    fused-backward paths (:func:`ep_train_layers`).  Returns (B5's and
+    B7's recompute kernels-line entries, the ep path's launches, the
+    launches of each path of this phase)."""
+    fwd = ep_forward_phase(cfg, params, ("fused", "collective", "ragged"))
+    launches = fwd["fused"]
+    paths = {"ep forward ragged": fwd["ragged"]}
     g = torch.Generator(device="cuda").manual_seed(4)
     moe0 = params["layers"][0]["moe"]
     x = torch.randn(1024, cfg.hidden_size, device="cuda", generator=g,
                     dtype=torch.bfloat16)
     entry = fused_kernel_row("ep forward shapes",
                              cfg.replace(ep=8, moe_backend="fused"), moe0, x,
-                             mesh.local_mesh(8, "cuda"), 10)
+                             mesh.local_mesh(8, device="cuda"), 10)
     x = torch.randn(8192, cfg.hidden_size, device="cuda", generator=g,
                     dtype=torch.bfloat16)
-    ep_layer_phase("ep mixtral layer", cfg.replace(ep=8), moe0, x, 3)
+    _, ep_times, _ = ep_layer_phase("ep mixtral layer", cfg.replace(ep=8),
+                                    moe0, x, 3)
+    gmm_entry = ep_train_layers(cfg, moe0, x, ep_times, paths)
     del x
     rcfg = presets.flashmoe_reference(param_dtype=torch.bfloat16, ep=8)
     rparams = reference.init_moe_params(g, rcfg, device="cuda")
@@ -1394,7 +1428,514 @@ def ep_phase(cfg, params):
     ep_layer_phase("ep reference layer", rcfg, rparams, rx, 5)
     del rparams, rx
     torch.cuda.empty_cache()
-    return entry, launches
+    return entry, gmm_entry, launches, paths
+
+
+# ----------------------------------------------------------------------
+# expert-parallel training paths: ragged, tp, the fused backward
+# ----------------------------------------------------------------------
+
+# the kernels each path of this section must launch at least once
+PATH_KERNELS = {
+    "ep forward ragged": ("gate", "grouped_ffn"),
+    "ep ragged layer": ("gate", "grouped_ffn"),
+    "ep ragged backward": ("gate", "grouped_ffn_res", "grouped_matmul",
+                           "tgmm"),
+    "ep ragged decode": ("gate", "grouped_ffn"),
+    "ep tp layer": ("gate", "grouped_ffn"),
+    "ep tp backward": ("gate", "grouped_ffn_res", "grouped_matmul", "tgmm"),
+    "ep fused backward": ("gate", "fused_ep", "grouped_matmul", "tgmm"),
+    "ep train ragged": ("gate", "grouped_ffn_res", "grouped_matmul",
+                        "tgmm"),
+    "ep train fused": ("gate", "fused_ep", "grouped_matmul", "tgmm"),
+    "ep train collective tp": ("gate", "grouped_ffn_res", "grouped_matmul",
+                               "tgmm"),
+}
+
+
+def path_counts(name, paths):
+    """The launch counts since the last reset, recorded as path ``name``;
+    fails unless each of its kernels launched."""
+    counts = launch_counts()
+    counts["grouped_matmul_hopper"] = \
+        expert.grouped_matmul_cuda.hopper_launches
+    missing = [k for k in PATH_KERNELS[name] if not counts[k]]
+    check(not missing, f"{name}: no launch of {missing} ({counts})")
+    paths[name] = counts
+    return counts
+
+
+class GroupedRowsLog:
+    """While active, records the live padded rows (``num_rows``) and the
+    buffer rows of every grouped FFN call the ragged layer makes."""
+
+    def __enter__(self):
+        self.calls, self._ffn = [], ragged_ep._grouped_ffn
+
+        def spy(x_grp, *a, num_rows=None, **kw):
+            self.calls.append((None if num_rows is None else int(num_rows),
+                               x_grp.shape[0]))
+            return self._ffn(x_grp, *a, num_rows=num_rows, **kw)
+
+        ragged_ep._grouped_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        ragged_ep._grouped_ffn = self._ffn
+
+    def check(self, tag, n):
+        check(len(self.calls) == n and all(
+            live is not None and live < rows for live, rows in self.calls),
+            f"{tag}: grouped FFN calls {self.calls}, want {n} with num_rows "
+            f"below the buffer")
+        live = [c[0] for c in self.calls]
+        return (f"num_rows {min(live)}-{max(live)} of "
+                f"{self.calls[0][1]} buffer rows")
+
+
+def ep_layer_grads(layer_fn, params, x, cfg, m, use_kernels=None,
+                   aux=True):
+    """Gradients of ``sum(out**2)`` (+ aux) of one expert-parallel layer
+    with respect to x and every parameter leaf."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    xx = x.detach().requires_grad_(True)
+    o = layer_fn(leaves, xx, cfg, m, use_kernels=use_kernels)
+    loss = (o.out.float() ** 2).sum() + (o.aux_loss if aux else 0.0)
+    return dict(zip(["x", *leaves],
+                    torch.autograd.grad(loss, [xx, *leaves.values()])))
+
+
+def ep_backward(tag, layer_fn, cfg, params, x, m, paths):
+    """The layer's gradients of ``sum(out**2) + aux`` through the kernels
+    (counts reset before, read after, as path ``tag``) against a plain run
+    that replays the kernel run's routing, every leaf within
+    GRAD_NORMWISE_TOL.  Returns the kernel run's gradients."""
+    reset_counts()
+    with RoutingLog() as rk:
+        got = ep_layer_grads(layer_fn, params, x, cfg, m)
+    torch.cuda.synchronize()
+    counts = path_counts(tag, paths)
+    with ReplayRouting(rk.calls, cfg.expert_top_k, len(rk.calls)) as rp:
+        want = ep_layer_grads(layer_fn, params, x, cfg, m, use_kernels=False)
+    torch.cuda.synchronize()
+    check(rp.n == len(rk.calls) == cfg.ep * cfg.tp,
+          f"{tag}: {len(rk.calls)} router calls with the kernels, {rp.n} "
+          f"replayed")
+    check(rp.gap <= NEAR_TIE and rp.flips <= MAX_FLIP_SHARE * x.shape[0] + 1,
+          f"{tag}: {rp.flips} routing flips, largest gap {rp.gap}")
+    errs = grad_agreement(tag, got, want)
+    del want
+    print(f"{tag}: d(sum(out**2) + aux) per leaf vs plain with the kernel "
+          f"run's routing replayed: "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+          + f" (normwise tol {GRAD_NORMWISE_TOL}); plain routing would have "
+          f"flipped {rp.flips} tokens, largest gap {rp.gap:.3g} "
+          f"launches={counts}")
+    return got
+
+
+def ragged_layer_phase(cfg, params, x, m, ep_times, paths):
+    """The dropless ragged layer at Mixtral widths over 8 virtual ranks:
+    B1 and B2 on each rank (B2 handed the live row count), against its
+    plain version, the dense exchange (bit for bit), the dropless
+    collective layer and the single-device layer (the same routing, so
+    the same tokens meet the same experts), counts exact; timed beside
+    the collective and fused layers and profiled; its backward against a
+    plain run replaying the routing; ``decode_moe_rows`` on one row a
+    rank against the single-device layer."""
+    rcfg = cfg.replace(moe_backend="ragged")
+    tag = "ep ragged layer"
+    rk = gate.router_cuda(x, params["gate_w"], cfg)
+    rp = gate.router_plain(x, params["gate_w"], cfg)
+    flips = routing_flips(rk.expert_idx, rp.expert_idx, torch.softmax(
+        reference.dot_f32(x, params["gate_w"]), -1))
+    reset_counts()
+    with GroupedRowsLog() as rows:
+        got = ragged_ep.ragged_ep_moe_layer(params, x, rcfg, m)
+        torch.cuda.synchronize()
+    counts = path_counts(tag, paths)
+    check(counts["gate"] == cfg.ep and counts["grouped_ffn"] == cfg.ep
+          and counts["fused_ep"] == counts["grouped_ffn_res"] == 0,
+          f"{tag} launches {counts}")
+    live = rows.check(tag, cfg.ep)
+    plain = ragged_ep.ragged_ep_moe_layer(params, x, rcfg, m,
+                                          use_kernels=False)
+    layer_agreement(f"{tag} vs plain", got.out, plain.out, flips)
+    del plain
+    dense = ragged_ep.ragged_ep_moe_layer(params, x, rcfg, m,
+                                          exchange="dense")
+    check(torch.equal(dense.out, got.out),
+          f"{tag}: the dense exchange differs from the ragged one")
+    del dense
+    coll = ep.ep_moe_layer(params, x, cfg, m)
+    layer_agreement(f"{tag} vs dropless collective", got.out, coll.out, 0)
+    single = moe.moe_layer(params, x, cfg.replace(ep=1))
+    layer_agreement(f"{tag} vs single-device moe_layer", got.out,
+                    single.out, 0)
+    check(torch.equal(got.expert_counts, coll.expert_counts)
+          and torch.equal(got.expert_counts, single.expert_counts)
+          and int(got.expert_counts.sum()) == x.shape[0] * cfg.expert_top_k,
+          f"{tag}: expert counts {got.expert_counts.tolist()}")
+    del coll, single
+    times = dict(ragged=cuda_ms(lambda: ragged_ep.ragged_ep_moe_layer(
+        params, x, rcfg, m), 3), ragged_dense=cuda_ms(
+        lambda: ragged_ep.ragged_ep_moe_layer(params, x, rcfg, m,
+                                              exchange="dense"), 3),
+        **{k: ep_times[k] for k in ("collective", "fused", "single_device")})
+    print(f"{tag}: E={cfg.num_experts} K={cfg.expert_top_k} "
+          f"H={cfg.hidden_size} I={cfg.intermediate_size} S={x.shape[0]} "
+          f"ep={cfg.ep} {live} launches={counts} expert_counts="
+          f"{got.expert_counts.tolist()} layer_ms "
+          + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+          + f" ({gpu_line()})")
+    device_breakdown(tag, lambda: ragged_ep.ragged_ep_moe_layer(
+        params, x, rcfg, m))
+    del got
+    ep_backward("ep ragged backward", ragged_ep.ragged_ep_moe_layer, rcfg,
+                params, x, m, paths)
+    # decode: one row a rank, each rank's own
+    xd = x[:cfg.ep]
+    reset_counts()
+    dec = ragged_ep.decode_moe_rows(m.shard_params(params), m.split(xd),
+                                    rcfg, m)
+    torch.cuda.synchronize()
+    counts = path_counts("ep ragged decode", paths)
+    want = moe.moe_layer(params, xd, cfg.replace(ep=1))
+    layer_agreement("ep ragged decode_moe_rows vs single-device moe_layer",
+                    torch.cat(dec.out), want.out, 0)
+    print(f"ep ragged decode_moe_rows: {cfg.ep} rows, one a rank: "
+          f"launches={counts}")
+
+
+def tp_layer_phase(cfg, params, x, paths):
+    """The same layer over 4 ep x 2 tp virtual ranks, collective: forward
+    (B1 on every rank, B2 on each rank's half of every expert) against ep
+    8 x tp 1 and the single-device layer; the gradients of ``sum(out**2)``
+    (the load-balancing loss is a mean over ep shards, so it differs
+    between ep 4 and ep 8 by definition) against both; timed, with the
+    weight-slice copy the mesh makes for each call.  Returns the ep 8
+    collective layer's gradients of ``sum(out**2) + aux``."""
+    tag = "ep tp layer"
+    tm = mesh.local_mesh(4, tp=2, device="cuda")
+    tcfg = cfg.replace(ep=4, tp=2)
+    m8 = mesh.local_mesh(8, device="cuda")
+    reset_counts()
+    got = ep.ep_moe_layer(params, x, tcfg, tm)
+    torch.cuda.synchronize()
+    counts = path_counts(tag, paths)
+    check(counts["gate"] == 8 and counts["grouped_ffn"] == 8,
+          f"{tag} launches {counts}")
+    e8 = ep.ep_moe_layer(params, x, cfg, m8)
+    single = moe.moe_layer(params, x, cfg.replace(ep=1))
+    layer_agreement(f"{tag} vs ep 8 x tp 1", got.out, e8.out, 0)
+    layer_agreement(f"{tag} vs single-device moe_layer", got.out, single.out,
+                    0)
+    check(torch.equal(got.expert_counts, e8.expert_counts),
+          f"{tag}: expert counts")
+    del e8, single
+    times = dict(
+        tp=cuda_ms(lambda: ep.ep_moe_layer(params, x, tcfg, tm), 3),
+        weight_slices=cuda_ms(lambda: tm.shard_params(params), 3),
+        ep8=cuda_ms(lambda: ep.ep_moe_layer(params, x, cfg, m8), 3))
+    print(f"{tag}: ep=4 tp=2 (I/tp={cfg.intermediate_size // 2}) S="
+          f"{x.shape[0]} launches={counts} layer_ms "
+          + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+          + f" (weight_slices: the contiguous tp copies of every rank, one "
+          f"per call) ({gpu_line()})")
+    device_breakdown(tag, lambda: ep.ep_moe_layer(params, x, tcfg, tm))
+    reset_counts()
+    tg = ep_layer_grads(ep.ep_moe_layer, params, x, tcfg, tm, aux=False)
+    torch.cuda.synchronize()
+    counts = path_counts("ep tp backward", paths)
+    want = ep_layer_grads(ep.ep_moe_layer, params, x, cfg, m8, aux=False)
+    e8_errs = grad_agreement("ep tp backward vs ep 8", tg, want)
+    del want
+    want = ep_layer_grads(lambda p, xx, c, _m, use_kernels=None:
+                          moe.moe_layer(p, xx, c, use_kernels=use_kernels),
+                          params, x, cfg.replace(ep=1), None, aux=False)
+    one_errs = grad_agreement("ep tp backward vs single device", tg, want)
+    del want, tg
+    print("ep tp backward: d(sum(out**2)) per leaf vs ep 8 x tp 1: "
+          + " ".join(f"{k}={v:.3g}" for k, v in e8_errs.items())
+          + "; vs the single-device layer: "
+          + " ".join(f"{k}={v:.3g}" for k, v in one_errs.items())
+          + f" (normwise tol {GRAD_NORMWISE_TOL}) launches={counts}")
+    return ep_layer_grads(ep.ep_moe_layer, params, x, cfg, m8)
+
+
+def fused_backward_phase(cfg, params, x, m, coll_grads, paths):
+    """The fused layer's backward (``_FusedCore``: B5 forward; the slabs
+    and cotangents re-exchanged, u and g recomputed by B7's w [E, K, N]
+    arm in f32 over every slab row, then B7 and B8) against a plain run
+    replaying its routing and against the collective layer's gradients;
+    the in-kernel combine's (``_FusedCombineCore``) against the layer
+    combine's.  Then fwd+bwd times of the ragged, collective, tp and
+    fused layers, and the device time of each by class."""
+    fcfg = cfg.replace(moe_backend="fused")
+    tag = "ep fused backward"
+    got = ep_backward(tag, fused.fused_ep_moe_layer, fcfg, params, x, m,
+                      paths)
+    counts = paths[tag]
+    d = cfg.ep
+    n_rec = 2 if cfg.gated_ffn else 1  # u and g recomputed
+    n_dx = 2 if cfg.gated_ffn else 1
+    check(counts["fused_ep"] == 1 and counts["gate"] == d
+          and counts["grouped_matmul"] == d * (n_rec + 1 + n_dx)
+          and counts["grouped_matmul_hopper"] == d * (1 + n_dx)
+          and counts["tgmm"] == d * (2 + int(cfg.gated_ffn))
+          and counts["grouped_ffn"] == counts["grouped_ffn_res"] == 0,
+          f"{tag} launches {counts}")
+    errs = grad_agreement(f"{tag} vs collective", got, coll_grads)
+    print(f"{tag} vs the collective layer's (dropless, the same routing): "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+          + f" (normwise tol {GRAD_NORMWISE_TOL})")
+    os.environ["FLASHMOE_FUSED_COMBINE"] = "1"
+    try:
+        comb = ep_layer_grads(fused.fused_ep_moe_layer, params, x, fcfg, m)
+        cerrs = grad_agreement(f"{tag} in-kernel combine", comb, got)
+        del comb
+        comb_ms = cuda_ms(lambda: ep_layer_grads(
+            fused.fused_ep_moe_layer, params, x, fcfg, m), 2)
+    finally:
+        del os.environ["FLASHMOE_FUSED_COMBINE"]
+    print(f"{tag}: in-kernel combine vs layer combine: "
+          + " ".join(f"{k}={v:.3g}" for k, v in cerrs.items())
+          + f" (normwise tol {GRAD_NORMWISE_TOL})")
+    del got
+    tm = mesh.local_mesh(4, tp=2, device="cuda")
+    runs = {
+        "ragged": (ragged_ep.ragged_ep_moe_layer,
+                   cfg.replace(moe_backend="ragged"), m),
+        "collective": (ep.ep_moe_layer, cfg, m),
+        "tp": (ep.ep_moe_layer, cfg.replace(ep=4, tp=2), tm),
+        "fused": (fused.fused_ep_moe_layer, fcfg, m)}
+    times = {k: cuda_ms(lambda f=f, c=c, mm=mm: ep_layer_grads(
+        f, params, x, c, mm), 2) for k, (f, c, mm) in runs.items()}
+    times["fused_combine"] = comb_ms
+    print("ep layers forward+backward (Mixtral widths, 8192 tokens) ms "
+          + " ".join(f"{k}={v:.3f}" for k, v in times.items())
+          + f" ({gpu_line()})")
+    for k, (f, c, mm) in runs.items():
+        device_breakdown(f"ep {k} layer forward+backward",
+                         lambda f=f, c=c, mm=mm: ep_layer_grads(
+                             f, params, x, c, mm), top_n=10)
+
+
+def gmm_recompute_row(cfg, params, d):
+    """B7's w [E, K, N] arm with an f32 output at the fused backward's
+    recompute shape (one owner's slabs: [d * 1024, H] @ w_up [1, H, I]):
+    against the plain version, the bare C call (``fm_grouped_matmul``),
+    its device time, the bound and per-expert ``torch.mm(...,
+    out_dtype=float32)``.  Returns the keys it adds to B7's entry."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    t, h, i = d * 1024, cfg.hidden_size, cfg.intermediate_size
+    xr = torch.randn(t, h, device="cuda", generator=g, dtype=torch.bfloat16)
+    w = params["w_up"][:1].contiguous()
+    gid = torch.zeros(t // expert.ROW_TILE, dtype=torch.int32, device="cuda")
+    got = expert.grouped_matmul_cuda(xr, gid, w, out_dtype=torch.float32)
+    want = expert.grouped_matmul_plain(xr, gid, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = check_f32("grouped_matmul recompute", got, want)
+    del got, want
+    out = torch.empty((t, i), dtype=torch.float32, device="cuda")
+    bare = (1, 0, 1, xr.data_ptr(), gid.data_ptr(), expert.ROW_TILE, None,
+            w.data_ptr(), out.data_ptr(), t, h, i, _build.stream_of(xr))
+    lib = _build.library()
+    check(lib.fm_grouped_matmul(*bare) == 0, "fm_grouped_matmul launch")
+
+    def library():
+        return torch.mm(xr, w[0], out_dtype=torch.float32)
+
+    try:
+        library()
+        lib_ok = True
+    except (TypeError, RuntimeError, NotImplementedError) as exc:
+        lib_ok = False
+        print(f"grouped_matmul recompute: torch.mm takes no out_dtype here "
+              f"({exc!r:.120})")
+    r = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: lib.fm_grouped_matmul(*bare), 5),
+        device_ms=device_ms(lambda: lib.fm_grouped_matmul(*bare), 3,
+                            ("gmm_kernel",))[0],
+        library_ms=cuda_ms(library, 5) if lib_ok else None,
+        library_device_ms=device_ms(library, 3)[0] if lib_ok else None,
+        plain_ms=cuda_ms(lambda: expert.grouped_matmul_plain(
+            xr, gid, w, out_dtype=torch.float32), 1),
+        **bound(bytes_=t * h * 2 + h * i * 2 + t * i * 4,
+                flops=2 * t * h * i))
+    print(f"grouped_matmul recompute (the fused backward's u, g): x [{t}, "
+          f"{h}] bf16 @ w [1, {h}, {i}] -> f32 on the 64 x 64 tile: "
+          f"max_abs_err={err:.3g} (rtol = atol = {F32_TOL}) kernel_ms="
+          f"{r['ms']:.4f} (bare fm_grouped_matmul, "
+          f"{2 * t * h * i / r['ms'] / 1e9:.1f} TFLOP/s) device_ms="
+          f"{fmt_ms(r['device_ms'])} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']}) library_ms={fmt_ms(r['library_ms'])} "
+          f"library_device_ms={fmt_ms(r['library_device_ms'])} (torch.mm, "
+          f"out_dtype=float32) plain_ms={r['plain_ms']:.4f} ({gpu_line()})")
+    return {f"recompute_{k}": v for k, v in r.items()}
+
+
+def ep_train_layers(cfg, params, x, ep_times, paths):
+    """This slice's layer paths at Mixtral widths over 8 virtual ranks,
+    8192 tokens: the ragged layer, the tp layer, the fused backward and
+    B7's recompute arm.  Returns B7's recompute keys."""
+    m = mesh.local_mesh(8, device="cuda")
+    base = cfg.replace(ep=8)
+    ragged_layer_phase(base, params, x, m, ep_times, paths)
+    torch.cuda.empty_cache()
+    coll = tp_layer_phase(base, params, x, paths)
+    torch.cuda.empty_cache()
+    fused_backward_phase(base, params, x, m, coll, paths)
+    del coll
+    torch.cuda.empty_cache()
+    return gmm_recompute_row(cfg, params, base.ep)
+
+
+def mesh_gradients(tag, cfg, m, params, batch):
+    """Every gradient leaf of ``value_and_grad`` over mesh ``m`` through
+    the kernels, against the same mesh run on the plain versions that
+    replays the kernel run's routing (one router call a rank and MoE
+    layer, the remat's recompute repeating them), each within
+    GRAD_NORMWISE_TOL, and non-zero where the loss reaches.  The
+    backward of every path of the mesh runs here on the card: the
+    ragged layer's row exchange and regroup under the blocks' remat, the
+    fused layer's VJP (not rematerialised), the tp sum, and B5, B6, B7
+    and B8 at this path's shapes."""
+    with RoutingLog() as rk:
+        _, _, gk = transformer.value_and_grad(params, batch, cfg, mesh=m)
+    torch.cuda.synchronize()
+    ranks = cfg.ep * cfg.tp
+    with ReplayRouting(rk.calls, cfg.expert_top_k,
+                       len(cfg.moe_layer_indices) * ranks) as rp:
+        _, _, gp = transformer.value_and_grad(params, batch, cfg,
+                                              use_kernels=False, mesh=m)
+    torch.cuda.synchronize()
+    check(rp.n == len(rk.calls) >= len(cfg.moe_layer_indices) * ranks,
+          f"{tag}: {len(rk.calls)} router calls with the kernels, {rp.n} "
+          f"replayed")
+    check(rp.gap <= SERVE_NEAR_TIE,
+          f"{tag}: a routing flip between kernels and plain is no near tie "
+          f"(probability gap {rp.gap})")
+    names = leaf_names(params)
+    got = dict(zip(names, tree_leaves(gk)))
+    want = dict(zip(names, tree_leaves(gp)))
+    del gk, gp
+    for li in range(cfg.num_layers):
+        for leaf in ("wq", "wo", "moe.gate_w", "moe.w_gate", "moe.w_up",
+                     "moe.w_down"):
+            check(float(got[f"layers[{li}].{leaf}"].float().abs().max()) > 0,
+                  f"{tag}: gradient layers[{li}].{leaf} is zero")
+    errs = grad_agreement(f"{tag} gradients", got, want)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{tag}: {len(errs)} gradient leaves of value_and_grad over the "
+          f"mesh vs the plain versions on the same mesh with the kernels' "
+          f"routing replayed, normwise max "
+          + " ".join(f"{name}={v:.3g}" for name, v in worst)
+          + f" (tol {GRAD_NORMWISE_TOL}); plain routing would have flipped "
+          f"{rp.flips} (layer, rank, token) choices, largest gap "
+          f"{rp.gap:.3g} (tol {SERVE_NEAR_TIE})")
+
+
+def train_state(cfg, opt):
+    """The train phases' initial state and batch (4 x 257 tokens), made
+    from seed 3 on the card: the same values at every call."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    state = trainer.init_state(g, cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 257), device="cuda",
+                           generator=g)
+    return state, {"tokens": tokens}
+
+
+def step_losses(step, state, batch, n=3) -> list[float]:
+    """The losses of ``n`` train steps from ``state``."""
+    losses = []
+    for _ in range(n):
+        state, mt = step(state, batch)
+        losses.append(float(mt["loss"]))
+    return losses
+
+
+def ep_train_phase(one_device_loss, paths):
+    """``make_train_step`` over a local mesh at Mixtral-8x7B's widths, 2
+    layers, bf16, AdamW, the train phase's state and batch, each with
+    the ragged layer (ep 8), the fused layer (ep 8) and the collective
+    layer at ep 4 x tp 2:
+
+    - at the initial weights, every gradient over the mesh against a
+      plain run replaying the routing (:func:`mesh_gradients`);
+    - three steps (counts reset before the first, read after it): losses
+      finite, step 0's within 1e-2 of the one-device step's, the step
+      time on the host clock and on the device, and the idle share;
+    - three steps without the load-balancing loss against the one-device
+      steps without it, each loss within 1e-2.  Over a mesh that loss is
+      the mean of the ranks' own (as in the JAX package), not the
+      one-device function; without it the mesh computes the one-device
+      loss, so step 2 (the first after a real update: warm-up makes the
+      first update zero) holds the mesh's gradients and optimizer
+      update against one device's."""
+    cfg = presets.mixtral_8x7b(num_layers=2, param_dtype=torch.bfloat16,
+                               is_training=True)
+    opt = trainer.make_optimizer(cfg, warmup_steps=1, total_steps=3)
+    no_aux = cfg.replace(aux_loss_coef=0.0)
+    state, batch = train_state(no_aux, opt)
+    ref = step_losses(trainer.make_train_step(no_aux, opt), state, batch)
+    del state
+    torch.cuda.empty_cache()
+    for name, ep_, tp_, backend in (("ragged", 8, 1, "ragged"),
+                                    ("fused", 8, 1, "fused"),
+                                    ("collective tp", 4, 2, "collective")):
+        state, batch = train_state(cfg, opt)
+        ecfg = cfg.replace(ep=ep_, tp=tp_, moe_backend=backend)
+        m = mesh.local_mesh(ep_, tp=tp_, device="cuda")
+        step = trainer.make_train_step(ecfg, opt, mesh=m)
+        tag = f"ep train {name}"
+        mesh_gradients(tag, ecfg, m, state.params, batch)
+        torch.cuda.empty_cache()
+        losses, step_ms = [], []
+        for i in range(3):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mt = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                counts = path_counts(tag, paths)
+                ce0, aux0 = float(mt["ce"]), float(mt["aux"])
+            losses.append(float(mt["loss"]))
+            check(math.isfinite(losses[-1]), f"{tag} step {i}: loss "
+                  f"{losses[-1]}")
+        rel0 = abs(losses[0] - one_device_loss) / abs(one_device_loss)
+        check(rel0 <= BF16_NORMWISE_TOL,
+              f"{tag}: step 0 loss {losses[0]} vs one device "
+              f"{one_device_loss} (relative {rel0})")
+        dev, n_k = device_breakdown(f"{tag} step",
+                                    lambda: step(state, batch), top_n=10)
+        host = min(step_ms[1:])
+        idle = "not measured" if dev is None else f"{1 - dev / host:.1%}"
+        del state, step
+        torch.cuda.empty_cache()
+        state, batch = train_state(no_aux, opt)
+        got = step_losses(trainer.make_train_step(
+            ecfg.replace(aux_loss_coef=0.0), opt, mesh=m), state, batch)
+        del state
+        torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+        check(all(r <= BF16_NORMWISE_TOL for r in rel),
+              f"{tag}: losses without the load-balancing loss {got} vs one "
+              f"device {ref} (relative {rel})")
+        print(f"{tag}: mixtral_8x7b layers=2 B=4 T=257 ep={ep_} tp={tp_} "
+              f"moe_backend={backend}: losses={[round(v, 5) for v in losses]}"
+              f" step0 ce={ce0:.5f} aux={aux0:.5f} vs one device loss "
+              f"{one_device_loss:.5f} (relative {rel0:.3g}, tol "
+              f"{BF16_NORMWISE_TOL}); without the load-balancing loss "
+              f"losses={[round(v, 5) for v in got]} vs one device "
+              f"{[round(v, 5) for v in ref]} (relative "
+              f"{[float(f'{v:.3g}') for v in rel]}, tol {BF16_NORMWISE_TOL})"
+              f" train_step_ms={[round(v, 3) for v in step_ms]} "
+              f"device_ms={fmt_ms(dev)} idle_share={idle} launches={counts}"
+              f" ({gpu_line()})")
 
 
 # ----------------------------------------------------------------------
@@ -1596,7 +2137,7 @@ def quant_layer_phase(cfg, moe_q, g):
                                    cfg.replace(ep=8), moe_q, x, 3)
     deq = quant.dequantize_state(moe_q, cfg.dtype)
     bcfg = cfg.replace(ep=8, moe_backend="fused", expert_quant=None)
-    m = mesh.local_mesh(8, "cuda")
+    m = mesh.local_mesh(8, device="cuda")
     bf = fused.fused_ep_moe_layer(deq, x, bcfg, m)
     layer_agreement(f"ep mixtral {qname} fused layer vs bf16 fused layer on "
                     f"its dequantized weights", got.out, bf.out, 0)
@@ -1647,7 +2188,7 @@ def quant_phase():
             params["layers"] = params["layers"][:4]
             cfg = cfg.replace(num_layers=4)
             torch.cuda.empty_cache()
-        counts = ep_forward_phase(cfg, params)
+        counts = ep_forward_phase(cfg, params)["fused"]
         launches[f"fused_ep_{qname}"] = counts[f"fused_ep_{qname}"]
         g = torch.Generator(device="cuda").manual_seed(23)
         moe0 = params["layers"][0]["moe"]
@@ -1656,7 +2197,7 @@ def quant_phase():
         entries.append(fused_kernel_row(
             f"{qname} ep forward shapes",
             cfg.replace(ep=8, moe_backend="fused"), moe0, x,
-            mesh.local_mesh(8, "cuda"), 10))
+            mesh.local_mesh(8, device="cuda"), 10))
         quant_f32_case(qname)
         if qname == "int8":
             quant_layer_phase(cfg, moe0, g)
@@ -2072,12 +2613,8 @@ def train_phase():
     (the training path) and a device-time breakdown of one step."""
     cfg = presets.mixtral_8x7b(num_layers=2, param_dtype=torch.bfloat16,
                                is_training=True)
-    g = torch.Generator(device="cuda").manual_seed(3)
     opt = trainer.make_optimizer(cfg, warmup_steps=1, total_steps=3)
-    state = trainer.init_state(g, cfg, opt)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 257), device="cuda",
-                           generator=g)
-    batch = {"tokens": tokens}
+    state, batch = train_state(cfg, opt)
     n_bytes = sum(t.numel() * t.element_size()
                   for t in tree_leaves((state.params, state.opt_state)))
     print(f"train: mixtral_8x7b layers={cfg.num_layers} B=4 T=257 bf16 "
@@ -2132,7 +2669,7 @@ def train_phase():
     step_dev = device_breakdown("train_step", lambda: step(state, batch),
                                 top_n=12)[0]
     optimizer_share(cfg, opt, state, batch, step_dev)
-    return launches
+    return launches, losses[0]
 
 
 def optimizer_share(cfg, opt, state, batch, step_device_ms):
@@ -2185,19 +2722,7 @@ def train_gradients(cfg, params, batch):
           f"train: a routing flip between kernels and plain is no near tie "
           f"(probability gap {rp.gap})")
     flips, gap = rp.flips, rp.gap
-    names = []
-
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            for key, v in tree.items():
-                walk(v, f"{path}.{key}" if path else key)
-        elif isinstance(tree, list):
-            for i, v in enumerate(tree):
-                walk(v, f"{path}[{i}]")
-        else:
-            names.append(path)
-
-    walk(params, "")
+    names = leaf_names(params)
     got = dict(zip(names, tree_leaves(gk)))
     want = dict(zip(names, tree_leaves(gp)))
     reached = ["embed", "lm_head", "final_norm"] + [
@@ -2218,9 +2743,29 @@ def train_gradients(cfg, params, batch):
           f"(tol {SERVE_NEAR_TIE})")
 
 
+def leaf_names(tree) -> list[str]:
+    """The dotted paths of a parameter tree's leaves, in ``tree_leaves``
+    order."""
+    names = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for key, v in t.items():
+                walk(v, f"{path}.{key}" if path else key)
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, f"{path}[{i}]")
+        else:
+            names.append(path)
+
+    walk(tree, "")
+    return names
+
+
 class ReplayRouting:
-    """While active, ``moe_layer``'s router is the plain one made to route
-    as recorded calls did (``RoutingLog.calls``), call by call, so that a
+    """While active, the MoE layers' router (``moe_layer``'s and the
+    expert-parallel layers') is the plain one made to route as recorded
+    calls did (``RoutingLog.calls``), call by call, so that a
     plain run differentiates the same function as the kernel run:
 
     - forward: the plain router's probabilities, combine weights and losses
@@ -2276,11 +2821,13 @@ class ReplayRouting:
                 aux_loss=value_of_fwd_grad_of_back(fwd.aux_loss,
                                                    back.aux_loss))
 
-        moe.router = replayed
+        for mod in RoutingLog.MODULES:
+            mod.router = replayed
         return self
 
     def __exit__(self, *exc):
-        moe.router = self._router
+        for mod in RoutingLog.MODULES:
+            mod.router = self._router
 
 
 class RoutingLog:
@@ -2288,7 +2835,7 @@ class RoutingLog:
     expert-parallel layers make (one a rank): the top-k ids and the
     softmax probabilities of its tokens."""
 
-    MODULES = (moe, ep, fused)
+    MODULES = (moe, ep, fused, ragged_ep)
 
     def __enter__(self):
         self.calls, self._router = [], moe.router
@@ -2495,7 +3042,7 @@ def main() -> int:
                gather_phase(cfg, moe0, x)]
     capacity_phase()
     launches = serve_phase(cfg, params)
-    ep_entry, ep_launches = ep_phase(cfg, params)
+    ep_entry, gmm_recompute, ep_launches, paths = ep_phase(cfg, params)
     entries.append(ep_entry)
     launches.update({k: ep_launches[k] for k in EP_KERNELS})
     del params, moe0, x
@@ -2505,10 +3052,18 @@ def main() -> int:
     launches.update(quant_launches)
     many = many_expert_phase()
     launches.update({k: many[k] for k in MANY_EXPERT_KERNELS})
-    train_launches = train_phase()
+    train_launches, one_device_loss = train_phase()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
+    ep_train_phase(one_device_loss, paths)
 
-    kernels = [dict(e, launches=launches[e["name"]]) for e in entries]
+    for e in entries:
+        if e["name"] == "grouped_matmul":
+            e.update(gmm_recompute)
+    # launches: each kernel's count on the main path of the slice that
+    # ported it; launches_by_path: its counts on this slice's paths
+    kernels = [dict(e, launches=launches[e["name"]], launches_by_path={
+        p: c[e["name"]] for p, c in paths.items() if c.get(e["name"])})
+        for e in entries]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

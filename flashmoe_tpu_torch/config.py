@@ -6,16 +6,17 @@ frozen dataclass with torch dtypes.  It carries only the fields that the
 ported slices read (one device, both MoE arms with their gather-fused
 inference form, routing statistics, tier-0 degradation and hot-expert
 replicas, the transformer, greedy generation and training) and validates
-them with the same errors.  Expert parallelism (``ep``) carries its
-transport knobs (``moe_backend``, ``a2a_chunks``, the wire dtypes and
-``fused_schedule``) with JAX's defaults and checks; ``moe_backend``
-'ragged' and 'auto' raise ``ValueError`` naming the ROADMAP item that
-ports them.  Quantized expert storage (``expert_quant``, ``quant/``) is
-checked as JAX checks it: an unknown store name, a training config and
-``tp > 1`` are refused.  Knobs of later slices are absent:
-``kv_wire_dtype``, ``serving_mode`` and ``profile_phases``; any other
-parallel axis above 1 raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+them with the same errors.  Expert parallelism (``ep``, and ``tp``, the
+Megatron split of each expert) carries its transport knobs
+(``moe_backend``, ``a2a_chunks``, the wire dtypes and
+``fused_schedule``) with JAX's defaults and checks;
+``moe_backend='auto'`` raises ``ValueError`` naming the ROADMAP item
+that ports it.  Quantized expert storage (``expert_quant``, ``quant/``)
+is checked as JAX checks it: an unknown store name, a training config
+and ``tp > 1`` are refused.  Knobs of later slices are absent:
+``kv_wire_dtype``, ``serving_mode`` and ``profile_phases``; ``dp``,
+``sp`` or ``pp`` above 1 raises ``NotImplementedError`` naming, by its
+title, the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -35,12 +36,11 @@ class Activation:
 
 
 # parallel axes of the JAX config that the port does not run yet, with the
-# ROADMAP queue-A item that ports them
+# title of the ROADMAP queue-A item that ports them
 _UNPORTED_AXES = {
-    "dp": "A.8 (trainer and runtime)",
-    "tp": "A.4 (tensor-parallel experts in _ep_moe_shard)",
-    "sp": "A.7 (ring attention over the sp axis)",
-    "pp": "A.7 (pipeline parallelism)",
+    "dp": "'Trainer and runtime' (state_shardings and dp)",
+    "sp": "'Model-parallel axes' (ring attention over sp)",
+    "pp": "'Model-parallel axes' (pipeline parallelism over pp)",
 }
 
 
@@ -93,9 +93,9 @@ class MoEConfig:
     accum_dtype: torch.dtype = torch.float32
 
     # --- expert-parallel transport (parallel/ep.py, parallel/fused.py) ---
-    # "collective" (the exchange as all-to-alls around B2) or "fused"
-    # (the single B5 kernel); "ragged" and "auto" are refused until
-    # their ROADMAP items port them
+    # "collective" (the exchange as all-to-alls around B2), "fused" (the
+    # single B5 kernel) or "ragged" (the dropless exchange of exactly the
+    # routed rows); "auto" is refused until its ROADMAP item ports it
     moe_backend: str = "collective"
     # chunked exchange pipeline over the local-expert axis; None = serial
     a2a_chunks: int | None = None
@@ -113,7 +113,7 @@ class MoEConfig:
     # FFN weights stored as 1-byte payloads with f32 scales
     expert_quant: str | None = None
 
-    # --- parallel axes (ep and 1 of each other are ported) ---
+    # --- parallel axes (ep and tp are ported; dp, sp and pp stay 1) ---
     dp: int = 1
     ep: int = 1
     tp: int = 1
@@ -145,8 +145,9 @@ class MoEConfig:
         for axis, item in _UNPORTED_AXES.items():
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
-                    f"{axis}={getattr(self, axis)}: the PyTorch port runs on "
-                    f"one device; {axis} > 1 waits for ROADMAP {item}")
+                    f"{axis}={getattr(self, axis)}: the PyTorch port does "
+                    f"not run the {axis} axis yet; {axis} > 1 waits for the "
+                    f"ROADMAP item {item}")
 
     def _check_transport(self) -> None:
         """The JAX package's checks of the expert-parallel knobs, with its
@@ -165,15 +166,15 @@ class MoEConfig:
             raise ValueError(
                 f"moe_backend={self.moe_backend!r} does not compose with "
                 f"tp>1; use moe_backend='collective'")
-        if self.moe_backend == "ragged":
+        if self.moe_backend == "ragged" and self.num_shared_experts:
             raise ValueError(
-                "moe_backend='ragged' is not ported yet: it waits for "
-                "ROADMAP A.4's remainder (ragged_ep.py); use 'collective' "
-                "or 'fused'")
+                "moe_backend='ragged' does not support shared experts; "
+                "use 'collective' or 'fused'")
         if self.moe_backend == "auto":
             raise ValueError(
-                "moe_backend='auto' is not ported yet: it waits for "
-                "ROADMAP A.10 (the planner); use 'collective' or 'fused'")
+                "moe_backend='auto' is not ported yet: it waits for the "
+                "ROADMAP item 'Host-side planes' (the planner); use "
+                "'collective', 'fused' or 'ragged'")
         from flashmoe_tpu_torch.ops import wire as _wire
 
         for knob in ("wire_dtype", "wire_dtype_combine", "wire_dtype_dcn"):

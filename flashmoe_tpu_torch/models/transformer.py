@@ -5,12 +5,18 @@ blocks with RoPE (half-split) and GQA attention, an MoE FFN on every
 ``moe_frequency``-th layer (a dense FFN elsewhere), final RMS norm and an
 lm head whose logits are f32; next-token cross-entropy plus the MoE
 losses.  Parameters are nested dicts of tensors in the JAX layout.  With
-an ep ``mesh`` (:mod:`flashmoe_tpu_torch.parallel.mesh`) and ``cfg.ep >
-1`` the MoE layers run expert-parallel, by ``cfg.moe_backend``: the
-collective layer or the fused kernel's.  With ``cfg.is_training`` every block is rematerialised in the
-backward.  Causal self-attention runs the flash kernel on CUDA tensors
-(outside autograd) and the MoE layers run the gate and grouped FFN
-kernels, forward and backward.
+a ``mesh`` (:mod:`flashmoe_tpu_torch.parallel.mesh`, ep x tp ranks) and
+``cfg.ep > 1`` the MoE layers run expert-parallel, by
+``cfg.moe_backend`` as JAX's ``_ffn`` routes them: the fused kernel's
+layer or the dropless ragged layer (without shared experts) at tp 1,
+else the collective layer, with tensor-parallel experts at ``cfg.tp >
+1``.  ``forward``, ``loss_fn``, ``value_and_grad`` and
+``sgd_train_step`` take the mesh.  With ``cfg.is_training`` every block
+is rematerialised in the backward, except the blocks whose MoE layer is
+the fused kernel's (as in JAX: its backward recomputes what it needs).
+Causal self-attention runs the flash kernel on CUDA tensors (outside
+autograd) and the MoE layers run the gate and grouped FFN kernels,
+forward and backward.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from flashmoe_tpu_torch.ops.attention import flash_attention
 from flashmoe_tpu_torch.ops.moe import moe_layer
 from flashmoe_tpu_torch.parallel.ep import ep_moe_layer
 from flashmoe_tpu_torch.parallel.fused import fused_ep_moe_layer
+from flashmoe_tpu_torch.parallel.ragged_ep import ragged_ep_moe_layer
 from flashmoe_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -135,19 +142,34 @@ def attention(layer, x, cfg: MoEConfig, positions=None,
     return ctx @ layer["wo"].to(x.dtype)
 
 
+def _fused_block(cfg: MoEConfig, li: int, mesh) -> bool:
+    """Whether layer li's MoE runs the fused kernel's layer."""
+    return (mesh is not None and cfg.ep > 1 and cfg.tp == 1
+            and cfg.moe_backend == "fused"
+            and li in cfg.moe_layer_indices)
+
+
 def _ffn(layer, x, cfg: MoEConfig, li: int, use_kernels: bool | None,
          mesh=None):
     """FFN sub-block: MoE (expert-parallel with a mesh and ep > 1, through
-    the layer ``cfg.moe_backend`` names) or dense.  Returns (out, aux + z
-    losses, the layer's MoEStats or None)."""
+    the layer ``cfg.moe_backend`` names, as ``flashmoe_tpu/models/
+    transformer.py:166-209``) or dense.  Returns (out, aux + z losses, the
+    layer's MoEStats or None)."""
     b, t, h = x.shape
     lcfg = layer_cfg(cfg, li)
     flat = x.reshape(b * t, h)
     if mesh is not None and lcfg.num_experts > 1 and cfg.ep > 1:
-        if mesh.size != cfg.ep:
-            raise ValueError(f"mesh of {mesh.size} ranks for ep={cfg.ep}")
-        layer_fn = (fused_ep_moe_layer if cfg.moe_backend == "fused"
-                    else ep_moe_layer)
+        if mesh.size != cfg.ep * cfg.tp or mesh.tp != cfg.tp:
+            raise ValueError(f"mesh of {mesh.size} ranks (tp {mesh.tp}) for "
+                             f"ep={cfg.ep} x tp={cfg.tp}")
+        backend = cfg.moe_backend
+        if backend == "fused" and cfg.tp == 1:
+            layer_fn = fused_ep_moe_layer
+        elif (backend == "ragged" and cfg.tp == 1
+                and not lcfg.num_shared_experts):
+            layer_fn = ragged_ep_moe_layer
+        else:
+            layer_fn = ep_moe_layer
         o = layer_fn(layer["moe"], flat, lcfg, mesh, use_kernels=use_kernels)
     else:
         o = moe_layer(layer["moe"], flat, lcfg, use_kernels=use_kernels)
@@ -177,22 +199,23 @@ def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None,
             *, mesh=None):
     """tokens: [B, T] int -> (logits [B, T, V] f32, summed MoE losses).
     With ``cfg.collect_stats`` a third element: the tuple of the MoE
-    layers' :class:`MoEStats`, in layer order.  ``mesh``: the ep mesh of
-    the expert-parallel MoE layers (the B * T tokens shard over its
-    ranks), None for one device.
+    layers' :class:`MoEStats`, in layer order.  ``mesh``: the mesh of
+    the expert-parallel MoE layers (the B * T tokens shard over its ep
+    ranks; it must hold ``cfg.ep * cfg.tp`` ranks), None for one device.
 
     With ``cfg.is_training`` each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are not
     kept, and the backward recomputes the block, the counterpart of
     ``jax.checkpoint(block, policy=nothing_saveable)``.  The recompute
     reruns the gate and the grouped FFN's forward; the gate kernel's
-    block-ordered sums give it the same routing."""
+    block-ordered sums give it the same routing.  A block whose MoE layer
+    is the fused kernel's is not rematerialised, as in JAX."""
     uk = _build.use_kernels_for(tokens, use_kernels)
     x = params["embed"].to(cfg.dtype)[tokens]
     total_aux = torch.zeros((), dtype=cfg.accum_dtype, device=x.device)
     layer_stats = []
     for li, layer in enumerate(params["layers"]):
-        if cfg.is_training:
+        if cfg.is_training and not _fused_block(cfg, li, mesh):
             # the block draws no random numbers: no RNG state to replay
             x, moe_loss, moe_stats = torch.utils.checkpoint.checkpoint(
                 block, layer, x, cfg, li, uk, mesh, use_reentrant=False,
@@ -208,16 +231,18 @@ def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None,
     return lm_head(params, cfg, x), total_aux
 
 
-def loss_fn(params, batch, cfg: MoEConfig, use_kernels: bool | None = None):
+def loss_fn(params, batch, cfg: MoEConfig, use_kernels: bool | None = None,
+            *, mesh=None):
     """Next-token cross-entropy + MoE aux losses.
 
     batch: dict with "tokens" [B, T] (inputs are tokens[:, :-1], targets
     tokens[:, 1:]) and optionally "mask" [B, T - 1] weighting each target.
+    ``mesh`` as in :func:`forward`.
     Returns ``(loss, {"ce": ce, "aux": aux})``, and with
     ``cfg.collect_stats`` ``"moe_stats"``, the MoE layers' stats."""
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
-    logits, aux, *stats = forward(params, inp, cfg, use_kernels)
+    logits, aux, *stats = forward(params, inp, cfg, use_kernels, mesh=mesh)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
     mask = batch.get("mask")
@@ -231,8 +256,9 @@ def loss_fn(params, batch, cfg: MoEConfig, use_kernels: bool | None = None):
 
 
 def value_and_grad(params, batch, cfg: MoEConfig,
-                   use_kernels: bool | None = None):
-    """``(loss, metrics, grads)`` of :func:`loss_fn`: grads in the nesting
+                   use_kernels: bool | None = None, *, mesh=None):
+    """``(loss, metrics, grads)`` of :func:`loss_fn` (over ``mesh``, as in
+    :func:`forward`): grads in the nesting
     of ``params``, one tensor for every floating-point leaf, None for the
     others.  A leaf the loss does not reach (a dense layer's ``gate_w``)
     gets zeros, as ``jax.grad`` gives it."""
@@ -240,7 +266,7 @@ def value_and_grad(params, batch, cfg: MoEConfig,
         lambda p: p.detach().requires_grad_(True)
         if p.is_floating_point() else p, params)
     wrt = [p for p in tree_leaves(leaves) if p.requires_grad]
-    loss, metrics = loss_fn(leaves, batch, cfg, use_kernels)
+    loss, metrics = loss_fn(leaves, batch, cfg, use_kernels, mesh=mesh)
     flat = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
                                     materialize_grads=True))
     grads = tree_map(lambda p: next(flat) if p.requires_grad else None,
@@ -249,11 +275,13 @@ def value_and_grad(params, batch, cfg: MoEConfig,
 
 
 def sgd_train_step(params, batch, cfg: MoEConfig, lr: float = 1e-3,
-                   use_kernels: bool | None = None):
-    """Minimal train step (plain SGD); the full optimizer path lives in
+                   use_kernels: bool | None = None, *, mesh=None):
+    """Minimal train step (plain SGD, over ``mesh`` as in
+    :func:`forward`); the full optimizer path lives in
     :mod:`flashmoe_tpu_torch.runtime.trainer`.  Returns ``(params, loss,
     metrics)``."""
-    loss, metrics, grads = value_and_grad(params, batch, cfg, use_kernels)
+    loss, metrics, grads = value_and_grad(params, batch, cfg, use_kernels,
+                                          mesh=mesh)
     params = tree_map(
         lambda p, g: (p - lr * g.to(p.dtype)).to(p.dtype)
         if g is not None else p, params, grads)

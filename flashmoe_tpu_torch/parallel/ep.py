@@ -24,8 +24,15 @@ mesh's all-to-all and reductions.  Quantized expert storage enters
 through the boundary hook on each rank's shard
 (``flashmoe_tpu/parallel/ep.py:220-235``): payloads dequantize to the
 compute dtype, full-precision weights fake-quantize, and with the knob
-off a quantized store is refused.  Left out: the tensor-parallel split
-of the experts (``tp`` stays refused by the config).
+off a quantized store is refused.
+
+With ``tp`` (on a local mesh of ep x tp ranks) each expert's
+intermediate dimension is Megatron-split over the tp ranks
+(``flashmoe_tpu/parallel/ep.py:198-290``): the mesh hands each rank its
+column-parallel slice of ``w_up``/``w_gate``/``b_up`` and row-parallel
+slice of ``w_down`` (one contiguous copy each for the call), each tp rank
+adds ``b_down / tp``, and the FFN's output is summed over the tp group
+after every FFN call (the serial slab, or each ``a2a_chunks`` chunk).
 """
 
 from __future__ import annotations
@@ -134,9 +141,11 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
                   use_kernels: bool) -> MoEOutput:
     """The layer over the held ranks: ``params`` and ``xs`` are one
     expert-sharded parameter dict and one [S_loc, H] token shard per held
-    rank.  Returns the held ranks' outputs joined, and the losses, counts
-    and stats reduced over the mesh."""
-    d = mesh.size
+    rank.  On a tp mesh the params are each rank's tp slice and the FFN's
+    partial outputs are summed over each tp group.  Returns the held
+    ranks' outputs joined, and the losses, counts and stats reduced over
+    the mesh's ep axis."""
+    d = mesh.ep
     s_loc, h = xs[0].shape
     e = cfg.num_experts
     nlx = e // d
@@ -148,6 +157,10 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
                  else None)
     params = [qt.ffn_compute_params(p, cfg, out_dtype=cfg.dtype)
               for p in params]
+    # row-parallel down bias: each tp rank adds 1/tp of it, so that the
+    # tp sum holds it exactly once
+    ffn_params = ([dict(p, b_down=p["b_down"] / mesh.tp) for p in params]
+                  if mesh.tp > 1 else params)
     wire_disp = wr.resolve(cfg.wire_dtype)
     wire_comb = wr.resolve(cfg.wire_dtype_combine)
     hier_on = dcn_inner is not None and 1 < dcn_inner < d
@@ -186,14 +199,15 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
     for ck in range(n_chunks):
         lo = ck * nc
         recv = exchange([s[:, lo:lo + nc] for s in sends], wire_disp, False)
-        ysend = []
-        for rv, p in zip(recv, params):
+        ys = []
+        for rv, p in zip(recv, ffn_params):
             p_k = {k: (v[lo:lo + nc] if k in _FFN_KEYS else v)
                    for k, v in p.items()}
             buf = rv.transpose(0, 1).reshape(nc, d * cap, h)
-            y = exp.capacity_buffer_ffn_ad(buf, p_k, cfg,
-                                           use_kernels=use_kernels)
-            ysend.append(y.reshape(nc, d, cap, h).transpose(0, 1))
+            ys.append(exp.capacity_buffer_ffn_ad(buf, p_k, cfg,
+                                                 use_kernels=use_kernels))
+        ys = mesh.tp_psum(ys)
+        ysend = [y.reshape(nc, d, cap, h).transpose(0, 1) for y in ys]
         for errs, wd in ((comb_errs, wire_comb), (dcn_errs, wire_dcn)):
             err = stat_err(ysend, wd)
             if err is not None:
@@ -257,7 +271,8 @@ def ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     sliced per rank by the mesh); x: the global [S, H] tokens on a local
     mesh, this process's shard on a process mesh (the output follows).
     ``dcn_inner``: ranks per slice for the two-stage exchange; None or 0
-    is the flat one.  ``use_kernels`` as in
+    is the flat one.  On a mesh with a tp axis each expert is
+    Megatron-split over the tp ranks.  ``use_kernels`` as in
     :func:`flashmoe_tpu_torch.ops.moe.moe_layer`."""
     if dcn_inner == 0:
         dcn_inner = None
@@ -268,7 +283,7 @@ def ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
         zero = torch.zeros((), dtype=cfg.accum_dtype, device=x.device)
         return MoEOutput(dense_ffn(params, x, cfg), zero, zero,
                          torch.full((1,), x.shape[0] * (
-                             mesh.size if not mesh.is_local else 1),
+                             mesh.ep if not mesh.is_local else 1),
                              dtype=torch.long, device=x.device))
     return _ep_moe_shard(mesh, mesh.shard_params(params), mesh.split(x),
                          cfg, dcn_inner=dcn_inner,

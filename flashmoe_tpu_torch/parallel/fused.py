@@ -16,9 +16,20 @@ The ranks are the virtual ranks of a local mesh
 regions of the kernel's symmetric heap are slices of allocations on one
 card, the data regions made for each call, the flag words kept per
 device.  A process mesh, with peer heaps mapped from other GPUs, waits for
-the multi-GPU transport (ROADMAP A.5).  This is the inference path: under
-autograd the kernel's wrapper refuses, and the fused layer's backward
-(``fused.py:1696-1897``) waits for ROADMAP A.6.
+the multi-GPU transport (the ROADMAP item 'Blocked on hardware: the
+multi-GPU transport').
+
+Under autograd the layer runs the kernel inside two
+``torch.autograd.Function``s, the counterparts of JAX's custom VJPs
+(``fused.py:1696-1897``): :class:`_FusedCore` (the slabs out, the
+layer's combine outside) and :class:`_FusedCombineCore` (the in-kernel
+combine, ``w_sorted`` differentiable so that router gradients flow
+through it).  Their backward, :func:`_ffn_bwd_from_dy`, re-exchanges the
+slabs and the cotangents through ``Mesh.all_to_all``, recomputes the
+pre-activations u (+ ``b_up``) and g with the grouped matmul (B7, w
+[E, K, N], f32 out) over every slab row, occupied or not, and runs
+``ffn_backward_core`` (B7, B8).  The kernel's wrapper itself keeps
+refusing autograd.
 
 The four schedule names of the JAX kernel stay, and map to two
 processing orders of the one kernel: ``stream`` and ``resident`` take the
@@ -289,7 +300,8 @@ def fused_shard_plain(send_cnt, src_order, x_send, w_up, b_up, w_down,
                       b_down, w_gate=None, *, act_name: str,
                       gated: bool = False, schedule: str = "stream",
                       recv_pos=None, w_sorted=None, k: int = 1,
-                      wup_sc=None, wdn_sc=None, wg_sc=None):
+                      wup_sc=None, wdn_sc=None, wg_sc=None,
+                      return_sorted: bool = False):
     """Plain torch version of the fused kernel over the stacked ranks.
 
     x_send [D, D, nLx, C, H] (rank, destination, local expert, slot);
@@ -302,7 +314,9 @@ def fused_shard_plain(send_cnt, src_order, x_send, w_up, b_up, w_down,
     [D, D, nLx, C, H] (rank, owner, ...).  With ``recv_pos``
     ([D, D, nLx, C], owner-major) and ``w_sorted`` [D, rows_pad] the
     returned rows land at their token-sorted rows and the result is the
-    k-row weighted combine, [D, rows_pad / k, H] f32.  ``src_order``
+    k-row weighted combine, [D, rows_pad / k, H] f32 (with
+    ``return_sorted`` also the token-sorted rows y_sorted [D, rows_pad,
+    H], zero where nothing returned).  ``src_order``
     (checked as the kernel checks it) and ``schedule`` order the kernel's
     work and do not change the values.
 
@@ -349,7 +363,8 @@ def fused_shard_plain(send_cnt, src_order, x_send, w_up, b_up, w_down,
     w = w_sorted.float()[..., None]
     yw = torch.where(w != 0, y_sorted.float(), torch.zeros(
         (), device=w.device)) * w
-    return yw.reshape(d, rows_pad // k, k, h).sum(2)
+    out = yw.reshape(d, rows_pad // k, k, h).sum(2)
+    return (out, y_sorted) if return_sorted else out
 
 
 class _Flags:
@@ -431,10 +446,12 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
                      gated: bool = False, schedule: str = "stream",
                      recv_pos=None, w_sorted=None, k: int = 1,
                      wup_sc=None, wdn_sc=None, wg_sc=None,
+                     return_sorted: bool = False,
                      blocks_per_rank: int | None = None,
                      timeout_s: float = TIMEOUT_S):
     """The fused kernel (``csrc/fused_ep.cu``) on CUDA tensors, with
     :func:`fused_shard_plain`'s arguments and results; rows past a count
+    (and, with ``return_sorted``, y_sorted's rows nothing returned into)
     are unspecified here.  ``src_order`` is a [D, D] array (None: the
     ring).  ``blocks_per_rank`` defaults to the most the card keeps
     resident; a grid larger than that raises ValueError, never launches.
@@ -536,7 +553,7 @@ def fused_shard_cuda(send_cnt, src_order, x_send, w_up, b_up, w_down,
     fused_shard_cuda.launches += 1
     fused_shard_cuda.store_launches[_STORES[wq]] += 1
     if combine:
-        return out
+        return (out, ret) if return_sorted else out
     return ret.view(d, d, nlx, ch, h)[:, :, :, :c].contiguous()
 
 
@@ -572,6 +589,9 @@ class FusedInputs(NamedTuple):
     cap_pad: int
     s_loc: int
     quant_err: list | None = None
+    #: with the in-kernel combine, each source's [D, nLx, C] sorted row of
+    #: each slab slot (the backward's map), stacked
+    ret_pos: torch.Tensor | None = None
 
 
 def _quant_weights(params, cfg: MoEConfig, mesh):
@@ -622,7 +642,11 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
     if not mesh.is_local:
         raise NotImplementedError(
             "fused_ep_moe_layer runs the ranks of a local mesh; one rank "
-            "per process waits for the multi-GPU transport (ROADMAP A.5)")
+            "per process waits for the ROADMAP item 'Blocked on hardware: "
+            "the multi-GPU transport'")
+    if mesh.tp > 1:
+        raise ValueError("the fused layer runs at tp 1; use "
+                         "moe_backend='collective' on a tp mesh")
     d = mesh.size
     schedule = _fused_schedule(d, cfg.fused_schedule)
     weights, scale_kw, quant_err = _quant_weights(params, cfg, mesh)
@@ -648,6 +672,7 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
     args = (torch.stack(counts), so, torch.stack(sends), *weights)
     kw = dict(act_name=cfg.hidden_act, gated=cfg.gated_ffn,
               schedule=schedule, use_kernels=uk, **scale_kw)
+    ret_pos = None
     # tier-0 degradation needs the per-expert outputs before the combine
     if _fuse_combine_enabled(cfg, d) and not cfg.degrade_unhealthy_experts:
         k = cfg.expert_top_k
@@ -659,13 +684,174 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
                    .reshape(d, nlx, cap_pad) for m in maps]
         kw.update(recv_pos=torch.stack(mesh.all_to_all(ret_pos)),
                   w_sorted=torch.stack([m[1] for m in maps]), k=k)
-    return FusedInputs(rs, plans, args, kw, cap, cap_pad, s_loc, quant_err)
+        ret_pos = torch.stack(ret_pos)
+    return FusedInputs(rs, plans, args, kw, cap, cap_pad, s_loc, quant_err,
+                       ret_pos)
+
+
+# ----------------------------------------------------------------------
+# the differentiable core: the kernel forward, a grouped-matmul backward
+# ----------------------------------------------------------------------
+#
+# The kernel's dataflow is  x_send --a2a--> x_recv --FFN--> y_stage
+# --a2a--> y_back.  The exchange is its own transpose, so the backward
+# re-exchanges the primals and the cotangents and runs every large GEMM
+# (the pre-activation recompute, dHidden and dX, the weight gradients)
+# through the grouped kernels.  Expert shards are disjoint across ranks:
+# the weight gradients need no reduction.
+
+def _ffn_bwd_from_dy(mesh, x_send, w_up, b_up, w_down, b_down, w_gate, dy,
+                     *, act_name: str, use_kernels: bool):
+    """The shared backward tail (``fused.py:1729``): the cotangent ``dy``
+    of the returned slabs y_back [D, D, nLx, C, H] -> the gradients of
+    (x_send, w_up, b_up, w_down, b_down, w_gate).  Per owner rank its
+    received slabs (and cotangents) are one expert-major buffer of every
+    slab row, C padded to the kernels' 64-row tile; u = x @ w_up + b_up
+    and g = x @ w_gate are recomputed in f32 by the grouped matmul with
+    w [E, K, N], then ``ffn_backward_core`` runs."""
+    d, _, nlx, c, h = x_send.shape
+    gated = w_gate is not None
+    ch = -(-c // ROW_TILE) * ROW_TILE
+    pad = (0, 0, 0, ch - c)
+    x_recv = mesh.all_to_all(list(torch.nn.functional.pad(x_send, pad)))
+    dy_stage = mesh.all_to_all(list(torch.nn.functional.pad(
+        dy.to(x_send.dtype), pad)))
+    tiles = d * ch // ROW_TILE
+    gid = torch.arange(nlx * tiles, device=x_send.device) // tiles
+    kw = dict(use_kernels=use_kernels)
+    d_x, d_wu, d_bu, d_wd, d_bd, d_wg = ([] for _ in range(6))
+    for r in range(d):
+        own = slice(r * nlx, (r + 1) * nlx)
+        xr = x_recv[r].transpose(0, 1).reshape(nlx * d * ch, h)
+        dyr = dy_stage[r].transpose(0, 1).reshape(nlx * d * ch, h)
+        u = exp.grouped_matmul(xr, gid, w_up[own], out_dtype=torch.float32,
+                               **kw)
+        u = (u.reshape(nlx, d * ch, -1) + b_up[own, None, :].float()
+             ).reshape(u.shape)
+        g = (exp.grouped_matmul(xr, gid, w_gate[own],
+                                out_dtype=torch.float32, **kw)
+             if gated else None)
+        grads = exp.ffn_backward_core(
+            xr, gid, w_up[own], w_down[own],
+            w_gate[own] if gated else None, u, g, dyr, act_name=act_name,
+            gated=gated, **kw)
+        del u, g
+        for acc, t in zip((d_x, d_wu, d_bu, d_wd, d_bd, d_wg), grads):
+            acc.append(t)
+        d_x[-1] = d_x[-1].to(x_send.dtype).reshape(nlx, d, ch, h) \
+            .transpose(0, 1)
+    d_x_send = torch.stack(mesh.all_to_all(d_x))[..., :c, :]
+    return (d_x_send, torch.cat(d_wu).to(w_up.dtype),
+            torch.cat(d_bu).to(b_up.dtype), torch.cat(d_wd).to(w_down.dtype),
+            torch.cat(d_bd).to(b_down.dtype),
+            torch.cat(d_wg).to(w_gate.dtype) if gated else None)
+
+
+class _FusedCore(torch.autograd.Function):
+    """The fused kernel returning its slabs (``_fused_core``,
+    ``fused.py:1708``): forward B5 (or its plain version), backward
+    :func:`_ffn_bwd_from_dy` (``_fused_core_bwd``, ``:1783``).  Rows past
+    a count are unspecified in the kernel's output; the layer's combine
+    never reads them, so their cotangent is zero."""
+
+    @staticmethod
+    def forward(ctx, x_send, w_up, b_up, w_down, b_down, w_gate, send_cnt,
+                src_order, mesh, kw):
+        ctx.save_for_backward(x_send, w_up, b_up, w_down, b_down, w_gate)
+        ctx.mesh, ctx.kw = mesh, kw
+        return fused_shard(send_cnt, src_order, x_send, w_up, b_up, w_down,
+                           b_down, w_gate, **kw)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = _ffn_bwd_from_dy(
+            ctx.mesh, *ctx.saved_tensors, dy, act_name=ctx.kw["act_name"],
+            use_kernels=ctx.kw["use_kernels"])
+        return (*grads, None, None, None, None)
+
+
+class _FusedCombineCore(torch.autograd.Function):
+    """The fused kernel with the in-kernel combine
+    (``_fused_combine_core``, ``fused.py:1816``): forward B5 writing the
+    returned rows at their token-sorted rows and combining them; backward
+    (``_fused_combine_core_bwd``, ``:1844``) peels the combine, each
+    occupied slab slot's cotangent ``w_sorted[row] * dout[row // k]``
+    through its sorted row ``ret_pos``, unoccupied slots a hard zero, then
+    :func:`_ffn_bwd_from_dy`.  ``w_sorted``'s gradient is ``<dout[r //
+    k], y_sorted[r]>`` on the rows some occupied slot returned into;
+    y_sorted's other rows are unwritten by the kernel, so they are masked
+    before any arithmetic (a NaN there must not leak)."""
+
+    @staticmethod
+    def forward(ctx, x_send, w_up, b_up, w_down, b_down, w_gate, w_sorted,
+                send_cnt, src_order, ret_pos, mesh, kw):
+        out, y_sorted = fused_shard(send_cnt, src_order, x_send, w_up, b_up,
+                                    w_down, b_down, w_gate,
+                                    w_sorted=w_sorted, return_sorted=True,
+                                    **kw)
+        ctx.save_for_backward(x_send, w_up, b_up, w_down, b_down, w_gate,
+                              w_sorted, send_cnt, ret_pos, y_sorted)
+        ctx.mesh, ctx.kw = mesh, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (x_send, w_up, b_up, w_down, b_down, w_gate, w_sorted, send_cnt,
+         ret_pos, y_sorted) = ctx.saved_tensors
+        d, rows_pad = w_sorted.shape
+        k = ctx.kw["k"]
+        c = x_send.shape[3]
+        dout = dout.float()  # [D, rows_pad // k, H]
+        occupied = (torch.arange(c, device=x_send.device)
+                    < send_cnt[..., None])  # [src, dst, nLx, C]
+        pos = ret_pos.long()
+        src = torch.arange(d, device=pos.device)[:, None, None, None]
+        w_slab = w_sorted[src, pos]  # [src, dst, nLx, C]
+        dy = torch.where(occupied[..., None],
+                         w_slab[..., None] * dout[src, pos // k],
+                         torch.zeros((), device=dout.device))
+        grads = _ffn_bwd_from_dy(
+            ctx.mesh, x_send, w_up, b_up, w_down, b_down, w_gate, dy,
+            act_name=ctx.kw["act_name"], use_kernels=ctx.kw["use_kernels"])
+        occ_rows = torch.zeros((d, rows_pad + 1), dtype=torch.bool,
+                               device=pos.device)
+        occ_rows.scatter_(1, torch.where(occupied, pos, rows_pad)
+                          .reshape(d, -1), True)
+        occ_rows = occ_rows[:, :rows_pad, None]
+        zero = torch.zeros((), device=dout.device)
+        y = torch.where(occ_rows, y_sorted.float(), zero)
+        tok = torch.arange(rows_pad, device=pos.device) // k
+        d_ws = torch.where(occ_rows[..., 0],
+                           (dout[:, tok] * y).sum(-1), zero)
+        return (*grads, d_ws.to(w_sorted.dtype), None, None, None, None,
+                None)
+
+
+def fused_core(fi: FusedInputs, mesh):
+    """The fused kernel on the layer's inputs (:func:`fused_inputs`): a
+    plain :func:`fused_shard` call, or, with grad enabled and an input
+    requiring grad (x_send, a weight or ``w_sorted``), through
+    :class:`_FusedCore` / :class:`_FusedCombineCore`.  A quantized store
+    always takes the plain call: ``expert_quant`` is inference-only."""
+    send_cnt, so, x_send, *weights = fi.args
+    kw = dict(fi.kw)
+    quant = "wup_sc" in kw
+    if quant or not torch.is_grad_enabled() or not any(
+            t is not None and t.requires_grad
+            for t in (x_send, *weights, kw.get("w_sorted"))):
+        return fused_shard(*fi.args, **kw)
+    if "recv_pos" not in kw:
+        return _FusedCore.apply(x_send, *weights, send_cnt, so, mesh, kw)
+    w_sorted = kw.pop("w_sorted")
+    return _FusedCombineCore.apply(x_send, *weights, w_sorted, send_cnt, so,
+                                   fi.ret_pos, mesh, kw)
 
 
 def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *, src_order=None,
                        use_kernels: bool | None = None):
     """Expert-parallel MoE layer through the fused kernel; the contract of
-    :func:`flashmoe_tpu_torch.parallel.ep.ep_moe_layer` on a local mesh.
+    :func:`flashmoe_tpu_torch.parallel.ep.ep_moe_layer` on a local mesh,
+    differentiable (:func:`fused_core`).
 
     ``src_order`` ([D, D]; row r the order in which rank r takes source
     slabs, starting with r) overrides the ring.  Shared experts run
@@ -673,7 +859,7 @@ def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *, src_order=None,
     runs or the call raises."""
     fi = fused_inputs(params, x, cfg, mesh, src_order=src_order,
                       use_kernels=use_kernels)
-    res = fused_shard(*fi.args, **fi.kw)
+    res = fused_core(fi, mesh)
     e, h = cfg.num_experts, x.shape[1]
     outs, healthy = [], []
     if "recv_pos" in fi.kw:

@@ -1,8 +1,11 @@
-"""Training loop on one device: AdamW train step with the gradient guard.
+"""Training loop: AdamW train step with the gradient guard, on one device
+or over an expert-parallel mesh.
 
-Counterpart of ``flashmoe_tpu/runtime/trainer.py:27-219`` without the
-mesh (the port runs on one device) and without the host-side planes of
-later slices (flight recorder, SLO watchdog, runtime controller, live
+Counterpart of ``flashmoe_tpu/runtime/trainer.py:27-219``.  A mesh (ep x
+tp virtual ranks of one device, :mod:`flashmoe_tpu_torch.parallel.mesh`)
+reaches the MoE layers through ``make_train_step(..., mesh=)``; JAX's
+``state_shardings`` and ``dp`` are not ported, nor the host-side planes
+of later slices (flight recorder, SLO watchdog, runtime controller, live
 telemetry).  The optimizer is optax's chain written out as plain functions
 on tensors, so that it can be held against optax step for step:
 ``clip_by_global_norm(1.0)``, then ``adamw`` over
@@ -178,8 +181,15 @@ def init_state(generator: torch.Generator, cfg: MoEConfig,
 
 def make_train_step(cfg: MoEConfig, optimizer: Optimizer,
                     guard: GradGuardConfig | None = None,
-                    use_kernels: bool | None = None) -> Callable:
+                    use_kernels: bool | None = None, *,
+                    mesh=None) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``.
+
+    ``mesh``: the ep x tp mesh of the expert-parallel MoE layers
+    (:mod:`flashmoe_tpu_torch.parallel.mesh`; the batch's tokens shard
+    over its ep ranks), None for one device.  JAX's ``state_shardings``
+    and ``dp`` are not ported: the state lives whole on the device of
+    the local mesh.
 
     ``guard`` arms the gradient anomaly guard: the state must then carry a
     :class:`GuardState` (``init_state(..., guard=guard)``), and the metrics
@@ -191,7 +201,7 @@ def make_train_step(cfg: MoEConfig, optimizer: Optimizer,
 
     def step_fn(state: TrainState, batch):
         loss, metrics, grads = transformer.value_and_grad(
-            state.params, batch, cfg, use_kernels)
+            state.params, batch, cfg, use_kernels, mesh=mesh)
         gnorm = global_norm(grads)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
         if guard is None:
@@ -260,8 +270,9 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
           generator: torch.Generator | None = None, log_every: int = 10,
           state: TrainState | None = None,
           guard: GradGuardConfig | None = None,
-          use_kernels: bool | None = None):
-    """Simple host training loop.  Returns ``(state, history)``: history
+          use_kernels: bool | None = None, *, mesh=None):
+    """Simple host training loop (over ``mesh``, as
+    :func:`make_train_step`).  Returns ``(state, history)``: history
     holds the metrics of every ``log_every``-th step and of the last one,
     as floats, with ``step_ms`` (host clock, the step ended by reading its
     metrics back).  Without ``state`` the parameters are drawn from
@@ -272,7 +283,7 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
             generator = torch.Generator(device="cuda").manual_seed(0)
         state = init_state(generator, cfg, optimizer, guard=guard)
     step = make_train_step(cfg, optimizer, guard=guard,
-                           use_kernels=use_kernels)
+                           use_kernels=use_kernels, mesh=mesh)
     history = []
     for i in range(num_steps):
         batch = next(data_iter)

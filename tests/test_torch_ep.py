@@ -172,11 +172,11 @@ def test_local_mesh_holds_its_ranks_on_its_device():
     """A local mesh given a device splits tokens there and refuses tokens
     elsewhere; without one it takes them wherever they are."""
     x = torch.arange(8.0).reshape(4, 2)
-    assert [t.tolist() for t in local_mesh(2, "cpu").split(x)] == [
+    assert [t.tolist() for t in local_mesh(2, device="cpu").split(x)] == [
         [[0.0, 1.0], [2.0, 3.0]], [[4.0, 5.0], [6.0, 7.0]]]
     assert len(local_mesh(4).split(x)) == 4
     with pytest.raises(ValueError, match="holds its ranks on meta"):
-        local_mesh(2, "meta").split(x)
+        local_mesh(2, device="meta").split(x)
 
 
 def test_chunk_divisor_and_config_errors():
@@ -184,14 +184,25 @@ def test_chunk_divisor_and_config_errors():
         TorchConfig(**LAYER, ep=4, a2a_chunks=3)
     with pytest.raises(ValueError, match="divide evenly over ep"):
         TorchConfig(**LAYER, ep=3)
-    with pytest.raises(ValueError, match="A.4"):
-        TorchConfig(**LAYER, ep=2, moe_backend="ragged")
-    with pytest.raises(ValueError, match="A.10"):
+    # ported: the ragged backend and tp construct
+    assert TorchConfig(**LAYER, ep=2, moe_backend="ragged").ep == 2
+    assert TorchConfig(**LAYER, ep=2, tp=2).tp == 2
+    # the refusals that remain, with JAX's errors or the ROADMAP title
+    with pytest.raises(ValueError, match="does not support shared experts"):
+        TorchConfig(**LAYER, ep=2, moe_backend="ragged",
+                    num_shared_experts=1)
+    with pytest.raises(ValueError, match="'Host-side planes'"):
         TorchConfig(**LAYER, ep=2, moe_backend="auto")
-    with pytest.raises(ValueError, match="tp>1"):
-        TorchConfig(**LAYER, ep=2, tp=2, moe_backend="fused")
-    with pytest.raises(NotImplementedError, match="tp"):
-        TorchConfig(**LAYER, ep=2, tp=2)
+    for backend in ("fused", "ragged"):
+        with pytest.raises(ValueError, match="tp>1"):
+            TorchConfig(**LAYER, ep=2, tp=2, moe_backend=backend)
+    with pytest.raises(ValueError, match="expert_quant does not compose"):
+        TorchConfig(**LAYER, ep=2, tp=2, expert_quant="int8")
+    for axis, title in (("dp", "'Trainer and runtime'"),
+                        ("sp", "'Model-parallel axes'"),
+                        ("pp", "'Model-parallel axes'")):
+        with pytest.raises(NotImplementedError, match=title):
+            TorchConfig(**LAYER, ep=2, **{axis: 2})
     # the shard body re-checks against the mesh it is given
     tc = TorchConfig(**LAYER, sequence_len=64, a2a_chunks=4)
     p = params_from_numpy(moe_params(tc, 0), device="cpu")

@@ -1,0 +1,127 @@
+"""PyTorch port: the fused layer's backward (``_FusedCore``,
+``_FusedCombineCore`` and ``_ffn_bwd_from_dy`` in
+``flashmoe_tpu_torch/parallel/fused.py``), with the kernel's plain version
+as the forward on the CPU, against ``jax.grad`` of the JAX package's
+collective ``ep_moe_layer(use_pallas=False)`` on the same numpy inputs:
+the same comparison as JAX's own
+``test_fused_gradients_match_collective_path`` (JAX's fused layer itself
+runs only in Pallas interpret mode, which these tests never call)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashmoe_tpu.parallel import ep as jep
+from flashmoe_tpu.parallel.mesh import make_mesh
+from flashmoe_tpu_torch.convert import params_from_numpy
+from flashmoe_tpu_torch.parallel import fused
+from flashmoe_tpu_torch.parallel.mesh import local_mesh
+
+from test_torch_ep import LAYER, TOL, _cfgs, jax0, moe_params, tokens
+
+CASES = {
+    # name: (ep, config fields)
+    "plain": (4, dict(drop_tokens=False)),
+    "gated": (4, dict(drop_tokens=False, gated_ffn=True,
+                      hidden_act="silu")),
+    "drops": (4, dict(capacity_factor=1.0)),
+    "gated_shared_ep2": (2, dict(gated_ffn=True, hidden_act="gelu",
+                                 num_shared_experts=1,
+                                 capacity_factor=1.25)),
+}
+
+
+def _jax_grads(p, x, jc, ep):
+    mesh = make_mesh(jc, dp=1, devices=jax.devices()[:ep])
+
+    def jloss(jp, jx, cfg, mesh):
+        o = jep.ep_moe_layer(jp, jx, cfg, mesh, use_pallas=False)
+        return jnp.sum(o.out.astype(jnp.float32) ** 2) + o.aux_loss
+
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    wp, wx = jax0(jax.grad(jloss, argnums=(0, 1)), jp, jnp.asarray(x),
+                  cfg=jc, mesh=mesh)
+    return {"x": np.asarray(wx), **{k: np.asarray(v) for k, v in wp.items()}}
+
+
+def _port_grads(p, x, tc, ep):
+    leaves = {k: v.requires_grad_(True)
+              for k, v in params_from_numpy(p, device="cpu").items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    o = fused.fused_ep_moe_layer(leaves, tx, tc, local_mesh(ep))
+    loss = (o.out.float() ** 2).sum() + o.aux_loss
+    grads = torch.autograd.grad(loss, [tx, *leaves.values()])
+    return dict(zip(["x", *leaves], grads))
+
+
+@pytest.mark.parametrize("combine", [False, True])
+@pytest.mark.parametrize("case", list(CASES))
+def test_fused_gradients_match_jax(case, combine, monkeypatch):
+    """Every leaf's gradient and the input's, through the layer combine
+    (``_FusedCore``) and the in-kernel combine (``_FusedCombineCore``,
+    whose ``w_sorted`` carries the router's gradient)."""
+    if combine:
+        monkeypatch.setenv("FLASHMOE_FUSED_COMBINE", "1")
+    ep, fields = CASES[case]
+    jc, tc = _cfgs(**{**LAYER, "sequence_len": 32 * ep, "ep": ep, **fields})
+    p, x = moe_params(tc, seed=ep + 20), tokens(tc, seed=ep + 20)
+    want = _jax_grads(p, x, jc, ep)
+    got = _port_grads(p, x, tc.replace(moe_backend="fused"), ep)
+    assert set(got) == set(want)
+    for name, g in got.items():
+        w = want[name]
+        np.testing.assert_allclose(
+            g.numpy(), w, rtol=TOL["f32"],
+            atol=TOL["f32"] * max(1.0, float(np.abs(w).max())),
+            err_msg=name)
+
+
+def test_combine_backward_masks_unwritten_rows():
+    """``_FusedCombineCore``'s backward on a y_sorted whose unwritten rows
+    hold NaN (as the kernel leaves them): every gradient stays finite and
+    equals the one with zeros there."""
+    ep = 4
+    _, tc = _cfgs(**{**LAYER, "sequence_len": 32 * ep, "ep": ep,
+                     "capacity_factor": 1.0})
+    p, x = moe_params(tc, 9), tokens(tc, 9)
+    shard = fused.fused_shard
+
+    def nan_tail(*a, return_sorted=False, **kw):
+        out = shard(*a, return_sorted=return_sorted, **kw)
+        if not return_sorted:
+            return out
+        out, y_sorted = out
+        written = torch.zeros(y_sorted.shape[:2], dtype=torch.bool)
+        pos = kw["recv_pos"].transpose(0, 1).long()  # [src, owner, e, C]
+        live = torch.arange(pos.shape[-1]) < a[0][..., None]
+        for s in range(pos.shape[0]):
+            written[s, pos[s][live[s]]] = True
+        return out, torch.where(written[..., None], y_sorted,
+                                torch.full((), float("nan")))
+
+    mp = pytest.MonkeyPatch()
+    mp.setenv("FLASHMOE_FUSED_COMBINE", "1")
+    try:
+        clean = _port_grads(p, x, tc.replace(moe_backend="fused"), ep)
+        mp.setattr(fused, "fused_shard", nan_tail)
+        dirty = _port_grads(p, x, tc.replace(moe_backend="fused"), ep)
+    finally:
+        mp.undo()
+    for name in clean:
+        assert bool(torch.isfinite(dirty[name]).all()), name
+        torch.testing.assert_close(dirty[name], clean[name], rtol=0, atol=0)
+
+
+def test_kernel_wrapper_still_refuses_autograd():
+    ep = 2
+    _, tc = _cfgs(**{**LAYER, "sequence_len": 64, "ep": ep})
+    fi = fused.fused_inputs(params_from_numpy(moe_params(tc, 0),
+                                              device="cpu"),
+                            torch.zeros(64, 64), tc, local_mesh(ep))
+    args = list(fi.args)
+    args[3] = args[3].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        fused.fused_shard_cuda(*args, **{k: v for k, v in fi.kw.items()
+                                         if k != "use_kernels"})

@@ -255,10 +255,11 @@ def test_config_validation_matches_jax(kw):
 
 
 def test_config_refuses_unported_knobs_and_matches_capacity():
-    for kw in (dict(dp=2), dict(tp=2), dict(sp=2), dict(pp=2)):
+    for kw in (dict(dp=2), dict(sp=2), dict(pp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TorchConfig(**kw)
     assert TorchConfig(ep=2).ep == 2  # ported: parallel/
+    assert TorchConfig(ep=2, tp=2).tp == 2  # ported: parallel/ep.py's tp
     for s in (1, 4, 100, 8192):
         for drop in (True, False):
             jc, tc = _cfgs(drop_tokens=drop, num_experts=64)
