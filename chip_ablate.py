@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the Hopper kernels' time goes: time bf16 B2, B3, B6, B5, B8, B9,
-B4a and B4b in builds of this tree with one piece of a kernel
+"""Where the Hopper kernels' time goes: time bf16 B2, B3, B6, B5, B7, B8,
+B9, B4a and B4b in builds of this tree with one piece of a kernel
 (``csrc/grouped_ffn.cu``, ``csrc/ffn_hopper.cuh``, the fused kernel's
-task list, ``csrc/tgmm.cu``, ``csrc/flash_attention.cu``,
-``csrc/gate_tiled.cu``) knocked out, on one card:
+task list, ``csrc/grouped_matmul.cu``, ``csrc/tgmm.cu``,
+``csrc/flash_attention.cu``, ``csrc/gate_tiled.cu``) knocked out, on one
+card:
 
-    python3 chip_ablate.py [--cuts base,noact,...] [--groups ffn,b5,b8,b9]
+    python3 chip_ablate.py [--cuts base,noact,...] [--groups ffn,b5,b7,b8]
 
 Each cut is a copy of ``flashmoe_tpu_torch`` (under a temporary
 directory) with the cut's text patches applied; each copy
@@ -42,6 +43,12 @@ other on the same card.  The cuts (``base`` is the tree as it is):
   pipeline, so ptxas serializes every wgmma of the kernel (C7510);
 * ``b8_quiet``: B8's barrier waits trap without the message, so that
   ptxas no longer serializes its wgmma;
+* ``b7_report`` / ``b7_quiet``: B7's barrier waits print before they
+  trap in both layouts of w / in neither (the tree: the w [E, K, N] arm
+  quiet, the transpose_w arm with the message);
+* ``b7_bands``: B7 walks its items in bands of 24 MB of rows, each band
+  over every column block before the next (so that a band's rows stay in
+  L2 while the weight streams past), not all items item-fastest;
 * ``b9_accurate_exp``: B9's softmax takes the accurate ``expf`` in place
   of ``__expf`` (the special function unit's ex2.approx of x log2 e);
 * ``b9_per_block``: B9 launches one block a work item instead of its
@@ -70,18 +77,22 @@ boxes' TMA stores, which B5 does not use.
 
 Knocked-out builds compute wrong values: only their times mean anything.
 Per cut and shape (Mixtral widths: E 8, H 4096, I 14336, top-2 of 1024
-tokens and of 4; Qwen3-Next's MoE widths: E 512, H 2048, I 512, top-10 of
-8192 tokens and of 4; SwiGLU, routing by the top-k of random logits): B2's
-and B3's wrapper time on CUDA events, and each kernel's device time from
-torch.profiler; B6's at the Mixtral prefill's rows; B5's and B5q's
-(int8) at the ep path's shapes (8 ranks of one Mixtral expert each, slabs
-of 128 rows, 16-48 sent); B8's at the train step's two shapes (2560 rows,
-2496 live, d_w_up K 4096 N 14336, d_w_down K 14336 N 4096); B9's at the
-prefill's ([4, 32, 256, 128], 8 kv heads, causal), and its device time
-at T 64 and 1024; B4a's (with the logits) and B4b's at Qwen3-Next's
-widths (H 2048, E 512, top-10, bf16) at S 8192 and 4.  ``--groups``
-keeps some of them: ``ffn`` (B2, B3, B6), ``b5`` (B5, B5q), ``b8``,
-``b9``, ``b4``.
+tokens and of 4; Qwen3-Next's MoE widths: E 512, H 2048, I 512, top-10
+of 8192 tokens and of 4; SwiGLU, routing by the top-k of random logits):
+B2's and B3's wrapper time on CUDA events, and each kernel's device time
+from torch.profiler; B6's at the Mixtral prefill's rows; B5's and B5q's
+(int8) at the ep path's shapes (8 ranks of one Mixtral expert each,
+slabs of 128 rows, 16-48 sent); B7's w [E, K, N] arm at the fused
+backward's recompute ([8192, 4096] @ [1, 4096, 14336], f32 out: the full
+slab, and the first 4 of each 16-tile slab live, the fused backward's
+occupancy) and its transpose_w arm at the train step's dHidden and dX
+(2560 rows, 2496 live, K 4096 and 14336, N 14336 and 4096, 8 experts);
+B8's at the train step's two shapes (2560 rows, 2496 live, d_w_up K 4096
+N 14336, d_w_down K 14336 N 4096); B9's at the prefill's ([4, 32, 256,
+128], 8 kv heads, causal), and its device time at T 64 and 1024; B4a's
+(with the logits) and B4b's at Qwen3-Next's widths (H 2048, E 512,
+top-10, bf16) at S 8192 and 4.  ``--groups`` keeps some of them: ``ffn``
+(B2, B3, B6), ``b5`` (B5, B5q), ``b7``, ``b8``, ``b9``, ``b4``.
 Prints one line a cut and shape, then one JSON object with every result
 as the last line.  Needs a CUDA device.
 """
@@ -102,6 +113,7 @@ FH = "flashmoe_tpu_torch/csrc/ffn_hopper.cuh"
 FUSED = "flashmoe_tpu_torch/parallel/fused.py"
 EP = "flashmoe_tpu_torch/csrc/fused_ep.cu"
 TGMM = "flashmoe_tpu_torch/csrc/tgmm.cu"
+GMM = "flashmoe_tpu_torch/csrc/grouped_matmul.cu"
 FLASH = "flashmoe_tpu_torch/csrc/flash_attention.cu"
 GT = "flashmoe_tpu_torch/csrc/gate_tiled.cu"
 
@@ -149,6 +161,52 @@ _B8_STORE = """    const int row0 = tl.k0 + wg * hg::WG_ROWS;
 """
 _PAIRED = """    return [(tiles[i], tiles[i + 1] if i + 1 < len(tiles) else -1)
             for i in range(0, len(tiles), 2)]"""
+
+# B7's walk in bands of items whose rows fit in L2: tile t of band t /
+# (band * ncols) is item t % nb of column block t / nb from the band's
+# start (nb the band's items)
+_B7_WALK = """
+constexpr size_t HG_BAND_BYTES = 24u << 20;
+struct GmmWalk {
+  int items, band, ncols;
+  __device__ __forceinline__ int total() const { return items * ncols; }
+  __device__ __forceinline__ void at(int t, int& item, int& col) const {
+    const int b0 = t / (band * ncols) * band;
+    const int nb = min(band, items - b0);
+    const int local = t - b0 * ncols;
+    item = b0 + local % nb;
+    col = local / nb;
+  }
+};
+"""
+_B7_BANDS = [
+    (GMM, "template <bool MN> constexpr bool HG_REPORT = !MN;\n",
+     "template <bool MN> constexpr bool HG_REPORT = !MN;\n" + _B7_WALK),
+    (GMM, "           OutT* __restrict__ out, int N, int K) {",
+     "           OutT* __restrict__ out, int N, int K, int band) {"),
+    (GMM, "  const int total = items * ((N + HG_BN - 1) / HG_BN);",
+     "  const GmmWalk walk{items, min(band, items), (N + HG_BN - 1) / HG_BN};"
+     "\n  const int total = walk.total();"),
+    (GMM, """      const int4 it = work[t % items];
+      if (it.z < 0) continue;
+      const int n0 = (t / items) * HG_BN;""",
+     """      int item, col;
+      walk.at(t, item, col);
+      const int4 it = work[item];
+      if (it.z < 0) continue;
+      const int n0 = col * HG_BN;"""),
+    (GMM, """    const int4 it = work[t % items];
+    const int n0 = (t / items) * HG_BN;""",
+     """    int item, col;
+    walk.at(t, item, col);
+    const int4 it = work[item];
+    const int n0 = col * HG_BN;"""),
+    (GMM, "      tx, tw, tout, work, n_work, (OutT*)out, N, K);",
+     "      tx, tw, tout, work, n_work, (OutT*)out, N, K,\n"
+     "      (int)(HG_BAND_BYTES / (HG_CONSUMERS * hg::WG_ROWS * 2) / K > 0\n"
+     "                ? HG_BAND_BYTES / (HG_CONSUMERS * hg::WG_ROWS * 2) / K\n"
+     "                : 1));"),
+]
 
 # act_f with the special function unit's exponential and division (a few
 # f32 ulp away; gelu's tanh(u) as 1 - 2 / (exp(2u) + 1))
@@ -214,6 +272,13 @@ CUTS = {
     # without the message, so that its wgmma are not serialized
     "b9_report": [(FLASH, "hg::mbar_wait<false>(", "hg::mbar_wait(")],
     "b8_quiet": [(TGMM, "hg::mbar_wait(", "hg::mbar_wait<false>(")],
+    # B7's barrier waits print before they trap in both arms / in neither
+    "b7_report": [(GMM, "template <bool MN> constexpr bool HG_REPORT = !MN;",
+                   "template <bool MN> constexpr bool HG_REPORT = true;")],
+    "b7_quiet": [(GMM, "template <bool MN> constexpr bool HG_REPORT = !MN;",
+                  "template <bool MN> constexpr bool HG_REPORT = false;")],
+    # B7 walks its items band by band (the code carried whole)
+    "b7_bands": _B7_BANDS,
     # B9's softmax on the accurate expf in place of the special function
     # unit's exponential (__expf: ex2.approx of x log2 e)
     "b9_accurate_exp": [(FLASH, "const float p = __expf(",
@@ -263,7 +328,7 @@ CUTS = {
                     "  if (E < 0)\n    fm::gate_pass2<true>")],
 }
 
-GROUPS = ("ffn", "b5", "b8", "b9", "b4")
+GROUPS = ("ffn", "b5", "b7", "b8", "b9", "b4")
 SHAPES = (("mixtral", 8, 4096, 14336, 2, 1024),
           ("qwen3next", 512, 2048, 512, 10, 8192))
 
@@ -374,6 +439,44 @@ def worker(tree: str, groups: list[str]) -> dict:
         del ws, x
         torch.cuda.empty_cache()
 
+    if "b7" in groups:
+        # B7's w [E, K, N] arm at the fused backward's recompute: one
+        # owner's 8 slabs of 1024 rows, the full slab, then the first 4
+        # tiles of each 16-tile slab live (dead tiles -1)
+        xr = torch.randn(8192, 4096, device="cuda", generator=g,
+                         dtype=torch.bfloat16)
+        wk = (torch.randn(1, 4096, 14336, device="cuda", generator=g)
+              / 64).to(torch.bfloat16)
+        full = torch.zeros(128, dtype=torch.int32, device="cuda")
+        live = torch.where(torch.arange(128, device="cuda") % 16 < 4,
+                           full, -1).to(torch.int32)
+        for tag, gid in (("full", full), ("live", live)):
+            def b7(gid=gid):
+                return expert.grouped_matmul_cuda(
+                    xr, gid, wk, out_dtype=torch.float32)
+
+            res[f"b7_recompute_{tag}"] = {"b7_ms": events_ms(b7, 10),
+                                          "b7_kernels_ms": kernels_ms(b7, 5)}
+        del xr, wk
+        # and its transpose_w arm at the train step's dHidden and dX
+        gid = torch.tensor([e for e, c in enumerate((5, 5, 6, 4, 5, 5, 5, 5))
+                            for _ in range(c)], device="cuda")
+        nrow = torch.tensor(gid.numel() * 64 - 64, device="cuda")
+        for tag, k, n in (("d_hidden", 4096, 14336), ("d_x", 14336, 4096)):
+            a = torch.randn(gid.numel() * 64, k, device="cuda", generator=g,
+                            dtype=torch.bfloat16)
+            wt = (torch.randn(8, n, k, device="cuda", generator=g)
+                  / 64).to(torch.bfloat16)
+
+            def b7t(a=a, wt=wt):
+                return expert.grouped_matmul_cuda(
+                    a, gid, wt, transpose_w=True, out_dtype=torch.float32,
+                    num_rows=nrow)
+
+            res[f"b7_{tag}"] = {"b7_ms": events_ms(b7t, 10),
+                                "b7_kernels_ms": kernels_ms(b7t, 5)}
+            del a, wt
+        torch.cuda.empty_cache()
     if "b8" in groups:  # B8 at the train step's rows (2048 live of 2560)
         gid = torch.tensor([e for e, c in enumerate((5, 5, 6, 4, 5, 5, 5, 5))
                             for _ in range(c)], device="cuda")
@@ -476,8 +579,8 @@ def main() -> int:
                     help="comma-separated cuts (default: all)")
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated kernels to time in every cut: "
-                    "ffn (B2, B3, B6), b5 (B5, B5q), b8, b9, b4 (B4a, B4b; "
-                    "default: all)")
+                    "ffn (B2, B3, B6), b5 (B5, B5q), b7, b8, b9, b4 (B4a, "
+                    "B4b; default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     groups = args.groups.split(",")

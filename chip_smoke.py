@@ -59,11 +59,14 @@ Phases, each of which fails the run on any error:
    replaying its routing, ``decode_moe_rows`` on one row a rank; the
    collective layer over 4 ep x 2 tp ranks, forward and backward against
    ep 8 and the single-device layer, timed with its weight-slice copy;
-   the fused layer's backward (B5 forward, B7's w [E, K, N] recompute,
-   B7 and B8) against a plain run, the collective layer's gradients and
-   the in-kernel combine's; each layer's forward+backward timed and
-   profiled; and B7's w [E, K, N] f32-output arm alone at the
-   recompute's shape, timed with its bound and ``torch.mm``;
+   the fused layer's backward (B5 forward, B7's w [E, K, N] recompute
+   over the occupied slab tiles, B7 and B8, every grouped matmul a
+   Hopper launch) against a plain run, the collective layer's
+   gradients, the in-kernel combine's and its own with the full map (bit
+   for bit); each layer's forward+backward timed and profiled; and B7's
+   w [E, K, N] f32-output arm alone at the recompute's shape, over the
+   full slab and over the backward's live tiles, timed with its bound
+   and ``torch.mm``;
 6. quantized expert storage: Mixtral-8x7B at its published widths and
    all 32 layers with its experts stored as int8 (random bf16 weights
    quantized layer by layer, ``quant.quantize_ffn_params``): the store's
@@ -691,7 +694,7 @@ def gmm_phase(cfg, params, x):
         k, n = a_in.shape[1], w.shape[1]
         bare, _, plan = expert.gmm_hopper_args(
             a_in, gid.to(torch.int32), w, torch.float32,
-            nrow.reshape(1).to(torch.int32))
+            nrow.reshape(1).to(torch.int32), transpose_w=True)
         check(lib.fm_grouped_matmul_hopper(*bare) == 0,
               "fm_grouped_matmul_hopper launch")
 
@@ -1663,14 +1666,24 @@ def tp_layer_phase(cfg, params, x, paths):
     return ep_layer_grads(ep.ep_moe_layer, params, x, cfg, m8)
 
 
+def _full_map(gid, counts, ch):
+    """The fused backward's recompute over every slab row (JAX's), in
+    place of ``fused.dead_tile_gid``."""
+    return gid
+
+
 def fused_backward_phase(cfg, params, x, m, coll_grads, paths):
     """The fused layer's backward (``_FusedCore``: B5 forward; the slabs
     and cotangents re-exchanged, u and g recomputed by B7's w [E, K, N]
-    arm in f32 over every slab row, then B7 and B8) against a plain run
-    replaying its routing and against the collective layer's gradients;
-    the in-kernel combine's (``_FusedCombineCore``) against the layer
-    combine's.  Then fwd+bwd times of the ragged, collective, tp and
-    fused layers, and the device time of each by class."""
+    arm in f32 over each slab's occupied tiles, then B7 and B8, every
+    grouped matmul on the Hopper kernel) against a plain run replaying
+    its routing and against the collective layer's gradients; the
+    in-kernel combine's (``_FusedCombineCore``) against the layer
+    combine's; the gradients with the dead-tile map against those with
+    the full map (every slab row recomputed), bit for bit.  Then fwd+bwd
+    times of the ragged, collective, tp and fused layers, and the device
+    time of each by class.  Returns the recompute's tile maps of the
+    dead-tile run, one an owner rank."""
     fcfg = cfg.replace(moe_backend="fused")
     tag = "ep fused backward"
     got = ep_backward(tag, fused.fused_ep_moe_layer, fcfg, params, x, m,
@@ -1681,7 +1694,7 @@ def fused_backward_phase(cfg, params, x, m, coll_grads, paths):
     n_dx = 2 if cfg.gated_ffn else 1
     check(counts["fused_ep"] == 1 and counts["gate"] == d
           and counts["grouped_matmul"] == d * (n_rec + 1 + n_dx)
-          and counts["grouped_matmul_hopper"] == d * (1 + n_dx)
+          and counts["grouped_matmul_hopper"] == counts["grouped_matmul"]
           and counts["tgmm"] == d * (2 + int(cfg.gated_ffn))
           and counts["grouped_ffn"] == counts["grouped_ffn_res"] == 0,
           f"{tag} launches {counts}")
@@ -1702,6 +1715,30 @@ def fused_backward_phase(cfg, params, x, m, coll_grads, paths):
           + " ".join(f"{k}={v:.3g}" for k, v in cerrs.items())
           + f" (normwise tol {GRAD_NORMWISE_TOL})")
     del got
+    maps, dead_map = [], fused.dead_tile_gid
+
+    def spy(gid, counts, ch):
+        maps.append(dead_map(gid, counts, ch))
+        return maps[-1]
+
+    try:
+        fused.dead_tile_gid = spy
+        live = ep_layer_grads(fused.fused_ep_moe_layer, params, x, fcfg, m)
+        fused.dead_tile_gid = _full_map
+        full = ep_layer_grads(fused.fused_ep_moe_layer, params, x, fcfg, m)
+    finally:
+        fused.dead_tile_gid = dead_map
+    torch.cuda.synchronize()
+    check(len(maps) == d, f"{tag}: {len(maps)} recompute maps, want {d}")
+    shares = [float((mp >= 0).float().mean()) for mp in maps]
+    check(min(shares) < 1.0, f"{tag}: no dead tile in the recompute")
+    differ = [k for k in live if not torch.equal(live[k], full[k])]
+    check(not differ, f"{tag}: gradients with the dead-tile map differ from "
+          f"the full map's in {differ}")
+    del live, full
+    print(f"{tag}: gradients with the dead-tile map equal the full map's "
+          f"bit for bit (every leaf); live tiles an owner "
+          + " ".join(f"{v:.3f}" for v in shares))
     tm = mesh.local_mesh(4, tp=2, device="cuda")
     runs = {
         "ragged": (ragged_ep.ragged_ep_moe_layer,
@@ -1719,60 +1756,95 @@ def fused_backward_phase(cfg, params, x, m, coll_grads, paths):
         device_breakdown(f"ep {k} layer forward+backward",
                          lambda f=f, c=c, mm=mm: ep_layer_grads(
                              f, params, x, c, mm), top_n=10)
+    return maps
 
 
-def gmm_recompute_row(cfg, params, d):
-    """B7's w [E, K, N] arm with an f32 output at the fused backward's
-    recompute shape (one owner's slabs: [d * 1024, H] @ w_up [1, H, I]):
-    against the plain version, the bare C call (``fm_grouped_matmul``),
-    its device time, the bound and per-expert ``torch.mm(...,
-    out_dtype=float32)``.  Returns the keys it adds to B7's entry."""
+# device ms of B7's w [E, K, N] arm at the recompute's full slab on the
+# parent tree (the 64 x 64 WMMA tile; PERF.md, H100 80GB HBM3, 700 W),
+# printed beside this run's as "was"
+RECOMPUTE_WAS_DEVICE_MS = 5.013
+
+
+def gmm_recompute_row(cfg, params, d, maps):
+    """B7's w [E, K, N] arm (the Hopper kernel, MN-major B) with an f32
+    output at the fused backward's recompute shape (one owner's slabs:
+    [d * 1024, H] @ w_up [1, H, I]), over the full slab and over the
+    occupied tiles of owner 0 in the fused backward's own run (``maps``,
+    its recompute's tile maps): each against the plain version (dead rows
+    exactly zero), the bare C call (``fm_grouped_matmul_hopper``), its
+    device time (the plan and the GEMM), the bound and ``torch.mm(...,
+    out_dtype=float32)`` over the rows it needs.  Returns the keys it
+    adds to B7's entry."""
     g = torch.Generator(device="cuda").manual_seed(12)
     t, h, i = d * 1024, cfg.hidden_size, cfg.intermediate_size
     xr = torch.randn(t, h, device="cuda", generator=g, dtype=torch.bfloat16)
     w = params["w_up"][:1].contiguous()
-    gid = torch.zeros(t // expert.ROW_TILE, dtype=torch.int32, device="cuda")
-    got = expert.grouped_matmul_cuda(xr, gid, w, out_dtype=torch.float32)
-    want = expert.grouped_matmul_plain(xr, gid, w, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    err = check_f32("grouped_matmul recompute", got, want)
-    del got, want
-    out = torch.empty((t, i), dtype=torch.float32, device="cuda")
-    bare = (1, 0, 1, xr.data_ptr(), gid.data_ptr(), expert.ROW_TILE, None,
-            w.data_ptr(), out.data_ptr(), t, h, i, _build.stream_of(xr))
+    check(all(mp.numel() == t // expert.ROW_TILE for mp in maps),
+          f"recompute maps of {[mp.numel() for mp in maps]} tiles, want "
+          f"{t // expert.ROW_TILE}")
     lib = _build.library()
-    check(lib.fm_grouped_matmul(*bare) == 0, "fm_grouped_matmul launch")
+    rec = {}
+    for tag, gid in (("full", torch.zeros(t // expert.ROW_TILE,
+                                          dtype=torch.int32, device="cuda")),
+                     ("live", maps[0].to(torch.int32))):
+        rows = (gid >= 0).repeat_interleave(expert.ROW_TILE)
+        n_live = int(rows.sum())
+        hop = expert.grouped_matmul_cuda.hopper_launches
+        got = expert.grouped_matmul_cuda(xr, gid, w, out_dtype=torch.float32)
+        want = expert.grouped_matmul_plain(xr, gid, w,
+                                           out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        check(expert.grouped_matmul_cuda.hopper_launches == hop + 1,
+              f"grouped_matmul recompute {tag} did not take the Hopper "
+              f"kernel")
+        err = check_f32(f"grouped_matmul recompute {tag}", got, want)
+        check(not got[~rows].any(), f"grouped_matmul recompute {tag}: dead "
+              f"rows not zero")
+        del got, want
+        args, _out, _plan = expert.gmm_hopper_args(
+            xr, gid, w, torch.float32, transpose_w=False)
+        check(lib.fm_grouped_matmul_hopper(*args) == 0,
+              "fm_grouped_matmul_hopper launch")
+        x_live = xr[rows].contiguous()
 
-    def library():
-        return torch.mm(xr, w[0], out_dtype=torch.float32)
+        def library(x_live=x_live):
+            return torch.mm(x_live, w[0], out_dtype=torch.float32)
 
-    try:
-        library()
-        lib_ok = True
-    except (TypeError, RuntimeError, NotImplementedError) as exc:
-        lib_ok = False
-        print(f"grouped_matmul recompute: torch.mm takes no out_dtype here "
-              f"({exc!r:.120})")
-    r = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: lib.fm_grouped_matmul(*bare), 5),
-        device_ms=device_ms(lambda: lib.fm_grouped_matmul(*bare), 3,
-                            ("gmm_kernel",))[0],
-        library_ms=cuda_ms(library, 5) if lib_ok else None,
-        library_device_ms=device_ms(library, 3)[0] if lib_ok else None,
-        plain_ms=cuda_ms(lambda: expert.grouped_matmul_plain(
-            xr, gid, w, out_dtype=torch.float32), 1),
-        **bound(bytes_=t * h * 2 + h * i * 2 + t * i * 4,
-                flops=2 * t * h * i))
-    print(f"grouped_matmul recompute (the fused backward's u, g): x [{t}, "
-          f"{h}] bf16 @ w [1, {h}, {i}] -> f32 on the 64 x 64 tile: "
-          f"max_abs_err={err:.3g} (rtol = atol = {F32_TOL}) kernel_ms="
-          f"{r['ms']:.4f} (bare fm_grouped_matmul, "
-          f"{2 * t * h * i / r['ms'] / 1e9:.1f} TFLOP/s) device_ms="
-          f"{fmt_ms(r['device_ms'])} bound_ms={r['bound_ms']:.4f} "
-          f"({r['bound_by']}) library_ms={fmt_ms(r['library_ms'])} "
-          f"library_device_ms={fmt_ms(r['library_device_ms'])} (torch.mm, "
-          f"out_dtype=float32) plain_ms={r['plain_ms']:.4f} ({gpu_line()})")
-    return {f"recompute_{k}": v for k, v in r.items()}
+        try:
+            library()
+            lib_ok = True
+        except (TypeError, RuntimeError, NotImplementedError) as exc:
+            lib_ok = False
+            print(f"grouped_matmul recompute: torch.mm takes no out_dtype "
+                  f"here ({exc!r:.120})")
+        r = dict(
+            max_abs_err=err, tile_share=n_live / t,
+            ms=cuda_ms(lambda: lib.fm_grouped_matmul_hopper(*args), 20),
+            device_ms=device_ms(lambda: lib.fm_grouped_matmul_hopper(*args),
+                                5, ("gmm_hopper", "gmm_plan"))[0],
+            library_ms=cuda_ms(library, 20) if lib_ok else None,
+            library_device_ms=device_ms(library, 5)[0] if lib_ok else None,
+            plain_ms=cuda_ms(lambda: expert.grouped_matmul_plain(
+                xr, gid, w, out_dtype=torch.float32), 1),
+            **bound(bytes_=n_live * h * 2 + h * i * 2 + t * i * 4,
+                    flops=2 * n_live * h * i))
+        del x_live
+        print(f"grouped_matmul recompute {tag} (the fused backward's u, g): "
+              f"x [{t}, {h}] bf16 @ w [1, {h}, {i}] -> f32 on the Hopper "
+              f"arm, live rows {n_live} ({r['tile_share']:.3f} of the "
+              f"tiles): max_abs_err={err:.3g} (rtol = atol = {F32_TOL}) "
+              f"kernel_ms={r['ms']:.4f} (bare fm_grouped_matmul_hopper, "
+              f"{2 * n_live * h * i / r['ms'] / 1e9:.1f} TFLOP/s) "
+              f"device_ms={fmt_ms(r['device_ms'])} (was "
+              f"{RECOMPUTE_WAS_DEVICE_MS} at the full slab on the 64 x 64 "
+              f"tile) bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={fmt_ms(r['library_ms'])} library_device_ms="
+              f"{fmt_ms(r['library_device_ms'])} (torch.mm over the live "
+              f"rows, out_dtype=float32) plain_ms={r['plain_ms']:.4f} "
+              f"({gpu_line()})")
+        pre = "recompute" if tag == "full" else "recompute_live"
+        rec.update({f"{pre}_{k}": v for k, v in r.items()})
+    return rec
 
 
 def ep_train_layers(cfg, params, x, ep_times, paths):
@@ -1785,10 +1857,10 @@ def ep_train_layers(cfg, params, x, ep_times, paths):
     torch.cuda.empty_cache()
     coll = tp_layer_phase(base, params, x, paths)
     torch.cuda.empty_cache()
-    fused_backward_phase(base, params, x, m, coll, paths)
+    maps = fused_backward_phase(base, params, x, m, coll, paths)
     del coll
     torch.cuda.empty_cache()
-    return gmm_recompute_row(cfg, params, base.ep)
+    return gmm_recompute_row(cfg, params, base.ep, maps)
 
 
 def mesh_gradients(tag, cfg, m, params, batch):

@@ -1,17 +1,18 @@
-// One 64 x 64 output tile of a GEMM C = A @ B for the grouped kernels
-// (grouped_ffn.cu, grouped_matmul.cu): A [rows, K] row-major, B either
-// [K, N] row-major or, with TRANS, [N, K] contracted on its last dim (the
-// weight read in its forward layout, never transposed in memory).  With
-// GATHER, row r of the A tile is row arow[r] of A (the gather-fused FFN
-// reads token rows by their source index); otherwise row r.
+// One 64 x 64 output tile of a GEMM C = A @ B for the f32 kernels
+// (grouped_ffn.cu, grouped_matmul.cu, fused_ep.cu, gate_tiled.cu): A
+// [rows, K] row-major, B either [K, N] row-major or, with TRANS, [N, K]
+// contracted on its last dim (the weight read in its forward layout,
+// never transposed in memory).  With GATHER, row r of the A tile is row
+// arow[r] of A (the gather-fused FFN reads token rows by their source
+// index); otherwise row r.
 //
 // A block of 4 warps (FTHREADS) owns the tile.  Operand tiles arrive by
-// 16-byte cp.async copies, two stages deep.  bf16 goes through tensor
-// cores (WMMA 16x16x16, f32 accumulators; warp w owns the 32 x 32
-// quadrant (w / 2, w % 2) as 2 x 2 fragments per output), f32 through FMA
-// on the SIMT cores (thread (ty, tx) owns rows 4*ty..+3, columns
-// 8*tx..+7).  The accumulators land in the f32 shared tile Cs (row stride
-// LDC), one FBM x LDC block per output, for the caller's epilogue.
+// 16-byte cp.async copies, two stages deep.  The tile is f32 only (every
+// bf16 kernel runs on hopper_gemm.cuh's TMA + wgmma mainloop): FMA on the
+// SIMT cores, thread (ty, tx) owning rows 4*ty..+3, columns 8*tx..+7 (TF32
+// tensor cores would miss the f32 tolerance).  The accumulators land in
+// the f32 shared tile Cs (row stride LDC), one FBM x LDC block per
+// output, for the caller's epilogue.
 //
 // The B operands reach shared memory through a loader policy: CpAsyncB
 // copies weights in A's dtype; QuantB (ffn_mainloop_q, the f32 fused
@@ -23,7 +24,6 @@
 #pragma once
 
 #include <cuda_fp8.h>
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -177,87 +177,6 @@ template <typename T, typename Q, int NB> struct QuantB {
   }
 };
 
-// bf16: tensor cores.
-template <int NB, bool TRANS, bool GATHER, typename BL>
-__device__ void ffn_mainloop_bl(const bf16* A, int K, BL bl, float* Cs,
-                                const int* arow) {
-  using namespace nvcuda;
-  using TL = FfnTile<bf16>;
-  typename BL::Smem& sm = *reinterpret_cast<typename BL::Smem*>(Cs);
-  const int warp = threadIdx.x / 32, wm = warp >> 1, wn = warp & 1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB][2][2];
-#pragma unroll
-  for (int m = 0; m < NB; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[m][i][j], 0.f);
-
-  const int nk = K / TL::BK;
-  bl.prologue(sm);
-  ffn_load_a<bf16, NB, TRANS, GATHER>(sm, 0, A, arow, K, 0);
-  bl.issue(sm, 0, 0);
-  cp_async_commit();
-  bl.finish(sm, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      ffn_load_a<bf16, NB, TRANS, GATHER>(sm, (kt + 1) & 1, A, arow, K,
-                                          (kt + 1) * TL::BK);
-      bl.issue(sm, (kt + 1) & 1, (kt + 1) * TL::BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < TL::BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &sm.As[st][wm * 32 + i * 16][kk],
-                               TL::LDA);
-#pragma unroll
-      for (int m = 0; m < NB; ++m)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if constexpr (TRANS) {
-            // B(k, n) = Bt[n][k]: a column-major view of the [N, K] tile
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-                b;
-            wmma::load_matrix_sync(b, &sm.Bs[st][m].v[wn * 32 + j * 16][kk],
-                                   TL::LDA);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              wmma::mma_sync(acc[m][i][j], a[i], b, acc[m][i][j]);
-          } else {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                b;
-            wmma::load_matrix_sync(b, &sm.Bs[st][m].v[kk][wn * 32 + j * 16],
-                                   TL::LDB);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              wmma::mma_sync(acc[m][i][j], a[i], b, acc[m][i][j]);
-          }
-        }
-    }
-    if (kt + 1 < nk) bl.finish(sm, (kt + 1) & 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int m = 0; m < NB; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            Cs + (size_t)m * FBM * TL::LDC +
-                (wm * 32 + i * 16) * TL::LDC + wn * 32 + j * 16,
-            acc[m][i][j], TL::LDC, wmma::mem_row_major);
-}
-
-// f32: SIMT FMA.
 template <int NB, bool TRANS, bool GATHER, typename BL>
 __device__ void ffn_mainloop_bl(const float* A, int K, BL bl, float* Cs,
                                 const int* arow) {

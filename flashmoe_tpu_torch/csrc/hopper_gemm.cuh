@@ -1,8 +1,9 @@
 // Hopper GEMM mainloop: TMA loads into a ring of shared-memory stages,
 // one producer warp, consumer warpgroups on wgmma with f32 accumulators
 // in registers.  A is K-major ([rows, K]); B is K-major ([cols, K], both
-// contracted on their last dim, wgmma's native layout: the grouped matmul)
-// or MN-major ([K, cols] row-major: the forward FFN's weights).
+// contracted on their last dim, wgmma's native layout: the grouped matmul
+// with transpose_w) or MN-major ([K, cols] row-major: the forward FFN's
+// weights, the grouped matmul's w [E, K, N]).
 //
 // Pieces, all sm_90a:
 //   * host: tensor maps for cp.async.bulk.tensor, encoded per call with
@@ -25,7 +26,8 @@
 //     epilogue can hand its tile to the copy engine and go on;
 //   * MN-major B ([K, N] row-major weights, boxes of 64 columns by BK
 //     K-rows; wgmma with imm-trans-b = 1) for the forward FFN
-//     (grouped_ffn.cu), in m64n256k16 and m64n128k16;
+//     (grouped_ffn.cu), in m64n256k16 and m64n128k16, and the grouped
+//     matmul's w [E, K, N] arm (grouped_matmul.cu) in m64n256k16;
 //   * MN-major A (imm-trans-a = 1, the same box) for the transposed
 //     grouped matmul (tgmm.cu), whose x^T dy contracts over rows;
 //   * m64n64k16 with both operands K-major, and A in registers (the

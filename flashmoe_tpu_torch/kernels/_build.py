@@ -65,12 +65,13 @@ SIGNATURES = {
     # grid, stream
     "fm_grouped_ffn_res": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, I, I, P],
-    # dtype_is_bf16, transpose_w, out_f32, x, tile_gid, block_m, num_rows,
-    # w, out, T, K, N, stream
-    "fm_grouped_matmul": [I, I, I, P, P, I, P, P, P, I, I, I, P],
-    # out_f32, x, tile_gid, block_m, num_rows, w, out, plan, T, K, N, E,
-    # grid, stream
-    "fm_grouped_matmul_hopper": [I, P, P, I, P, P, P, P, I, I, I, I, I, P],
+    # transpose_w, x, tile_gid, block_m, num_rows, w, out, T, K, N, stream
+    # (f32)
+    "fm_grouped_matmul": [I, P, P, I, P, P, P, I, I, I, P],
+    # transpose_w, out_f32, x, tile_gid, block_m, num_rows, w, out, plan,
+    # T, K, N, E, grid, stream (bf16)
+    "fm_grouped_matmul_hopper": [I, I, P, P, I, P, P, P, P, I, I, I, I, I,
+                                 P],
     # dtype_is_bf16, x, dy, row_start, row_end, dw, T, E, K, N, grid,
     # stream
     "fm_tgmm": [I, P, P, P, P, P, I, I, I, I, I, P],

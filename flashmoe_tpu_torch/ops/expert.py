@@ -37,6 +37,7 @@ get.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -54,6 +55,9 @@ HOPPER_COLS = 256
 #: output rows (K) of the Hopper transposed grouped matmul's tile: two
 #: consumer warpgroups of 64 (csrc/tgmm.cu TG_BM)
 TGMM_ROWS = 128
+#: K of one stage of the Hopper kernels' ring (csrc/hopper_gemm.cuh BK):
+#: their f32 sums run over K in steps of it, in increasing order
+HOPPER_BK = 64
 #: largest intermediate chunk of the plain version's down-GEMM accumulation
 PLAIN_BLOCK_I = 512
 
@@ -442,12 +446,15 @@ def grouped_matmul_plain(x, tile_gid, w, *, transpose_w: bool = False,
     w[gid(tile)] (w [E, K, N]), or with ``transpose_w`` @ w[gid]^T (w
     [E, N, K], contracted on its last dim), accumulated in f32 and
     returned in ``out_dtype`` (default x's).  Rows at or past
-    ``num_rows`` come back zero."""
+    ``num_rows`` come back zero, and so do the rows of a dead tile, whose
+    ``tile_gid`` entry is -1 (no other kernel takes -1)."""
     t, _, n = _check_gmm(x, w, transpose_w)
     bm = _tile_rows(x, tile_gid)
     row_gid = _row_gid(tile_gid, bm, t, num_rows)
     out = torch.zeros((t, n), dtype=out_dtype or x.dtype, device=x.device)
     for e in torch.unique(row_gid).tolist():
+        if e < 0:
+            continue
         rows = torch.nonzero(row_gid == e).reshape(-1)
         we = w[e].T if transpose_w else w[e]
         out[rows] = dot_f32(x[rows], we).to(out.dtype)
@@ -460,8 +467,8 @@ def gmm_work_list(tile_gid, block_m: int, rows: int, num_rows=None):
     items ``(first tile, tiles, expert)`` over the ROW_TILE-row tiles.
     Each run of consecutive tiles with one expert is cut greedily from its
     start into items of two tiles and, when the run is odd, a last item of
-    one.  Tiles at or past ``num_rows`` have expert -1 (zeros, no loads)
-    and form runs of their own."""
+    one.  Dead tiles (``tile_gid`` -1) and tiles at or past ``num_rows``
+    have expert -1 (zeros, no loads) and form runs of their own."""
     tiles = rows // ROW_TILE
     gid = [int(g) for g in tile_gid.tolist()]
     live = rows if num_rows is None else int(num_rows)
@@ -475,6 +482,59 @@ def gmm_work_list(tile_gid, block_m: int, rows: int, num_rows=None):
             two = t + 1 < tiles and key[t + 1] == key[t]
             items.append((t, 2 if two else 1, key[t]))
     return items
+
+
+def gmm_grid(t: int, n: int, sms: int) -> int:
+    """Persistent blocks the Hopper grouped matmul launches: one per SM,
+    at most one per output tile of ROW_TILE x HOPPER_COLS."""
+    return min(t // ROW_TILE * -(-n // HOPPER_COLS), sms)
+
+
+def gmm_tile_walk(tile_gid, block_m: int, rows: int, n: int, sms: int,
+                  num_rows=None):
+    """The bf16 grouped matmul's schedule (``gmm_hopper`` in
+    ``csrc/grouped_matmul.cu``, either layout of w) in Python: the items of
+    :func:`gmm_work_list` against column blocks of HOPPER_COLS, the last
+    cut at ``n``, item-fastest (tile t is item ``t % items`` of column
+    block ``t // items``); the persistent grid's first ``grid`` blocks
+    stride over the tiles, ``grid`` the largest count <= ``gmm_grid(rows,
+    n, sms)`` coprime to the item count (``hg::stride_grid``), so tile t
+    goes to block ``t % grid``.  Returns ``(block, first row tile, tiles,
+    expert, n0, n1)`` for each; expert -1 for dead tiles and past
+    ``num_rows``."""
+    items = gmm_work_list(tile_gid, block_m, rows, num_rows)
+    grid = gmm_grid(rows, n, sms)
+    while grid > 1 and math.gcd(grid, len(items)) != 1:
+        grid -= 1
+    walk = []
+    for t in range(len(items) * -(-n // HOPPER_COLS)):
+        n0 = t // len(items) * HOPPER_COLS
+        walk.append((t % grid, *items[t % len(items)], n0,
+                     min(n0 + HOPPER_COLS, n)))
+    return walk
+
+
+def gmm_walk_plain(x, w, walk, *, transpose_w: bool = False):
+    """The grouped matmul by :func:`gmm_tile_walk`'s tiles, in f32: each
+    item's rows against its expert's columns [n0, n1), summed over K in
+    steps of HOPPER_BK in increasing order and written once; a dead item's
+    (expert -1) rows exact zeros.  Elements no tile covers stay NaN, so a
+    gap in the walk shows."""
+    k = x.shape[1]
+    n = max(n1 for *_, n1 in walk)
+    out = torch.full((x.shape[0], n), float("nan"), dtype=torch.float32,
+                     device=x.device)
+    for _, t0, tiles, e, n0, n1 in walk:
+        rows = slice(t0 * ROW_TILE, (t0 + tiles) * ROW_TILE)
+        acc = torch.zeros((tiles * ROW_TILE, n1 - n0), dtype=torch.float32,
+                          device=x.device)
+        if e >= 0:
+            we = w[e].T if transpose_w else w[e]  # [K, N]
+            for k0 in range(0, k, HOPPER_BK):
+                acc += dot_f32(x[rows, k0:k0 + HOPPER_BK],
+                               we[k0:k0 + HOPPER_BK, n0:n1])
+        out[rows, n0:n1] = acc
+    return out
 
 
 def ffn_tile_walk(tile_gid, block_m: int, rows: int, n: int, sms: int,
@@ -507,24 +567,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gmm_hopper_args(x, gid, w, out_dtype, num_rows=None):
+def gmm_hopper_args(x, gid, w, out_dtype, num_rows=None, *, transpose_w):
     """The arguments of one call of the Hopper grouped matmul
     (``fm_grouped_matmul_hopper``: the work-list launch, then the GEMM) on
-    checked CUDA tensors (bf16 x [T, K], int32 ``gid``, bf16 w [E, N, K],
-    ``num_rows`` int32 [1] or None), with its output and the work list's
-    buffer (:func:`gmm_work_list`'s items as int32 rows of 4, then their
-    count) made here: ``(args, out, plan)``."""
+    checked CUDA tensors (bf16 x [T, K], int32 ``gid``, bf16 w [E, N, K]
+    with ``transpose_w``, else [E, K, N], ``num_rows`` int32 [1] or None),
+    with its output and the work list's buffer (:func:`gmm_work_list`'s
+    items as int32 rows of 4, then their count) made here: ``(args, out,
+    plan)``."""
     t, k = x.shape
-    e, n, _ = w.shape
+    e = w.shape[0]
+    n = w.shape[1] if transpose_w else w.shape[2]
     out = torch.empty((t, n), dtype=out_dtype, device=x.device)
     plan = torch.empty((4 * (t // ROW_TILE) + 1,), dtype=torch.int32,
                        device=x.device)
-    tiles = t // ROW_TILE * -(-n // HOPPER_COLS)
-    args = (int(out_dtype == torch.float32), x.data_ptr(), gid.data_ptr(),
-            t // gid.numel(), None if num_rows is None else
+    args = (int(transpose_w), int(out_dtype == torch.float32), x.data_ptr(),
+            gid.data_ptr(), t // gid.numel(), None if num_rows is None else
             num_rows.data_ptr(), w.data_ptr(), out.data_ptr(),
             plan.data_ptr(), t, k, n, e,
-            min(tiles, _sm_count(x.device.index)), _build.stream_of(x))
+            gmm_grid(t, n, _sm_count(x.device.index)), _build.stream_of(x))
     return args, out, plan
 
 
@@ -533,12 +594,13 @@ def grouped_matmul_cuda(x, tile_gid, w, *, transpose_w: bool = False,
     """The grouped matmul kernels (``csrc/grouped_matmul.cu``) on CUDA
     tensors: :func:`grouped_matmul_plain`'s function.  x and w bf16 or f32
     of one dtype, out_dtype f32 or x's; T, K, N and the row tile must be
-    multiples of 64.  bf16 with ``transpose_w`` (every call of the training
-    backward) runs the Hopper kernel (``fm_grouped_matmul_hopper``,
-    counted also in ``grouped_matmul_cuda.hopper_launches``) after a
-    one-block launch that builds its work list (:func:`gmm_work_list`)
-    from ``tile_gid`` on the device; f32 and bf16 with w [E, K, N] run the
-    64 x 64 tile kernel (``fm_grouped_matmul``)."""
+    multiples of 64.  A ``tile_gid`` entry of -1 marks a dead tile (zeros,
+    no loads).  bf16 in either layout (the training backward's calls with
+    ``transpose_w``, the fused backward's recompute with w [E, K, N]) runs
+    the Hopper kernel (``fm_grouped_matmul_hopper``, counted also in
+    ``grouped_matmul_cuda.hopper_launches``) after a one-block launch that
+    builds its work list (:func:`gmm_work_list`) from ``tile_gid`` on the
+    device; f32 runs the 64 x 64 tile kernel (``fm_grouped_matmul``)."""
     _build.refuse_autograd("grouped_matmul_cuda", x, w)
     t, k, n = _check_gmm(x, w, transpose_w)
     bm = _tile_rows(x, tile_gid)
@@ -558,15 +620,15 @@ def grouped_matmul_cuda(x, tile_gid, w, *, transpose_w: bool = False,
         nrow = num_rows.reshape(1).to(torch.int32).contiguous()
         tensors.append(nrow)
     _build.require_cuda("grouped_matmul_cuda", *tensors)
-    hopper = x.dtype == torch.bfloat16 and transpose_w
+    hopper = x.dtype == torch.bfloat16
     if hopper:
-        args, out, _plan = gmm_hopper_args(x, gid, w, out_dtype, nrow)
+        args, out, _plan = gmm_hopper_args(x, gid, w, out_dtype, nrow,
+                                           transpose_w=transpose_w)
     else:
         out = torch.empty((t, n), dtype=out_dtype, device=x.device)
-        args = (int(x.dtype == torch.bfloat16), int(transpose_w),
-                int(out_dtype == torch.float32), x.data_ptr(),
-                gid.data_ptr(), bm, None if nrow is None else nrow.data_ptr(),
-                w.data_ptr(), out.data_ptr(), t, k, n, _build.stream_of(x))
+        args = (int(transpose_w), x.data_ptr(), gid.data_ptr(), bm,
+                None if nrow is None else nrow.data_ptr(), w.data_ptr(),
+                out.data_ptr(), t, k, n, _build.stream_of(x))
     name = "fm_grouped_matmul_hopper" if hopper else "fm_grouped_matmul"
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), name)(*args)

@@ -27,9 +27,10 @@ combine, ``w_sorted`` differentiable so that router gradients flow
 through it).  Their backward, :func:`_ffn_bwd_from_dy`, re-exchanges the
 slabs and the cotangents through ``Mesh.all_to_all``, recomputes the
 pre-activations u (+ ``b_up``) and g with the grouped matmul (B7, w
-[E, K, N], f32 out) over every slab row, occupied or not, and runs
-``ffn_backward_core`` (B7, B8).  The kernel's wrapper itself keeps
-refusing autograd.
+[E, K, N], f32 out) over each slab's occupied 64-row tiles (the others
+dead, :func:`dead_tile_gid`: zeros, where JAX recomputes every slab
+row), and runs ``ffn_backward_core`` (B7, B8).  The kernel's wrapper
+itself keeps refusing autograd.
 
 The four schedule names of the JAX kernel stay, and map to two
 processing orders of the one kernel: ``stream`` and ``resident`` take the
@@ -700,15 +701,31 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
 # through the grouped kernels.  Expert shards are disjoint across ranks:
 # the weight gradients need no reduction.
 
+def dead_tile_gid(gid, counts, ch: int):
+    """The recompute's tile map: ``gid`` (one owner's expert-major buffer
+    of [nLx, D, ch] slab rows, one expert per ROW_TILE-row tile) with -1
+    on each tile at or past its slab's row count (``counts`` [D (source),
+    nLx], the rows the owner received).  The grouped matmul loads and
+    multiplies nothing on such a dead tile and writes zeros.  Tensor ops
+    on the device: no host sync."""
+    start = torch.arange(0, ch, ROW_TILE, device=gid.device)
+    live = start < counts.t().to(gid.device)[..., None]  # [nLx, D, tiles]
+    return torch.where(live.reshape(-1), gid, -1)
+
+
 def _ffn_bwd_from_dy(mesh, x_send, w_up, b_up, w_down, b_down, w_gate, dy,
-                     *, act_name: str, use_kernels: bool):
+                     send_cnt, *, act_name: str, use_kernels: bool):
     """The shared backward tail (``fused.py:1729``): the cotangent ``dy``
     of the returned slabs y_back [D, D, nLx, C, H] -> the gradients of
     (x_send, w_up, b_up, w_down, b_down, w_gate).  Per owner rank its
     received slabs (and cotangents) are one expert-major buffer of every
     slab row, C padded to the kernels' 64-row tile; u = x @ w_up + b_up
     and g = x @ w_gate are recomputed in f32 by the grouped matmul with
-    w [E, K, N], then ``ffn_backward_core`` runs."""
+    w [E, K, N], then ``ffn_backward_core`` runs.  The recompute runs
+    over the occupied tiles only (:func:`dead_tile_gid` of ``send_cnt``
+    [D, D, nLx]): on a slab's tiles past its count x @ W is zero, where
+    JAX computes it.  ``dy`` is zero on every row past a count, so no
+    gradient changes; ``ffn_backward_core`` keeps the full map."""
     d, _, nlx, c, h = x_send.shape
     gated = w_gate is not None
     ch = -(-c // ROW_TILE) * ROW_TILE
@@ -724,11 +741,12 @@ def _ffn_bwd_from_dy(mesh, x_send, w_up, b_up, w_down, b_down, w_gate, dy,
         own = slice(r * nlx, (r + 1) * nlx)
         xr = x_recv[r].transpose(0, 1).reshape(nlx * d * ch, h)
         dyr = dy_stage[r].transpose(0, 1).reshape(nlx * d * ch, h)
-        u = exp.grouped_matmul(xr, gid, w_up[own], out_dtype=torch.float32,
+        live = dead_tile_gid(gid, send_cnt[:, r], ch)
+        u = exp.grouped_matmul(xr, live, w_up[own], out_dtype=torch.float32,
                                **kw)
         u = (u.reshape(nlx, d * ch, -1) + b_up[own, None, :].float()
              ).reshape(u.shape)
-        g = (exp.grouped_matmul(xr, gid, w_gate[own],
+        g = (exp.grouped_matmul(xr, live, w_gate[own],
                                 out_dtype=torch.float32, **kw)
              if gated else None)
         grads = exp.ffn_backward_core(
@@ -757,15 +775,17 @@ class _FusedCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_send, w_up, b_up, w_down, b_down, w_gate, send_cnt,
                 src_order, mesh, kw):
-        ctx.save_for_backward(x_send, w_up, b_up, w_down, b_down, w_gate)
+        ctx.save_for_backward(x_send, w_up, b_up, w_down, b_down, w_gate,
+                              send_cnt)
         ctx.mesh, ctx.kw = mesh, kw
         return fused_shard(send_cnt, src_order, x_send, w_up, b_up, w_down,
                            b_down, w_gate, **kw)
 
     @staticmethod
     def backward(ctx, dy):
+        *saved, send_cnt = ctx.saved_tensors
         grads = _ffn_bwd_from_dy(
-            ctx.mesh, *ctx.saved_tensors, dy, act_name=ctx.kw["act_name"],
+            ctx.mesh, *saved, dy, send_cnt, act_name=ctx.kw["act_name"],
             use_kernels=ctx.kw["use_kernels"])
         return (*grads, None, None, None, None)
 
@@ -812,7 +832,8 @@ class _FusedCombineCore(torch.autograd.Function):
                          torch.zeros((), device=dout.device))
         grads = _ffn_bwd_from_dy(
             ctx.mesh, x_send, w_up, b_up, w_down, b_down, w_gate, dy,
-            act_name=ctx.kw["act_name"], use_kernels=ctx.kw["use_kernels"])
+            send_cnt, act_name=ctx.kw["act_name"],
+            use_kernels=ctx.kw["use_kernels"])
         occ_rows = torch.zeros((d, rows_pad + 1), dtype=torch.bool,
                                device=pos.device)
         occ_rows.scatter_(1, torch.where(occupied, pos, rows_pad)

@@ -615,9 +615,13 @@ def test_fused_layer_kernel_matches_plain_and_collective(gen, monkeypatch,
     assert _normwise(got.out, plain.out) <= BF16_TOL
     assert _normwise(got.out, coll.out) <= BF16_TOL
     assert torch.equal(got.expert_counts, coll.expert_counts)
+    # under autograd the layer runs the kernel inside its VJP
+    # (``_FusedCore`` / ``_FusedCombineCore``); the wrapper alone refuses
     x.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="autograd"):
-        fused.fused_ep_moe_layer(p, x, cfg, m)
+    before = fused.fused_shard_cuda.launches
+    out = fused.fused_ep_moe_layer(p, x, cfg, m).out
+    assert out.grad_fn is not None
+    assert fused.fused_shard_cuda.launches == before + 1
 
 
 # ----------------------------------------------------------------------
@@ -864,17 +868,20 @@ def test_grouped_matmul_hopper_work_list_matches_python(gen):
     """The work list the Hopper grouped matmul builds on the device (its
     one-block plan launch, over several 1024-tile chunks) equals
     ``gmm_work_list``'s on random sorted and unsorted plans with a ragged
-    tail, and the GEMM over it matches the plain version."""
+    tail and dead tiles (-1), and the GEMM over it (w [E, N, K] and [E, K,
+    N] in turn) matches the plain version."""
     from flashmoe_tpu_torch.kernels import _build
 
     rng = np.random.default_rng(7)
     lib = _build.library()
-    for case in range(6):
+    for case in range(8):
         bm = expert.ROW_TILE * int(rng.choice([1, 2]))
         nt = int(rng.integers(1, 1400))
         gid = rng.integers(0, int(rng.integers(1, 9)), nt)
         if case % 2:
             gid = np.sort(gid)
+        if case % 4 > 1:
+            gid[rng.random(nt) < 0.4] = -1
         t = nt * bm
         nrow = int(rng.integers(0, t // expert.ROW_TILE + 1)) * expert.ROW_TILE
         gid_t = torch.tensor(gid, dtype=torch.int32, device="cuda")
@@ -883,8 +890,9 @@ def test_grouped_matmul_hopper_work_list_matches_python(gen):
                         dtype=torch.bfloat16)
         w = torch.randn(8, 64, 64, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
+        tw = case % 2 == 0
         args, out, plan = expert.gmm_hopper_args(x, gid_t, w, torch.float32,
-                                                 nrow_t)
+                                                 nrow_t, transpose_w=tw)
         assert lib.fm_grouped_matmul_hopper(*args) == 0
         want = expert.gmm_work_list(gid_t.cpu(), bm, t, nrow)
         got = plan.cpu()
@@ -893,10 +901,67 @@ def test_grouped_matmul_hopper_work_list_matches_python(gen):
         assert [tuple(r[:3]) for r in got[:4 * count].reshape(-1, 4).tolist()
                 ] == want
         torch.testing.assert_close(
-            out, expert.grouped_matmul_plain(x, gid_t, w, transpose_w=True,
+            out, expert.grouped_matmul_plain(x, gid_t, w, transpose_w=tw,
                                              out_dtype=torch.float32,
                                              num_rows=nrow_t),
             rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("k,n,tiles", [
+    (64, 64, (2,)), (192, 320, (2, 0, 3, 1)), (4096, 14336, (3, 0, 2)),
+    (14336, 4096, (1, 2, 0, 2))],
+    ids=["k64", "k192_n320", "recompute", "k14336"])
+@pytest.mark.parametrize("cut", ["all", "dead", "dead_num_rows"])
+def test_grouped_matmul_hopper_mn_matches_plain(gen, k, n, tiles, cut):
+    """bf16 w [E, K, N] (the fused backward's recompute: MN-major B read
+    in place) on the Hopper kernel, at the card test's shapes and the
+    recompute's widths, experts that own no rows, with dead tiles (-1:
+    every other tile) and a ragged tail: f32 out within 2e-4 and bf16 out
+    normwise of the plain version, dead rows and rows past num_rows
+    exactly zero, a second call equal bit for bit; every call a Hopper
+    launch."""
+    t = sum(tiles) * expert.ROW_TILE
+    gid = _gmm_rows(gen, t, tiles)
+    if cut != "all":
+        gid[1::2] = -1
+    x = torch.randn(t, k, device="cuda", generator=gen, dtype=torch.bfloat16)
+    w = (torch.randn(len(tiles), k, n, device="cuda", generator=gen)
+         / 32).to(torch.bfloat16)
+    nrow = torch.tensor(t - expert.ROW_TILE, device="cuda") \
+        if cut == "dead_num_rows" else None
+    dead = (gid < 0).repeat_interleave(expert.ROW_TILE)
+    if nrow is not None:
+        dead[int(nrow):] = True
+    before = expert.grouped_matmul_cuda.hopper_launches
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(out_dtype=out_dtype, num_rows=nrow)
+        got = expert.grouped_matmul_cuda(x, gid, w, **kw)
+        again = expert.grouped_matmul_cuda(x, gid, w, **kw)
+        want = expert.grouped_matmul_plain(x, gid, w, **kw)
+        assert torch.equal(got, again)
+        assert not got[dead].any()
+        if out_dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        else:
+            assert _normwise(got, want) <= BF16_TOL
+    assert expert.grouped_matmul_cuda.hopper_launches == before + 4
+
+
+@pytest.mark.parametrize("transpose_w", [False, True], ids=["w", "wT"])
+def test_grouped_matmul_f32_dead_tiles(gen, transpose_w):
+    """The f32 tile kernel honours dead tiles (-1): their rows exactly
+    zero, the others as the plain version's, in both layouts of w."""
+    e, k, n = 3, 192, 128
+    gid = torch.tensor([0, -1, 2, 2, -1, 1], dtype=torch.int32,
+                       device="cuda")
+    x = torch.randn(gid.numel() * expert.ROW_TILE, k, device="cuda",
+                    generator=gen)
+    w = torch.randn(*((e, n, k) if transpose_w else (e, k, n)),
+                    device="cuda", generator=gen)
+    got = expert.grouped_matmul_cuda(x, gid, w, transpose_w=transpose_w)
+    want = expert.grouped_matmul_plain(x, gid, w, transpose_w=transpose_w)
+    assert not got[(gid < 0).repeat_interleave(expert.ROW_TILE)].any()
+    assert _normwise(got, want) <= 1e-5
 
 
 # ----------------------------------------------------------------------

@@ -114,6 +114,125 @@ def test_combine_backward_masks_unwritten_rows():
         torch.testing.assert_close(dirty[name], clean[name], rtol=0, atol=0)
 
 
+# the fused backward's recompute over the occupied slab tiles only: cases
+# with slabs of 0 rows, of every row (a source's whole capacity) and in
+# between, C of several 64-row tiles
+DEAD_CASES = {
+    # name: (ep, config fields)
+    "dropless": (2, dict(drop_tokens=False)),
+    "gated_dropless": (2, dict(drop_tokens=False, gated_ffn=True,
+                               hidden_act="silu")),
+    "drops": (2, dict(capacity_factor=2.0)),
+}
+
+
+def _skewed(tc, seed):
+    """Parameters and tokens whose routing leaves slabs empty (no token
+    picks expert 7), fills one to its capacity (every token of rank 0
+    picks expert 0; dropping past the capacity when ``drop_tokens``) and
+    leaves the others partial."""
+    p, x = moe_params(tc, seed), tokens(tc, seed)
+    s_loc = tc.tokens // tc.ep
+    x[:, 0] = np.abs(x[:, 0]) + 3.0
+    x[:s_loc, 1] = np.abs(x[:s_loc, 1]) + 10.0
+    x[s_loc:, 1] = -np.abs(x[s_loc:, 1])
+    p["gate_w"][0, 7] = -5.0
+    p["gate_w"][1, 0] = 5.0
+    return p, x
+
+
+def _full_map(gid, counts, ch):
+    return gid
+
+
+def test_dead_tile_gid_marks_tiles_past_each_count():
+    """Brute force on random counts (0, partial, a whole slab): entry
+    (expert e, source s, tile j) of the map keeps the full map's expert
+    where 64 j < counts[s, e] and is -1 elsewhere."""
+    rng = np.random.default_rng(4)
+    for _ in range(20):
+        d, nlx = (int(v) for v in rng.integers(1, 5, 2))
+        ch = 64 * int(rng.integers(1, 5))
+        counts = torch.from_numpy(rng.integers(0, ch + 1, (d, nlx)))
+        tiles = d * ch // 64
+        gid = torch.arange(nlx * tiles) // tiles
+        got = fused.dead_tile_gid(gid, counts, ch).tolist()
+        want = [e if 64 * j < int(counts[s, e]) else -1
+                for e in range(nlx) for s in range(d)
+                for j in range(ch // 64)]
+        assert got == want
+
+
+@pytest.mark.parametrize("combine", [False, True],
+                         ids=["layer_combine", "in_kernel_combine"])
+@pytest.mark.parametrize("case", list(DEAD_CASES))
+def test_dead_tile_map_changes_no_gradient(case, combine, monkeypatch):
+    """Through the layer (``_FusedCore``, and ``_FusedCombineCore`` with
+    the in-kernel combine), on the plain path: the gradients with the
+    recompute's dead-tile map equal, bit for bit, those with the full map
+    (every slab row recomputed, as JAX does), on a routing whose counts
+    include 0, the whole capacity and partial slabs with dead tiles."""
+    if combine:
+        monkeypatch.setenv("FLASHMOE_FUSED_COMBINE", "1")
+    ep, fields = DEAD_CASES[case]
+    _, tc = _cfgs(**{**LAYER, "sequence_len": 160 * ep, "ep": ep, **fields})
+    tc = tc.replace(moe_backend="fused")
+    p, x = _skewed(tc, 31)
+    seen, dead_map = [], fused.dead_tile_gid
+
+    def spy(gid, counts, ch):
+        seen.append((counts.clone(), ch))
+        return dead_map(gid, counts, ch)
+
+    monkeypatch.setattr(fused, "dead_tile_gid", spy)
+    got = _port_grads(p, x, tc, ep)
+    monkeypatch.setattr(fused, "dead_tile_gid", _full_map)
+    want = _port_grads(p, x, tc, ep)
+    counts = torch.stack([c for c, _ in seen])
+    ch, cap = seen[0][1], tc.capacity_for(tc.tokens // ep)
+    assert len(seen) == ep and ch // 64 >= 2
+    assert (counts == 0).any() and (counts == cap).any()
+    assert ((counts > 0) & (counts <= ch - 64)).any()  # a live, a dead tile
+    for name, g in got.items():
+        assert torch.equal(g, want[name]), name
+
+
+def test_fused_core_dead_tiles_ignore_rows_past_counts(monkeypatch):
+    """``_FusedCore`` straight on slabs whose rows past each count hold
+    random values (the layer's dispatch leaves zeros there, the contract
+    only leaves them unread), under a loss that reads the counted rows
+    only: the dead-tile map's gradients equal the full map's bit for bit,
+    with counts of 0, 1, partial and the whole slab."""
+    d, nlx, c, h, i = 2, 2, 160, 64, 64
+    rng = np.random.default_rng(5)
+
+    def leaf(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).requires_grad_(True)
+
+    e = d * nlx
+    prims = (leaf(d, d, nlx, c, h), leaf(e, h, i, scale=h ** -0.5),
+             leaf(e, i), leaf(e, i, h, scale=i ** -0.5), leaf(e, h),
+             leaf(e, h, i, scale=h ** -0.5))
+    send_cnt = torch.tensor([[[0, 160], [37, 64]], [[100, 1], [160, 0]]])
+    kw = dict(act_name="silu", gated=True, schedule="stream",
+              use_kernels=False)
+    live = (torch.arange(c) < send_cnt[..., None])[..., None]
+
+    def grads():
+        y = fused._FusedCore.apply(*prims, send_cnt,
+                                   fused.check_src_order(None, d),
+                                   local_mesh(d), kw)
+        loss = (torch.where(live, y, torch.zeros(())) ** 2).sum()
+        return torch.autograd.grad(loss, prims)
+
+    got = grads()
+    monkeypatch.setattr(fused, "dead_tile_gid", _full_map)
+    want = grads()
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), k
+
+
 def test_kernel_wrapper_still_refuses_autograd():
     ep = 2
     _, tc = _cfgs(**{**LAYER, "sequence_len": 64, "ep": ep})
