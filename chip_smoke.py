@@ -39,6 +39,24 @@ Phases, each of which fails the run on any error:
    tokens but at a near-tie routing flip); every step's logits against
    ``forward`` over the whole sequence, and every prefill MoE layer
    against the dense oracle ``reference_moe``;
+4b. engine: the serving engine (``serving.ServingEngine``) on the same
+   weights, each run a path (counts reset before, read after): a trace
+   of 16 requests (prompts of 64-512 tokens, 16-32 new, every second one
+   sampled at temperature 0.8, top-k 50, top-p 0.9, a pair arriving
+   every 2 steps) through 8 slots, its greedy requests against
+   ``generate`` on each prompt alone, then again for the same streams
+   (timed, unlogged) and a third time for a profiled window of decode
+   steps (device time by class, idle share); the same trace gather-fused,
+   in a starved page pool (evictions) and with ep_shards 8 over a local
+   mesh, each against the first run; 4 prompts of 1024-1536 tokens in
+   chunks of 256 against the whole prefill; speculative greedy decoding
+   (4 drafts, repetitive prompts) against the plain engine.  Tokens equal
+   or first differing at a near tie, the logits of each token decided
+   from the same history within the serve checks' tolerances, routing
+   flips only at near ties (``near_tie_match``); then each comparison
+   again with both runs replaying one run's routing, so that they route
+   alike by construction and every token up to the first difference is
+   held; and ``python -m flashmoe_tpu_torch.serving`` with its defaults;
 5. ep: expert parallelism over 8 virtual ranks of a local mesh: the ep
    path, ``forward`` at Mixtral widths (4 layers, 4 x 256 tokens) with
    the fused backend (counts reset before, read after), the collective
@@ -74,7 +92,9 @@ Phases, each of which fails the run on any error:
    logits against ``forward``, a prefill and a decode step timed and
    profiled, the boundary dequantization's share, every prefill MoE layer
    and every MoE layer of the decode steps against ``reference_moe`` on
-   its dequantized weights); on 4 of its
+   its dequantized weights, and the serving engine on the 4 prompts
+   against ``generate``'s tokens, the freed bytes as extra KV pages); on
+   4 of its
    layers the ep path over 8 virtual ranks (the fused backend streams the
    payloads through B5q, the fused kernel's quantized arm: counts reset
    before, read after; the collective backend), B5q at that path's shapes
@@ -111,18 +131,22 @@ Phases, each of which fails the run on any error:
 
 The second-to-last line of stdout is the kernels' JSON line (each
 kernel's launches on the main path of the slice that ported it, and, in
-``launches_by_path``, on the paths of phases 5 and 9 that ran it), the last
+``launches_by_path``, on the paths of phases 4b, 5, 6 and 9 that ran
+it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -140,7 +164,14 @@ from flashmoe_tpu_torch.ops import (attention, expert, gate,  # noqa: E402
 from flashmoe_tpu_torch.parallel import (ep, fused, mesh,  # noqa: E402
                                          ragged_ep)
 from flashmoe_tpu_torch.runtime import trainer  # noqa: E402
+from flashmoe_tpu_torch.serving import __main__ as serve_cli  # noqa: E402
+from flashmoe_tpu_torch.serving import engine as serving  # noqa: E402
+from flashmoe_tpu_torch.serving import loadgen  # noqa: E402
+from flashmoe_tpu_torch.serving.kvcache import (  # noqa: E402
+    gather_ctx, init_paged_cache, prompt_pad)
 from flashmoe_tpu_torch.tree import tree_leaves  # noqa: E402
+from flashmoe_tpu_torch.utils.telemetry import (FlightRecorder,  # noqa: E402
+                                                Metrics)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
@@ -172,6 +203,12 @@ GATE_LOSS_RTOL = 1e-4
 SERVE_MEDIAN_TOL = 2 * BF16_NORMWISE_TOL
 SERVE_ROW_TOL = 5 * BF16_NORMWISE_TOL
 SERVE_NEAR_TIE = 2 * BF16_NORMWISE_TOL
+# two runs' greedy (or sampled) tokens may first differ where this run's
+# top two scores lie closer than the two runs' rounding moves them apart:
+# with the rows' rms difference d over the vocabulary, two entries' errors
+# differ by about sqrt(2) d (random lm_head columns), so a margin of 6 d
+# is a 4.2-sigma move
+SERVE_TIE_SIGMAS = 6.0
 # f32 outputs of the training kernels against their plain versions: the
 # JAX package's own f32 tolerance (tests/test_expert.py), elementwise
 F32_TOL = 2e-4
@@ -2084,7 +2121,51 @@ def quant_f32_case(qname):
           f"gated rowwin: max_abs_err={err:.3g} (rtol = atol = {F32_TOL})")
 
 
-def quant_serve_phase(cfg, params, tag):
+def engine_quant_run(tag, cfg, params, prompt, tokens, paths):
+    """The engine on a quantized store: ``prompt``'s rows as greedy
+    requests arriving at once, against ``generate``'s ``tokens`` on them
+    (one batch, run again with its routing logged: the same tokens); the
+    store's freed bytes as extra KV pages.  Then ``generate`` replaying
+    the engine run's routing, and the engine replaying it too and forced
+    to that run's tokens (``forced_match``)."""
+    b, t0 = prompt.shape
+    glog = EngineLog(cfg, rids=range(b))
+    with glog:
+        again = generate.generate(params, prompt, cfg,
+                                  max_new_tokens=tokens.shape[1] - t0)
+    check(torch.equal(again, tokens), f"{tag}: generate ran twice gave "
+          f"other tokens")
+    reqs = [serving.Request(rid=i, prompt=tuple(prompt[i].tolist()),
+                            max_new_tokens=tokens.shape[1] - t0,
+                            seed=100 + i) for i in range(b)]
+    kw = dict(ENGINE_SERVE, max_batch=b,
+              max_pages_per_slot=slot_pages(reqs, ENGINE_SERVE))
+    kw["num_pages"] = b * kw["max_pages_per_slot"] + 1
+    out, eng, log, _ = engine_run(tag, cfg, params, reqs, [0] * b, paths,
+                                  **kw)
+    info = eng.quant_info
+    check(info is not None and info["extra_kv_pages"] > 0,
+          f"{tag}: quant_info {info}")
+    print(f"{tag}: expert_quant={info['expert_quant']} freed_GB="
+          f"{info['freed_bytes'] / 1e9:.3f} page_bytes={info['page_bytes']} "
+          f"extra_kv_pages={info['extra_kv_pages']} (pool of "
+          f"{kw['num_pages']}) ({gpu_line()})")
+    near_tie_match(tag, out, {i: tokens[i].tolist() for i in range(b)},
+                   reqs, log, glog,
+                   "generate() on the prompts as one batch")
+    # both again, routing as this run did
+    del eng
+    rgen = EngineLog(cfg, rids=range(b), replay=log.routes())
+    with rgen:
+        again = generate.generate(params, prompt, cfg,
+                                  max_new_tokens=tokens.shape[1] - t0)
+    engine_replayed(tag, cfg, params, reqs, [0] * b,
+                    ({i: again[i].tolist() for i in range(b)}, rgen),
+                    "generate() replayed on the prompts as one batch",
+                    **kw)
+
+
+def quant_serve_phase(cfg, params, tag, paths):
     """Serving on a quantized expert store: ``generate`` (4 prompts of 256
     tokens, 16 greedy tokens) with serve_run's checks (first-order flips
     held to the near-tie gap: 32 layers deep, flips cascade), a device-time
@@ -2100,6 +2181,9 @@ def quant_serve_phase(cfg, params, tag):
     tokens, launches, _ = serve_run(tag, cfg, params, prompt, new,
                                     first_order=True)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    if cfg.num_layers == 32:
+        engine_quant_run(f"engine {cfg.expert_quant} 32 layers", cfg,
+                         params, prompt, tokens, paths)
     check(not any(launches[k] for k in (*EP_KERNELS, *QUANT_KERNELS)),
           f"{tag}: the fused kernel ran on one device: {launches}")
     print(f"{tag}: peak_memory_GB={peak:.2f} (generate, its replay and "
@@ -2222,7 +2306,7 @@ def quant_layer_phase(cfg, moe_q, g):
     torch.cuda.empty_cache()
 
 
-def quant_phase():
+def quant_phase(paths):
     """Quantized expert storage on the card.  int8: Mixtral-8x7B at its
     published widths and all 32 layers, the experts stored as int8 (made
     layer by layer), served as the serve phase does; then, on 4 of its
@@ -2255,7 +2339,7 @@ def quant_phase():
               f"quant_bytes_saved_vs_bf16_GB="
               f"{quant.quant_bytes_saved(params, torch.bfloat16) / 1e9:.3f} "
               f"meta={json.dumps(meta, sort_keys=True)} ({gpu_line()})")
-        quant_serve_phase(cfg, params, f"serve {qname}")
+        quant_serve_phase(cfg, params, f"serve {qname}", paths)
         if layers > 4:
             params["layers"] = params["layers"][:4]
             cfg = cfg.replace(num_layers=4)
@@ -2678,6 +2762,774 @@ def serve_phase(cfg, params):
     return launches
 
 
+# ----------------------------------------------------------------------
+# the serving engine (flashmoe_tpu_torch/serving/)
+# ----------------------------------------------------------------------
+
+# the engine's shape at Mixtral widths: 8 slots, 16-token pages, prompts
+# padded to 128 (the flash kernel's tile), gathers bucketed by 8 pages
+ENGINE_SERVE = dict(max_batch=8, page_size=16, prompt_bucket=128,
+                    ctx_bucket_pages=8)
+ENGINE_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+ENGINE_KERNELS = ("gate", "grouped_ffn", "flash_attention")
+PATH_KERNELS.update({
+    "engine mixed": ENGINE_KERNELS,
+    "engine gather_fused": ("gate", "grouped_ffn_tokens", "flash_attention"),
+    "engine starved": ENGINE_KERNELS,
+    # every prompt of the chunked run is longer than one chunk: its
+    # prefill is paged chunks, no whole-prompt flash attention
+    "engine chunked": ("gate", "grouped_ffn"),
+    "engine whole prefill": ENGINE_KERNELS,
+    "engine speculative": ENGINE_KERNELS,
+    "engine non-speculative": ENGINE_KERNELS,
+    "engine ep 8": ENGINE_KERNELS,
+    "engine int8 32 layers": ENGINE_KERNELS,
+    "engine cli": ENGINE_KERNELS,
+})
+
+
+class EngineLog:
+    """While active, records what decides an engine's (or ``generate``'s)
+    tokens, per request:
+
+    * ``logits[(rid, j)]``: the logits new token j was decided from (the
+      last decision of that token wins: an evicted request's resumption,
+      a rejected draft's position sampled again);
+    * :meth:`routes`: {(rid, position, MoE layer): (top-k ids, the gap of
+      the k-th and (k+1)-th gate probabilities)} of every prompt and
+      decode position, from a RoutingLog and the rows of each device
+      step in flight (the engine's slots; ``rids``, ``generate``'s
+      batch).
+
+    ``engine`` is the engine driven (its requests' seeds are their rids'
+    keys: a trace seeds each request on its own).
+
+    With ``replay`` (another log's :meth:`routes`) every MoE layer's router
+    is the plain one made to route each row keyed (rid, position, layer)
+    as ``replay`` records, and a row it does not key (a pad row, a
+    speculative column past the recorded positions) by its own top-k:
+    two runs replaying one record route alike by construction, so their
+    logits differ by rounding alone.  ``replayed`` / ``unkeyed`` count
+    the rows of each kind.  With ``force`` ({rid: new tokens}) the
+    sampler returns those tokens, and ``own[(rid, j)]`` keeps its own
+    pick: a run forced to another's tokens decides every token from the
+    same history as that run."""
+
+    STEPS = ("_prefill_padded", "_prefill_chunk", "_paged_decode_step",
+             "_paged_verify_step", "_ep_decode_step", "_ep_verify_step")
+
+    def __init__(self, cfg, engine=None, reqs=(), rids=(), replay=None,
+                 force=None):
+        self.k, self.n_layers = cfg.expert_top_k, len(cfg.moe_layer_indices)
+        self.engine, self.rids, self.replay = engine, list(rids), replay
+        self.force, self.own = force, {}
+        reqs = list(reqs)
+        self.seed_rid = {r.seed: r.rid for r in reqs}
+        check(len(self.seed_rid) == len(reqs),
+              "EngineLog: two requests share a seed")
+        self.prompts = [(list(r.prompt), r.rid) for r in reqs]
+        self.logits, self.marks = {}, []
+        self.replayed = self.unkeyed = 0
+
+    def _decided(self, keys, logits, picks):
+        """Record the logits of each key's decision; returns the tokens:
+        ``picks`` (this run's), or the forced ones."""
+        for i, key in enumerate(keys):
+            self.logits[key] = logits[i].float()
+        if self.force is None:
+            return picks
+        own = picks.tolist()
+        out = []
+        for key, o in zip(keys, own):
+            self.own[key] = o
+            new = self.force[key[0]]
+            out.append(new[key[1]] if key[1] < len(new) else o)
+        return torch.tensor(out, dtype=picks.dtype,
+                            device=picks.device).reshape(picks.shape)
+
+    def _mark(self, rows):
+        """A device step starts over ``rows``: its router calls walk them
+        layer by layer (a list: [rows, cursor, layer])."""
+        self.marks.append((len(self.routing.calls), rows))
+        self._live = [rows, 0, 0]
+
+    def _replayed_router(self, x, gate_w, cfg, use_kernels=None):
+        rows, cursor, layer = self._live
+        keys = rows[cursor:cursor + x.shape[0]]
+        self._live[1] += x.shape[0]
+        if self._live[1] == len(rows):
+            self._live[1:] = [0, layer + 1]
+        logits = reference.dot_f32(x, gate_w)
+        probs = torch.softmax(logits, -1)
+        ids = reference.top_k_lowest_index(probs, self.k)[1].tolist()
+        for i, key in enumerate(keys):
+            got = None if key is None else self.replay.get((*key, layer))
+            if got is None:
+                self.unkeyed += 1
+            else:
+                ids[i] = list(got[0])
+                self.replayed += 1
+        ids = torch.tensor(ids, device=x.device)
+        counts = torch.bincount(ids.reshape(-1), minlength=cfg.num_experts)
+        zsum = torch.sum(torch.square(torch.logsumexp(logits, -1)))
+        return gate._finish(cfg, probs.gather(-1, ids), ids, probs.sum(0),
+                            counts, zsum, x.shape[0])
+
+    def __enter__(self):
+        if self.replay is not None:
+            self._router = moe.router
+            for mod in RoutingLog.MODULES:
+                mod.router = self._replayed_router
+        self.routing = RoutingLog().__enter__()
+        self._saved = {n: getattr(serving, n) for n in self.STEPS}
+        self._saved_gen = (generate.prefill_batched, generate._decode_step,
+                           generate.sample_tokens)
+        self._sample = serving._sample_dynamic
+
+        def sample(logits, seeds, indices, temps, top_ks, top_ps):
+            scores = serving._sample_scores(logits, seeds, indices, temps,
+                                            top_ks, top_ps)
+            return self._decided([(self.seed_rid[s], j)
+                                  for s, j in zip(seeds, indices)], logits,
+                                 torch.argmax(scores, dim=-1))
+
+        def step(name):
+            def spy(*a, **kw):
+                self._mark(self._rows(name, a))
+                return self._saved[name](*a, **kw)
+            return spy
+
+        def gen_prefill(params, cfg, x, cache, *a, **kw):
+            self._gen_step = 0
+            self._mark([(r, t) for r in self.rids for t in range(x.shape[1])])
+            return self._saved_gen[0](params, cfg, x, cache, *a, **kw)
+
+        def gen_decode(params, cfg, x, cache, pos, *a, **kw):
+            self._mark([(r, pos) for r in self.rids])
+            return self._saved_gen[1](params, cfg, x, cache, pos, *a, **kw)
+
+        def gen_sample(logits, *a, **kw):
+            check(kw.get("temperature", 0.0) == 0.0,
+                  "EngineLog: generate is logged greedy only")
+            keys = [(r, self._gen_step) for r in self.rids]
+            self._gen_step += 1
+            return self._decided(keys, logits,
+                                 self._saved_gen[2](logits, *a, **kw))
+
+        serving._sample_dynamic = sample
+        for n in self.STEPS:
+            setattr(serving, n, step(n))
+        (generate.prefill_batched, generate._decode_step,
+         generate.sample_tokens) = gen_prefill, gen_decode, gen_sample
+        return self
+
+    def __exit__(self, *exc):
+        serving._sample_dynamic = self._sample
+        for n, f in self._saved.items():
+            setattr(serving, n, f)
+        (generate.prefill_batched, generate._decode_step,
+         generate.sample_tokens) = self._saved_gen
+        self.routing.__exit__(*exc)
+        if self.replay is not None:
+            for mod in RoutingLog.MODULES:
+                mod.router = self._router
+
+    def _rows(self, name, a):
+        """(rid, position) of each row of the step ``name`` is about to
+        run, None for pad and idle rows; a whole prefill's request is the
+        one whose prompt its tokens start with (a resumed request's prompt
+        carries its delivered tokens after the original's)."""
+        eng = self.engine
+        if name == "_prefill_padded":
+            t_pad, true_len = a[2].shape[1], a[3]
+            toks = a[2][0, :true_len].tolist()
+            rid = [r for p, r in self.prompts if toks[:len(p)] == p]
+            check(len(rid) == 1, f"EngineLog: a prefill of {true_len} "
+                  f"tokens matches the prompts of requests {rid}")
+            return [(rid[0], t) if t < true_len else None
+                    for t in range(t_pad)]
+        if name == "_prefill_chunk":
+            start, c = a[7], a[4].shape[1]
+            s = next(s for s in eng.slots
+                     if s is not None and s.prefill_pos == start)
+            return [(s.orig.rid, start + t)
+                    if start + t < len(s.req.prompt) else None
+                    for t in range(c)]
+        toks = a[-3]
+        t_span = toks.shape[1] if toks.dim() == 2 else 1
+        return [(s.orig.rid, s.length + t)
+                if s is not None and s.prefill_pos is None else None
+                for s in eng.slots for t in range(t_span)]
+
+    def routes(self):
+        calls = self.routing.calls
+        out = {}
+        for i, (start, rows) in enumerate(self.marks):
+            end = (self.marks[i + 1][0] if i + 1 < len(self.marks)
+                   else len(calls))
+            cursor, layer = 0, 0
+            for ids, probs in calls[start:end]:
+                ids = ids.sort(-1).values.tolist()
+                top = probs.sort(-1, descending=True).values
+                gaps = (top[:, self.k - 1] - top[:, self.k]).tolist()
+                for j, key in enumerate(rows[cursor:cursor + len(ids)]):
+                    if key is not None:
+                        out[(*key, layer)] = (tuple(ids[j]), gaps[j])
+                cursor += len(ids)
+                if cursor == len(rows):
+                    cursor, layer = 0, layer + 1
+            check(cursor == 0 and layer == self.n_layers,
+                  f"routing of a step: {layer} layers and {cursor} rows left")
+        return out
+
+
+def engine_trace(cfg, n=16, seed=40, prompt_lens=(64, 512),
+                 new=(16, 32), sampled=True):
+    """The engine's request trace: ``n`` requests with prompt lengths and
+    new-token counts drawn from ``seed``, one pair arriving every 2
+    steps, every second request sampled (ENGINE_SAMPLED) when
+    ``sampled``, request i seeded 100 + i."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(prompt_lens[0], prompt_lens[1] + 1, (n,),
+                         generator=g).tolist()
+    news = torch.randint(new[0], new[1] + 1, (n,), generator=g).tolist()
+    reqs = [serving.Request(
+        rid=i, prompt=tuple(torch.randint(0, cfg.vocab_size, (lens[i],),
+                                          generator=g).tolist()),
+        max_new_tokens=news[i], seed=100 + i,
+        **(ENGINE_SAMPLED if sampled and i % 2 else {}))
+        for i in range(n)]
+    return reqs, [(i // 2) * 2 for i in range(n)]
+
+
+def slot_pages(reqs, serve_kw) -> int:
+    """The slot context (in pages) the trace's longest lifetime needs."""
+    longest = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    return (prompt_pad(longest, serve_kw["prompt_bucket"])
+            // serve_kw["page_size"])
+
+
+def engine_counts(name, paths, gather=False):
+    """path_counts for an engine run, plus serve_run's check that no
+    training, many-expert or fused kernel and not the other FFN ran."""
+    counts = path_counts(name, paths)
+    other = "grouped_ffn" if gather else "grouped_ffn_tokens"
+    check(not any(counts[k] for k in (*TRAIN_KERNELS, other, "gate_pass1",
+                                      "gate_pass2", *EP_KERNELS,
+                                      *QUANT_KERNELS)),
+          f"{name}: unexpected launches {counts}")
+    return counts
+
+
+def engine_run(tag, cfg, params, reqs, arrivals, paths=None, *,
+               log=True, ep_mesh=None, replay=None, force=None,
+               **serve_kw):
+    """Drive one engine over ``reqs`` (counts reset before, read after as
+    path ``tag`` when ``paths`` is given), every request completed; print
+    its serving metrics.  ``replay`` / ``force``: the EngineLog's routing
+    record to replay and tokens to force.  Returns (outputs, engine, its
+    EngineLog or None, flight records)."""
+    mx, rec = Metrics(), FlightRecorder(capacity=100_000)
+    eng = serving.ServingEngine(params, cfg, serving.ServeConfig(**serve_kw),
+                                metrics_obj=mx, recorder=rec, mesh=ep_mesh)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    elog = (EngineLog(cfg, eng, reqs, replay=replay, force=force) if log
+            else None)
+    if elog is not None:
+        with elog:
+            out = eng.run(reqs, arrivals)
+    else:
+        out = eng.run(reqs, arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = (engine_counts(tag, paths, bool(cfg.gather_fused))
+              if paths is not None else None)
+    s = eng.summary()
+    check(s["completed"] == len(reqs) and len(out) == len(reqs)
+          and all(len(out[r.rid]) == len(r.prompt) + r.max_new_tokens
+                  for r in reqs),
+          f"{tag}: {s['completed']} of {len(reqs)} requests completed")
+    ttft, step = mx.sketches["serve.ttft_ms"], mx.sketches["serve.step_ms"]
+    print(f"{tag}: requests={len(reqs)} max_active={s['max_active']} "
+          f"steps={s['steps']} tokens={s['tokens']} wall_s={wall:.3f} "
+          f"tokens_per_s={s['tokens'] / wall:.1f} ttft_ms_p50="
+          f"{ttft.quantile(0.5):.2f} ttft_ms_p99={ttft.quantile(0.99):.2f} "
+          f"tpot_ms_mean={s['tpot_ms_mean']:.2f} step_ms_mean="
+          f"{step.mean:.2f} step_ms_max={step.max:.2f} evictions="
+          f"{s['evictions']} peak_occupancy={s['peak_occupancy']:.3f} "
+          f"decode_buckets={s['decode_buckets']} prefill_buckets="
+          f"{s['prefill_buckets']} logged={log} launches={counts} "
+          f"({gpu_line()})")
+    return out, eng, elog, rec.records
+
+
+def generate_alone(cfg, params, reqs, replay=None, force=None):
+    """``generate`` on each request's prompt alone (greedy), logged
+    (replaying the routing record ``replay``, forced to the tokens
+    ``force``).  Returns ({rid: prompt + new tokens}, the EngineLog)."""
+    elog, out = EngineLog(cfg, replay=replay, force=force), {}
+    with elog:
+        for r in reqs:
+            elog.rids = [r.rid]
+            out[r.rid] = generate.generate(
+                params, torch.tensor([r.prompt], device="cuda"), cfg,
+                max_new_tokens=r.max_new_tokens)[0].tolist()
+    return out, elog
+
+
+def near_tie_match(tag, got, want, reqs, elog, ref, what):
+    """Each request's tokens in ``got`` (logged by ``elog``) against
+    ``want`` (rid -> prompt + new tokens; logged by the EngineLog
+    ``ref``), both runs routing on their own: equal, or they first differ
+    at new token j, after which the request's tokens are excused.  The
+    logits of each new token decided from the same history agree within
+    SERVE_ROW_TOL normwise (the median row within SERVE_MEDIAN_TOL).
+    serve_run's rules: a MoE layer may route the request otherwise at an
+    earlier position, first at a near tie of this run's gate
+    probabilities (k-th and (k+1)-th gap <= SERVE_NEAR_TIE); at depth a
+    flip moves its position's hidden state, and the positions after it,
+    beyond rounding, so the tokens after a flip are not held.  A first
+    difference with no flip before it is a near tie of this run's scores
+    (``tie_of``).  ``forced_match`` holds every token.  Returns the count
+    of bit-equal requests."""
+    routes, ref_routes = elog.routes(), ref.routes()
+    n_layers = elog.n_layers
+    equal, flipped, errs, ties, held_min = 0, 0, [], [], None
+    for r in reqs:
+        g, w = list(got[r.rid]), list(want[r.rid])
+        n0 = len(r.prompt)
+        check(len(g) == len(w) and g[:n0] == w[:n0],
+              f"{tag}: request {r.rid}: {len(g)} tokens against {len(w)}")
+        diff = next((j for j in range(len(g) - n0)
+                     if g[n0 + j] != w[n0 + j]), None)
+        last = len(g) - n0 - 1 if diff is None else diff
+        flip = next(((p, li) for p in range(n0 + last) for li in
+                     range(n_layers)
+                     if routes[(r.rid, p, li)][0]
+                     != ref_routes[(r.rid, p, li)][0]), None)
+        if flip is not None:
+            gap = routes[(r.rid, *flip)][1]
+            check(gap <= SERVE_NEAR_TIE,
+                  f"{tag}: request {r.rid} routes otherwise than {what} at "
+                  f"(position, layer) {flip}, where this run's gate gap is "
+                  f"{gap} (near tie: <= {SERVE_NEAR_TIE})")
+            flipped += 1
+        # the new tokens decided from the same history, before a flip
+        held = range(last + 1 if flip is None else
+                     min(last + 1, max(0, flip[0] - n0 + 1)))
+        held_min = len(held) if held_min is None else min(held_min,
+                                                          len(held))
+        for j in held:
+            a, b = elog.logits[(r.rid, j)], ref.logits[(r.rid, j)]
+            errs.append(normwise(a, b))
+            check(errs[-1] <= SERVE_ROW_TOL,
+                  f"{tag}: request {r.rid} new token {j}: logits "
+                  f"{errs[-1]} normwise from {what}'s (tol {SERVE_ROW_TOL})")
+        if diff is None:
+            equal += 1
+        elif flip is None:
+            ties.append(tie_of(tag, r, diff, elog, ref, what))
+    med = float(torch.tensor(errs).median()) if errs else 0.0
+    check(med <= SERVE_MEDIAN_TOL, f"{tag}: median logits row {med} "
+          f"normwise from {what}'s (tol {SERVE_MEDIAN_TOL})")
+    print(f"{tag}: {equal}/{len(reqs)} requests bit-equal to {what}; "
+          f"{len(ties)} first differ at a near tie of the scores "
+          f"(distance over the rows' rms difference max "
+          f"{max((t[0] for t in ties), default=0):.3g}, tol "
+          f"{SERVE_TIE_SIGMAS}; relative gap (p1 - p2) / p1 max "
+          f"{max((t[1] for t in ties if t[1] is not None), default=0):.3g}"
+          f", {sum(t[1] is None for t in ties)} at a truncation cut); "
+          f"{flipped} first "
+          f"routed otherwise at a near tie of the gate; logits of "
+          f"{len(errs)} new tokens from the same history (fewest for a "
+          f"request {held_min}): median {med:.3g} (tol {SERVE_MEDIAN_TOL}), "
+          f"max {max(errs, default=0):.3g} normwise (tol {SERVE_ROW_TOL})")
+    return equal
+
+
+def forced_match(tag, got, want, reqs, elog, ref, what):
+    """The twin of near_tie_match for a run (logged by ``elog``) that
+    replayed the routing record ``ref`` replayed and was forced to its
+    tokens ``want``: both route alike and decide every token from the
+    same history, by construction.  So every new token's logits are held
+    within SERVE_ROW_TOL normwise (the median row within
+    SERVE_MEDIAN_TOL), and where this run's own pick differs from the
+    forced token, it is a near tie of its scores (``tie_of``)."""
+    check(elog.replay is not None and elog.replay is ref.replay
+          and elog.force is not None, f"{tag}: not a replayed, forced twin")
+    errs, ties, own_equal = [], [], 0
+    for r in reqs:
+        n0 = len(r.prompt)
+        check(list(got[r.rid]) == list(want[r.rid]),
+              f"{tag}: request {r.rid} did not take the forced tokens")
+        same = True
+        for j in range(len(want[r.rid]) - n0):
+            a, b = elog.logits[(r.rid, j)], ref.logits[(r.rid, j)]
+            errs.append(normwise(a, b))
+            check(errs[-1] <= SERVE_ROW_TOL,
+                  f"{tag}: request {r.rid} new token {j}: logits "
+                  f"{errs[-1]} normwise from {what}'s (tol {SERVE_ROW_TOL})")
+            if elog.own[(r.rid, j)] != want[r.rid][n0 + j]:
+                same = False
+                ties.append(tie_of(tag, r, j, elog, ref, what))
+        own_equal += same
+    med = float(torch.tensor(errs).median())
+    check(med <= SERVE_MEDIAN_TOL, f"{tag}: median logits row {med} "
+          f"normwise from {what}'s (tol {SERVE_MEDIAN_TOL})")
+    print(f"{tag}: routing and tokens forced to {what}'s; the logits of "
+          f"all {len(errs)} new tokens: median {med:.3g} (tol "
+          f"{SERVE_MEDIAN_TOL}), max {max(errs):.3g} normwise (tol "
+          f"{SERVE_ROW_TOL}); {own_equal}/{len(reqs)} requests would pick "
+          f"every token alike; {len(ties)} tokens picked otherwise, each at "
+          f"a near tie of the scores (distance over the rows' rms "
+          f"difference max {max((t[0] for t in ties), default=0):.3g}, tol "
+          f"{SERVE_TIE_SIGMAS}; relative gap (p1 - p2) / p1 max "
+          f"{max((t[1] for t in ties if t[1] is not None), default=0):.3g}"
+          f", {sum(t[1] is None for t in ties)} at a truncation cut); rows "
+          f"routed as recorded {elog.replayed} and {ref.replayed}, by their "
+          f"own top-k {elog.unkeyed} and {ref.unkeyed}")
+
+
+def tie_of(tag, r, j, elog, ref, what):
+    """New token j of request ``r``, which this run picks otherwise than
+    the reference from the same history and routing: a near tie of this
+    run's decision.
+    Both runs' scores are recomputed from their logits (the sampler's, with
+    the same noise).  Where each run's pick survives the other's
+    truncation, the two picks' scores in this run lie within
+    SERVE_TIE_SIGMAS times d, the rms difference of the two runs' scores
+    over the vocabulary (their logits' over the temperature); where a
+    pick is cut in the other run, it lies within that of the other run's
+    cut (its lowest kept score before the noise).  Returns (the distance
+    over d, the relative gap (p1 - p2) / p1 of this run's pick against the
+    other's, None at a cut)."""
+    t = r.temperature if r.temperature > 0 else 1.0
+    a, b = elog.logits[(r.rid, j)], ref.logits[(r.rid, j)]
+    d = float((a - b).square().mean().sqrt()) / t
+
+    def scores(x):
+        if r.temperature <= 0:
+            return x
+        return serving._sample_scores(x[None], [r.seed], [j],
+                                      [r.temperature], [r.top_k],
+                                      [r.top_p])[0]
+
+    sa, sb = scores(a), scores(b)
+    ta, tb = int(sa.argmax()), int(sb.argmax())
+    check(ta != tb, f"{tag}: request {r.rid} new token {j}: the logged "
+          f"logits pick the same token {ta} in both runs")
+    ka, kb = sa > attention.NEG_INF / 2, sb > attention.NEG_INF / 2
+    if bool(ka[tb]) and bool(kb[ta]):
+        dist = float(sa[ta] - sa[tb])
+        rel = -math.expm1(-dist)
+    else:
+        # a pick cut in the other run: its distance below that run's cut
+        dist, rel = 0.0, None
+        for x, keep, scaled in ((tb, ka, a / t), (ta, kb, b / t)):
+            if not bool(keep[x]):
+                dist = max(dist, float(scaled[keep].min() - scaled[x]))
+    ratio = dist / d if d > 0 else math.inf
+    check(ratio <= SERVE_TIE_SIGMAS,
+          f"{tag}: request {r.rid} first differs from {what} at new token "
+          f"{j} (token {ta} against {tb}), {dist} nats apart "
+          f"{'from a truncation cut' if rel is None else 'in scores'}, "
+          f"{ratio} "
+          f"times the rows' rms difference {d} (near tie: <= "
+          f"{SERVE_TIE_SIGMAS})")
+    return ratio, rel
+
+
+def decode_window(records, decisions, max_batch, width=6):
+    """The first run of up to ``width`` steps with every slot decoding and
+    no admission (pure decode steps), as (first step, count)."""
+    admits = {d["step"] for d in decisions if d["decision"] == "serve.admit"}
+    best = (0, 0)
+    run = None
+    for r in records:
+        if r["kind"] != "serve_step":
+            continue
+        ok = r["step"] not in admits and r["active"] == max_batch
+        run = (run or (r["step"], 0)) if ok else None
+        if run is not None:
+            run = (run[0], run[1] + 1)
+            best = max(best, run, key=lambda x: x[1])
+            if best[1] >= width:
+                break
+    check(best[1] > 0, "engine: no step decoded a full batch without "
+          "an admission")
+    return best
+
+
+def engine_profile(cfg, params, reqs, arrivals, serve_kw, records,
+                   decisions):
+    """Device time of a window of pure decode steps of the mixed run (a
+    third drive of the same trace, the same schedule), by class, and the
+    idle share against the host time of the same steps in the timed run
+    (no profiler)."""
+    start, n = decode_window(records, decisions, serve_kw["max_batch"])
+    eng = serving.ServingEngine(params, cfg, serving.ServeConfig(**serve_kw),
+                                metrics_obj=Metrics())
+    for i, r in enumerate(reqs):
+        eng.submit(r, arrivals[i])
+    while eng.step_idx < start:
+        eng.step()
+    dev, kernels = device_breakdown(
+        f"engine decode window (steps {start}-{start + n - 1}, "
+        f"{serve_kw['max_batch']} slots)",
+        lambda: [eng.step() for _ in range(n)])
+    host = sum(r["step_ms"] for r in records
+               if r["kind"] == "serve_step" and start <= r["step"] < start + n)
+    idle = "not measured" if dev is None else f"{1 - dev / host:.3f}"
+    print(f"engine decode window: steps={n} host_ms_per_step={host / n:.3f} "
+          f"(timed run, no profiler) device_ms_per_step="
+          f"{fmt_ms(None if dev is None else dev / n)} kernels_per_step="
+          f"{kernels / n:.1f} idle_share={idle} ({gpu_line()})")
+
+
+def chunk_kv_check(cfg, params, req, chunk=256):
+    """The K/V rows the chunked prefill writes into pages, against the
+    whole prefill's run, layer by layer at every prompt position, with
+    both runs' routing recorded.  Layer 0 (before any MoE layer) within
+    the bf16 tolerance normwise; each routing difference a near tie of
+    the whole prefill's gate (k-th and (k+1)-th gap <= SERVE_NEAR_TIE)
+    where it is first-order (serve_flips' sense: no earlier layer flipped
+    at its position or an earlier one); in each layer at most 2 % of the
+    positions whose routing agreed in every earlier layer more than 4x
+    the bf16 tolerance off (a flip elsewhere reaches them only through
+    attention)."""
+    page = ENGINE_SERVE["page_size"]
+    t0 = len(req.prompt)
+    t_pad = prompt_pad(t0, ENGINE_SERVE["prompt_bucket"])
+    n = prompt_pad(t_pad, chunk) // page
+    toks = torch.zeros(n * page, dtype=torch.long, device="cuda")
+    toks[:t0] = torch.tensor(req.prompt, device="cuda")
+    with RoutingLog() as whole:
+        _, k_seq, v_seq = serving._prefill_padded(params, cfg,
+                                                  toks[None, :t_pad], t0)
+    cache = init_paged_cache(cfg, n + 1, page, "cuda")
+    table = torch.arange(1, n + 1, device="cuda")
+    with RoutingLog() as chunked:
+        for pos in range(0, t0, chunk):
+            end = (pos + chunk) // page
+            serving._prefill_chunk(params, cfg, cache.k_pages,
+                                   cache.v_pages, toks[None, pos:pos + chunk],
+                                   table[:end], table[pos // page:end], pos,
+                                   min(t0 - 1 - pos, chunk - 1))
+    n_l, k = cfg.num_layers, cfg.expert_top_k
+    check(len(cfg.moe_layer_indices) == n_l, "chunk_kv_check: every layer "
+          "an MoE layer")
+    # per layer: [t0] routing differs; earlier: some earlier layer did at
+    # the position; before: ... at the position or an earlier one
+    flips, gaps = [], 0.0
+    earlier = torch.zeros(t0, dtype=torch.bool, device="cuda")
+    before = earlier.clone()
+    own = []
+    for li in range(n_l):
+        ids_w, probs_w = whole.calls[li]
+        ids_c = torch.cat([c[0] for c in chunked.calls[li::n_l]])
+        diff = (ids_w[:t0].sort(-1).values
+                != ids_c[:t0].sort(-1).values).any(-1)
+        first = diff & ~before
+        if bool(first.any()):
+            top = probs_w[:t0][first].sort(-1, descending=True).values
+            gaps = max(gaps, float((top[:, k - 1] - top[:, k]).max()))
+        own.append(earlier.clone())
+        flips.append(int(diff.sum()))
+        earlier |= diff
+        before |= diff.int().cummax(0).values.bool()
+    check(gaps <= SERVE_NEAR_TIE, f"engine chunked: a first-order routing "
+          f"difference at a gate gap of {gaps} (near tie: <= "
+          f"{SERVE_NEAR_TIE})")
+    worst, off = [], []
+    for pages, seq in ((cache.k_pages, k_seq), (cache.v_pages, v_seq)):
+        for li in range(n_l):
+            got = gather_ctx(pages[li], table[None])[0, :, :t0]
+            want = seq[li][:, :t0]
+            per_pos = (torch.linalg.vector_norm((got - want).float(),
+                                                dim=(0, 2))
+                       / torch.linalg.vector_norm(want.float(), dim=(0, 2)))
+            worst.append(normwise(got, want))
+            held = ~own[li]
+            off.append(float((per_pos[held] > 4 * BF16_NORMWISE_TOL)
+                             .float().mean()))
+    print(f"engine chunked: K/V rows of {t0} prompt positions against the "
+          f"whole prefill's, by layer (K then V): normwise "
+          f"{[round(w, 5) for w in worst]} (layer 0 tol "
+          f"{BF16_NORMWISE_TOL}); routing differences by layer {flips} "
+          f"(largest first-order gap {gaps:.3g}, tol {SERVE_NEAR_TIE}); of "
+          f"the positions routed alike in the earlier layers, the share "
+          f"over {4 * BF16_NORMWISE_TOL}: {[round(o, 4) for o in off]} "
+          f"(tol 0.02)")
+    check(worst[0] <= BF16_NORMWISE_TOL and worst[n_l] <= BF16_NORMWISE_TOL
+          and max(off) <= 0.02, "engine chunked: chunked K/V rows against "
+          "the whole prefill's")
+
+
+def engine_phase(cfg, params):
+    """The serving engine at Mixtral widths (the serve phase's weights):
+    (1) a mixed trace of 16 requests (prompts 64-512 tokens, 16-32 new,
+    half sampled) sustaining 8 concurrent, its greedy requests against
+    ``generate`` on each prompt alone, the same trace again for the same
+    sampled streams (the timed run) and a third time for a profiled
+    window of decode steps; (2) gather-fused; (3) a starved page pool
+    (evictions); (4) chunked prefill of 1024-1536-token prompts against
+    the whole prefill; (5) speculative greedy decoding against the plain
+    engine; (6) ep_shards 8 over a local mesh.  Each comparison is made
+    twice: between the runs as they route, and between twins that replay
+    one run's routing (``EngineLog``'s ``replay``; the mixed run's for
+    (1), (2), (3) and (6)).  Then the CLI (``cli_run``).  Each run's
+    launches, the replayed twins' aside, are a path of the kernels line.
+    Returns the paths."""
+    paths = {}
+    reqs, arrivals = engine_trace(cfg)
+    base = dict(ENGINE_SERVE, max_pages_per_slot=slot_pages(reqs,
+                                                           ENGINE_SERVE))
+    roomy = dict(base, num_pages=8 * base["max_pages_per_slot"] + 1)
+    out1, eng1, log1, _ = engine_run("engine mixed", cfg, params, reqs,
+                                     arrivals, paths, **roomy)
+    check(eng1.stats["max_active"] == 8 and eng1.stats["evictions"] == 0,
+          f"engine mixed: {eng1.summary()}")
+    greedy = [r for r in reqs if r.temperature <= 0]
+    alone, alone_log = generate_alone(cfg, params, greedy)
+    near_tie_match("engine mixed", out1, alone, greedy, log1, alone_log,
+                   "generate() on each prompt alone")
+    # the reference of the replayed, forced twins of (1), (2), (3), (6)
+    routes1 = log1.routes()
+    out, _, rlog1, _ = engine_run("engine mixed (replayed)", cfg, params,
+                                  reqs, arrivals, replay=routes1, **roomy)
+    ref1 = (out, rlog1)
+    alone, alone_log = generate_alone(
+        cfg, params, greedy, replay=routes1,
+        force={r.rid: out[r.rid][len(r.prompt):] for r in greedy})
+    forced_match("engine mixed: generate() alone (replayed, forced)", alone,
+                 out, greedy, alone_log, rlog1, "the replayed mixed run")
+    out1b, eng1b, _, rec1b = engine_run("engine mixed (timed)", cfg, params,
+                                        reqs, arrivals, log=False, **roomy)
+    check(out1b == out1, "engine mixed: a second run of the trace gave "
+          "other streams")
+    print("engine mixed: a second run gave the same streams, sampled "
+          f"({len(reqs) - len(greedy)}) and greedy ({len(greedy)})")
+    engine_profile(cfg, params, reqs, arrivals, roomy, rec1b,
+                   eng1b.metrics.decisions)
+
+    out, _, log, _ = engine_run("engine gather_fused",
+                                cfg.replace(gather_fused=True), params,
+                                reqs, arrivals, paths, **roomy)
+    near_tie_match("engine gather_fused", out, out1, reqs, log, log1,
+                   "the mixed run")
+    engine_replayed("engine gather_fused", cfg.replace(gather_fused=True),
+                    params, reqs, arrivals, ref1, "the replayed mixed run",
+                    **roomy)
+    # prompts padded to whole pages only, so that decode grows every
+    # request by a page or two, into a pool of 160 pages: 2 evictions
+    starved = dict(base, prompt_bucket=16, num_pages=161)
+    out, eng, log, _ = engine_run("engine starved", cfg, params, reqs,
+                                  arrivals, paths, **starved)
+    check(eng.stats["evictions"] > 0, "engine starved: no eviction")
+    near_tie_match("engine starved", out, out1, reqs, log, log1,
+                   "the mixed run")
+    engine_replayed("engine starved", cfg, params, reqs, arrivals, ref1,
+                    "the replayed mixed run", **starved)
+
+    long_reqs, long_arr = engine_trace(cfg, n=4, seed=41,
+                                       prompt_lens=(1024, 1536),
+                                       new=(16, 16), sampled=False)
+    lkw = dict(ENGINE_SERVE, max_pages_per_slot=slot_pages(long_reqs,
+                                                          ENGINE_SERVE))
+    lkw["num_pages"] = 4 * lkw["max_pages_per_slot"] + 1
+    whole, _, wlog, _ = engine_run("engine whole prefill", cfg, params,
+                                   long_reqs, long_arr, paths, **lkw)
+    out, eng, log, _ = engine_run("engine chunked", cfg, params, long_reqs,
+                                  long_arr, paths, prefill_chunk=256, **lkw)
+    check(eng.stats["prefill_buckets"] == {256}, "engine chunked: "
+          f"prefill buckets {eng.stats['prefill_buckets']}")
+    near_tie_match("engine chunked", out, whole, long_reqs, log,
+                   wlog, "the whole-prefill engine")
+    out, _, log, _ = engine_run("engine whole prefill (replayed)", cfg,
+                                params, long_reqs, long_arr,
+                                replay=wlog.routes(), **lkw)
+    engine_replayed("engine chunked", cfg, params, long_reqs, long_arr,
+                    (out, log), "the replayed whole-prefill engine",
+                    prefill_chunk=256, **lkw)
+    chunk_kv_check(cfg, params, max(long_reqs, key=lambda r: len(r.prompt)))
+
+    spec_reqs, spec_arr = loadgen.build_requests(
+        8, vocab=cfg.vocab_size, prompt_len=128, max_new=24, seed=50,
+        arrival_every=2, repetitive=True)
+    skw = dict(ENGINE_SERVE, max_pages_per_slot=slot_pages(spec_reqs,
+                                                          ENGINE_SERVE))
+    skw["num_pages"] = 8 * skw["max_pages_per_slot"] + 1
+    plain, _, plog, _ = engine_run("engine non-speculative", cfg, params,
+                                   spec_reqs, spec_arr, paths, **skw)
+    out, eng, log, _ = engine_run(
+        "engine speculative", cfg, params, spec_reqs, spec_arr, paths,
+        speculate=serving.SpecConfig(draft_tokens=4), **skw)
+    snap = eng.spec_snapshot()
+    print(f"engine speculative: draft_tokens=4 drafted="
+          f"{snap['spec_drafted']} accepted={snap['spec_accepted']} "
+          f"accept_rate={snap['accept_rate']} tokens_per_step="
+          f"{snap['spec_tokens_per_step']} verify_steps="
+          f"{snap['spec_steps']}")
+    near_tie_match("engine speculative", out, plain, spec_reqs, log,
+                   plog, "the non-speculative engine")
+    out, _, log, _ = engine_run("engine non-speculative (replayed)", cfg,
+                                params, spec_reqs, spec_arr,
+                                replay=plog.routes(), **skw)
+    engine_replayed("engine speculative", cfg, params, spec_reqs, spec_arr,
+                    (out, log), "the replayed non-speculative engine",
+                    speculate=serving.SpecConfig(draft_tokens=4), **skw)
+
+    ekw = dict(roomy, ep_shards=8,
+               num_pages=8 * (base["max_pages_per_slot"] + 1))
+    out, _, log, _ = engine_run(
+        "engine ep 8", cfg, params, reqs, arrivals, paths,
+        ep_mesh=mesh.local_mesh(8, device="cuda"), **ekw)
+    near_tie_match("engine ep 8", out, out1, reqs, log, log1,
+                   "the mixed run")
+    engine_replayed("engine ep 8", cfg, params, reqs, arrivals, ref1,
+                    "the replayed mixed run",
+                    ep_mesh=mesh.local_mesh(8, device="cuda"), **ekw)
+    cli_run(paths)
+    return paths
+
+
+def cli_run(paths):
+    """``python -m flashmoe_tpu_torch.serving`` with its defaults on the
+    card (its ``main``, in this process): the f32 drill model through the
+    kernels at its own small shapes, every request completed on this
+    card, the observability files written."""
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as obs:
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = serve_cli.main(["--obs-dir", obs])
+        torch.cuda.synchronize()
+        counts = engine_counts("engine cli", paths)
+        files = sorted(os.listdir(obs))
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and summary["device"] == torch.cuda.get_device_name(0)
+          and summary["completed"] == 8 and files == ["decisions.jsonl",
+                                                     "flight.jsonl"],
+          f"engine cli: rc {rc}, files {files}, summary {summary}")
+    print(f"engine cli: python -m flashmoe_tpu_torch.serving (defaults; "
+          f"hidden 128, f32): {json.dumps(summary)} launches={counts} "
+          f"({gpu_line()})")
+
+
+def engine_replayed(tag, cfg, params, reqs, arrivals, ref, what, **kw):
+    """The run ``tag`` again, routing as the record that ``ref`` (the
+    outputs and EngineLog of a run replaying it) replayed and forced to
+    its tokens, held to it by forced_match."""
+    force = {r.rid: list(ref[0][r.rid][len(r.prompt):]) for r in reqs}
+    out, _, log, _ = engine_run(f"{tag} (replayed, forced)", cfg, params,
+                                reqs, arrivals, replay=ref[1].replay,
+                                force=force, **kw)
+    forced_match(f"{tag} (replayed, forced)", out, ref[0], reqs, log,
+                 ref[1], what)
+
+
 def train_phase():
     """Mixtral-8x7B widths, 2 layers, bf16 weights, AdamW.  At the initial
     weights: every gradient through the kernels against the plain
@@ -3054,10 +3906,13 @@ def device_breakdown(tag, fn, top_n=8):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # a record_function range (the serving engine's spans) also shows as
+    # a device row spanning its kernels: not a kernel of its own
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     total = sum(r[1] for r in rows)
     if not rows:
         print(f"profile {tag}: device time not measured (the profiler "
@@ -3114,12 +3969,14 @@ def main() -> int:
                gather_phase(cfg, moe0, x)]
     capacity_phase()
     launches = serve_phase(cfg, params)
-    ep_entry, gmm_recompute, ep_launches, paths = ep_phase(cfg, params)
+    paths = engine_phase(cfg, params)
+    ep_entry, gmm_recompute, ep_launches, ep_paths = ep_phase(cfg, params)
+    paths.update(ep_paths)
     entries.append(ep_entry)
     launches.update({k: ep_launches[k] for k in EP_KERNELS})
     del params, moe0, x
     torch.cuda.empty_cache()
-    quant_entries, quant_launches = quant_phase()
+    quant_entries, quant_launches = quant_phase(paths)
     entries += quant_entries
     launches.update(quant_launches)
     many = many_expert_phase()

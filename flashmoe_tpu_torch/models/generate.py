@@ -98,6 +98,17 @@ def lm_logits(params, cfg: MoEConfig, h):
     return lm_head(params, cfg, h)[:, 0]
 
 
+def lm_logits_span(params, cfg: MoEConfig, h):
+    """The multi-position twin of :func:`lm_logits` (``flashmoe_tpu/
+    models/generate.py:187``): [B, T, H] hidden states -> [B, T, V] f32,
+    the serving engine's verify step.  One lm head per column, each over
+    the same B rows as :func:`lm_logits`: a GEMM's row can round
+    differently at another row count, and column t must equal
+    ``lm_logits`` on ``h[:, t:t + 1]`` bit for bit."""
+    return torch.stack([lm_logits(params, cfg, h[:, t:t + 1])
+                        for t in range(h.shape[1])], dim=1)
+
+
 def prefill_batched(params, cfg: MoEConfig, prompt, cache: KVCache,
                     use_kernels: bool | None = None):
     """Single-pass prefill: (logits [B, V] at the last prompt position,
