@@ -127,12 +127,29 @@ Phases, each of which fails the run on any error:
    losses finite, step 0's against the one-device step's, step time on
    the host clock and on the device, and the idle share; then three
    steps without the load-balancing loss (a mean of the ranks' own over
-   a mesh) against the one-device steps without it.
+   a mesh) against the one-device steps without it;
+10. axes: the mesh's other axes over virtual ranks, each path with its
+   counts reset before and read after: after phase 5, on its 4-layer
+   weights, ``forward`` over dp 2 x ep 2 x sp 2 (ring attention over
+   sp, the MoE tokens over (dp, ep, sp)) at B 2 x T 4096, collective
+   and fused, against the one-device forward (B9 at T 4096) by phase
+   5's rule, timed, profiled, with its peak memory; ring attention alone
+   at [2, 32, 4096, 128] bf16 over sp 4 against the plain attention in
+   f32, timed beside B9 and SDPA.  After phase 9, at its widths, state
+   and batch: every gradient of ``value_and_grad`` over dp 2 x ep 2 x
+   sp 2 against a plain replay, timed and profiled; ``make_train_step``
+   over dp 2 x ep 4, collective and fused, as phase 9 (without its
+   gradient check); ``pipeline_loss`` over pp 2 x ep 2 x dp 2 at 4
+   layers, 8 x 257 tokens, 2 microbatches, GPipe and interleaved: ce
+   against one device's ``loss_fn``, the lm head once a microbatch, and
+   with the aux and z coefficients at 0 the loss against one device's ce
+   and every gradient against the same pipeline on the plain versions
+   replaying the routing, timed, profiled, with its peak memory.
 
 The second-to-last line of stdout is the kernels' JSON line (each
 kernel's launches on the main path of the slice that ported it, and, in
-``launches_by_path``, on the paths of phases 4b, 5, 6 and 9 that ran
-it), the last
+``launches_by_path``, on the paths of phases 4b, 5, 6, 9 and 10 that
+ran it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -162,14 +179,14 @@ from flashmoe_tpu_torch.models import (generate, presets,  # noqa: E402
 from flashmoe_tpu_torch.ops import (attention, expert, gate,  # noqa: E402
                                     moe, ragged)
 from flashmoe_tpu_torch.parallel import (ep, fused, mesh,  # noqa: E402
-                                         ragged_ep)
+                                         pipeline, ragged_ep, ringattn)
 from flashmoe_tpu_torch.runtime import trainer  # noqa: E402
 from flashmoe_tpu_torch.serving import __main__ as serve_cli  # noqa: E402
 from flashmoe_tpu_torch.serving import engine as serving  # noqa: E402
 from flashmoe_tpu_torch.serving import loadgen  # noqa: E402
 from flashmoe_tpu_torch.serving.kvcache import (  # noqa: E402
     gather_ctx, init_paged_cache, prompt_pad)
-from flashmoe_tpu_torch.tree import tree_leaves  # noqa: E402
+from flashmoe_tpu_torch.tree import tree_leaves, tree_map  # noqa: E402
 from flashmoe_tpu_torch.utils.telemetry import (FlightRecorder,  # noqa: E402
                                                 Metrics)
 
@@ -1490,6 +1507,16 @@ PATH_KERNELS = {
     "ep train fused": ("gate", "fused_ep", "grouped_matmul", "tgmm"),
     "ep train collective tp": ("gate", "grouped_ffn_res", "grouped_matmul",
                                "tgmm"),
+    "axes sp forward collective": ("gate", "grouped_ffn"),
+    "axes sp forward fused": ("gate", "fused_ep"),
+    "axes sp backward": ("gate", "grouped_ffn_res", "grouped_matmul",
+                         "tgmm"),
+    "axes dp train collective": ("gate", "grouped_ffn_res",
+                                 "grouped_matmul", "tgmm"),
+    "axes dp train fused": ("gate", "fused_ep", "grouped_matmul", "tgmm"),
+    "axes pp gpipe": ("gate", "grouped_ffn_res", "grouped_matmul", "tgmm"),
+    "axes pp interleaved": ("gate", "grouped_ffn_res", "grouped_matmul",
+                            "tgmm"),
 }
 
 
@@ -1913,7 +1940,7 @@ def mesh_gradients(tag, cfg, m, params, batch):
     with RoutingLog() as rk:
         _, _, gk = transformer.value_and_grad(params, batch, cfg, mesh=m)
     torch.cuda.synchronize()
-    ranks = cfg.ep * cfg.tp
+    ranks = len(m.ranks)
     with ReplayRouting(rk.calls, cfg.expert_top_k,
                        len(cfg.moe_layer_indices) * ranks) as rp:
         _, _, gp = transformer.value_and_grad(params, batch, cfg,
@@ -1968,20 +1995,23 @@ def ep_train_phase(one_device_loss, paths):
     """``make_train_step`` over a local mesh at Mixtral-8x7B's widths, 2
     layers, bf16, AdamW, the train phase's state and batch, each with
     the ragged layer (ep 8), the fused layer (ep 8) and the collective
-    layer at ep 4 x tp 2:
+    layer at ep 4 x tp 2 (:func:`mesh_train`, gradients included).
+    Returns :func:`train_reference`'s config, optimizer and losses."""
+    cfg, opt, ref = train_reference()
+    for name, ep_, tp_, backend in (("ragged", 8, 1, "ragged"),
+                                    ("fused", 8, 1, "fused"),
+                                    ("collective tp", 4, 2, "collective")):
+        mesh_train(f"ep train {name}", cfg, opt,
+                   cfg.replace(ep=ep_, tp=tp_, moe_backend=backend),
+                   mesh.local_mesh(ep_, tp=tp_, device="cuda"),
+                   one_device_loss, ref, paths)
+    return cfg, opt, ref
 
-    - at the initial weights, every gradient over the mesh against a
-      plain run replaying the routing (:func:`mesh_gradients`);
-    - three steps (counts reset before the first, read after it): losses
-      finite, step 0's within 1e-2 of the one-device step's, the step
-      time on the host clock and on the device, and the idle share;
-    - three steps without the load-balancing loss against the one-device
-      steps without it, each loss within 1e-2.  Over a mesh that loss is
-      the mean of the ranks' own (as in the JAX package), not the
-      one-device function; without it the mesh computes the one-device
-      loss, so step 2 (the first after a real update: warm-up makes the
-      first update zero) holds the mesh's gradients and optimizer
-      update against one device's."""
+
+def train_reference():
+    """The mesh train runs' config (Mixtral-8x7B's widths, 2 layers,
+    bf16), optimizer, and the one-device losses of three steps without
+    the load-balancing loss."""
     cfg = presets.mixtral_8x7b(num_layers=2, param_dtype=torch.bfloat16,
                                is_training=True)
     opt = trainer.make_optimizer(cfg, warmup_steps=1, total_steps=3)
@@ -1990,61 +2020,354 @@ def ep_train_phase(one_device_loss, paths):
     ref = step_losses(trainer.make_train_step(no_aux, opt), state, batch)
     del state
     torch.cuda.empty_cache()
-    for name, ep_, tp_, backend in (("ragged", 8, 1, "ragged"),
-                                    ("fused", 8, 1, "fused"),
-                                    ("collective tp", 4, 2, "collective")):
-        state, batch = train_state(cfg, opt)
-        ecfg = cfg.replace(ep=ep_, tp=tp_, moe_backend=backend)
-        m = mesh.local_mesh(ep_, tp=tp_, device="cuda")
-        step = trainer.make_train_step(ecfg, opt, mesh=m)
-        tag = f"ep train {name}"
+    return cfg, opt, ref
+
+
+def mesh_desc(m) -> str:
+    return " ".join(f"{a}={n}" for a, n in m.shape.items()
+                    if n > 1 or a == "ep")
+
+
+def mesh_train(tag, cfg, opt, ecfg, m, one_device_loss, ref, paths, *,
+               gradients=True):
+    """``make_train_step(ecfg, opt, mesh=m)`` from the train phase's state
+    and batch:
+
+    - with ``gradients``, at the initial weights every gradient over the
+      mesh against a plain run replaying the routing
+      (:func:`mesh_gradients`);
+    - three steps (counts reset before the first, read after it as path
+      ``tag``): losses finite, step 0's within 1e-2 of the one-device
+      step's, the step time on the host clock and on the device, the
+      idle share and the peak memory;
+    - three steps without the load-balancing loss against the one-device
+      steps without it (``ref``), each loss within 1e-2.  Over a mesh
+      that loss is the mean of the ranks' own (as in the JAX package),
+      not the one-device function; without it the mesh computes the
+      one-device loss, so step 2 (the first after a real update: warm-up
+      makes the first update zero) holds the mesh's gradients and
+      optimizer update against one device's."""
+    state, batch = train_state(cfg, opt)
+    step = trainer.make_train_step(ecfg, opt, mesh=m)
+    if gradients:
         mesh_gradients(tag, ecfg, m, state.params, batch)
         torch.cuda.empty_cache()
-        losses, step_ms = [], []
-        for i in range(3):
-            if i == 0:
-                reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, mt = step(state, batch)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            if i == 0:
-                counts = path_counts(tag, paths)
-                ce0, aux0 = float(mt["ce"]), float(mt["aux"])
-            losses.append(float(mt["loss"]))
-            check(math.isfinite(losses[-1]), f"{tag} step {i}: loss "
-                  f"{losses[-1]}")
-        rel0 = abs(losses[0] - one_device_loss) / abs(one_device_loss)
-        check(rel0 <= BF16_NORMWISE_TOL,
-              f"{tag}: step 0 loss {losses[0]} vs one device "
-              f"{one_device_loss} (relative {rel0})")
-        dev, n_k = device_breakdown(f"{tag} step",
-                                    lambda: step(state, batch), top_n=10)
-        host = min(step_ms[1:])
-        idle = "not measured" if dev is None else f"{1 - dev / host:.1%}"
-        del state, step
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        if i == 0:
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mt = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = path_counts(tag, paths)
+            ce0, aux0 = float(mt["ce"]), float(mt["aux"])
+        losses.append(float(mt["loss"]))
+        check(math.isfinite(losses[-1]), f"{tag} step {i}: loss "
+              f"{losses[-1]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rel0 = abs(losses[0] - one_device_loss) / abs(one_device_loss)
+    check(rel0 <= BF16_NORMWISE_TOL,
+          f"{tag}: step 0 loss {losses[0]} vs one device "
+          f"{one_device_loss} (relative {rel0})")
+    dev, n_k = device_breakdown(f"{tag} step",
+                                lambda: step(state, batch), top_n=10)
+    host = min(step_ms[1:])
+    idle = "not measured" if dev is None else f"{1 - dev / host:.1%}"
+    del state, step
+    torch.cuda.empty_cache()
+    no_aux = cfg.replace(aux_loss_coef=0.0)
+    state, batch = train_state(no_aux, opt)
+    got = step_losses(trainer.make_train_step(
+        ecfg.replace(aux_loss_coef=0.0), opt, mesh=m), state, batch)
+    del state
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    check(all(r <= BF16_NORMWISE_TOL for r in rel),
+          f"{tag}: losses without the load-balancing loss {got} vs one "
+          f"device {ref} (relative {rel})")
+    print(f"{tag}: mixtral_8x7b layers=2 B=4 T=257 {mesh_desc(m)} "
+          f"moe_backend={ecfg.moe_backend}: "
+          f"losses={[round(v, 5) for v in losses]}"
+          f" step0 ce={ce0:.5f} aux={aux0:.5f} vs one device loss "
+          f"{one_device_loss:.5f} (relative {rel0:.3g}, tol "
+          f"{BF16_NORMWISE_TOL}); without the load-balancing loss "
+          f"losses={[round(v, 5) for v in got]} vs one device "
+          f"{[round(v, 5) for v in ref]} (relative "
+          f"{[float(f'{v:.3g}') for v in rel]}, tol {BF16_NORMWISE_TOL})"
+          f" train_step_ms={[round(v, 3) for v in step_ms]} "
+          f"device_ms={fmt_ms(dev)} idle_share={idle} "
+          f"peak_memory_GB={peak:.2f} launches={counts} ({gpu_line()})")
+
+
+# ----------------------------------------------------------------------
+# the mesh's other axes: sp (ring attention), dp, pp (the pipeline)
+# ----------------------------------------------------------------------
+
+def axes_forward_phase(cfg, params, paths):
+    """sp forward: ``forward`` over dp 2 x ep 2 x sp 2 (8 virtual ranks;
+    ring attention over sp, the MoE tokens over (dp, ep, sp)) at Mixtral
+    widths, 4 layers, B 2 x T 4096, with the collective backend and the
+    fused one (one B5 world per (dp, sp) fibre), each against the
+    one-device forward (B9 at T 4096) by the ep forward's rule, its flips
+    held first-order; then ring attention alone (:func:`ring_row`)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b, t = 2, 4096
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device="cuda",
+                           generator=g)
+    with torch.no_grad(), RoutingLog() as one:
+        want, _ = transformer.forward(params, tokens, cfg)
+    m = mesh.make_mesh(dp=2, ep=2, sp=2, device="cuda")
+    # the fused layer routes fibre by fibre: the rank of each call
+    order = [i for fib in m.fibres("ep") for i in fib]
+    n, r = cfg.num_layers, m.size
+    for backend in ("collective", "fused"):
+        ecfg = cfg.replace(dp=2, ep=2, sp=2, moe_backend=backend)
+        tag = f"axes sp forward {backend}"
+
+        def fwd():
+            with torch.no_grad():
+                return transformer.forward(params, tokens, ecfg, mesh=m)[0]
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RoutingLog() as rl:
+            got = fwd()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = path_counts(tag, paths)
+        fused_on = backend == "fused"
+        check(counts["gate"] == r * n and counts["flash_attention"] == 0
+              and counts["fused_ep"] == (4 * n if fused_on else 0)
+              and counts["grouped_ffn"] == (0 if fused_on else r * n),
+              f"{tag} launches {counts}")
+        if fused_on:
+            rl.calls = [rl.calls[j + order.index(k)]
+                        for j in range(0, len(rl.calls), r)
+                        for k in range(r)]
+        rows = (torch.linalg.vector_norm(got - want, dim=-1)
+                / torch.linalg.vector_norm(want, dim=-1))
+        excused, n_flips, gap, gap_first = serve_flips(cfg, rl, one, b,
+                                                       ranks=r)
+        held = rows[~excused]
+        med = float(rows.median())
+        worst = float(held.max()) if held.numel() else 0.0
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"{tag}: finite logits of {tuple(want.shape)}")
+        # 8192 tokens a layer: a near-tie flip is likely somewhere, and
+        # the flipped token's own later layers then route apart at any
+        # gap, so only first-order flips are held to the near-tie bound
+        # (the serve phase's rule for the 32-layer int8 store)
+        check(med <= SERVE_MEDIAN_TOL and worst <= SERVE_ROW_TOL
+              and gap_first <= SERVE_NEAR_TIE,
+              f"{tag} vs one device: median {med}, max without a flip "
+              f"{worst}, largest first-order flip gap {gap_first}")
+        dev, _ = device_breakdown(tag, fwd)
+        idle = "not measured" if dev is None else f"{1 - dev / ms:.1%}"
+        print(f"{tag}: mixtral_8x7b layers={n} B={b} T={t} {mesh_desc(m)} "
+              f"(local mesh) forward_ms={ms:.3f} device_ms={fmt_ms(dev)} "
+              f"idle_share={idle} peak_memory_GB={peak:.2f} logits vs one "
+              f"device: median_normwise={med:.3g} (tol {SERVE_MEDIAN_TOL}) "
+              f"max_normwise={float(rows.max()):.3g} "
+              f"max_normwise_without_flip={worst:.3g} (tol {SERVE_ROW_TOL}) "
+              f"rows_after_a_flip={int(excused.sum())}/{rows.numel()} "
+              f"routing_flips={n_flips} largest_flip_gap={gap:.3g} "
+              f"first-order flips {gap_first:.3g} (tol {SERVE_NEAR_TIE}) "
+              f"launches={counts} ({gpu_line()})")
+        del got
+    del want
+    torch.cuda.empty_cache()
+    ring_row()
+
+
+def ring_row():
+    """``ring_attention`` alone at [2, 32, 4096, 128] bf16 over sp 4
+    against the plain attention in f32 (normwise, BF16_NORMWISE_TOL),
+    timed beside B9 and SDPA on the same inputs (plain torch: the JAX
+    package's ring blocks are einsums, no kernel)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(2, 32, 4096, 128, device="cuda", generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    m = mesh.make_mesh(sp=4, device="cuda")
+    with torch.no_grad():
+        got = ringattn.ring_attention(q, k, v, m)
+        want = attention.attention_plain(q.float(), k.float(), v.float())
+        b9 = attention.flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        err, b9_err = normwise(got, want), normwise(b9, want)
+        del want
         torch.cuda.empty_cache()
-        state, batch = train_state(no_aux, opt)
-        got = step_losses(trainer.make_train_step(
-            ecfg.replace(aux_loss_coef=0.0), opt, mesh=m), state, batch)
-        del state
+        check(err <= BF16_NORMWISE_TOL,
+              f"ring attention vs plain f32: normwise {err}")
+        ring_ms = cuda_ms(lambda: ringattn.ring_attention(q, k, v, m), 5)
+        b9_ms = cuda_ms(lambda: attention.flash_attention_cuda(q, k, v), 20)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 20)
+        b, n, t, d = q.shape
+        bnd = bound(bytes_=2 * 4 * b * n * t * d,
+                    flops=4 * b * n * d * t * (t + 1) / 2)
+    print(f"ring_attention [{b}, {n}, {t}, {d}] bf16 causal sp=4 (local "
+          f"mesh): normwise_err={err:.3g} vs plain f32 (tol "
+          f"{BF16_NORMWISE_TOL}; B9 {b9_err:.3g}) ring_ms={ring_ms:.3f} "
+          f"b9_ms={b9_ms:.3f} sdpa_ms={sdpa_ms:.3f} bound_ms="
+          f"{bnd['bound_ms']:.4f} ({bnd['bound_by']}) ({gpu_line()})")
+
+
+def axes_train_phase(cfg, opt, ref, one_device_loss, paths):
+    """The mesh's train paths at Mixtral widths, 2 layers, bf16, the
+    train phase's state and batch (4 x 257 tokens):
+
+    - sp and dp backward: ``value_and_grad`` over dp 2 x ep 2 x sp 2
+      (ring attention's backward through autograd), every gradient leaf
+      against a plain run replaying the routing (:func:`mesh_gradients`),
+      timed and profiled;
+    - dp train: ``make_train_step`` over dp 2 x ep 4, collective and
+      fused (:func:`mesh_train`);
+    - pp: :func:`pp_phase`."""
+    ecfg = cfg.replace(dp=2, ep=2, sp=2)
+    m = mesh.make_mesh(ecfg, device="cuda")
+    tag = "axes sp backward"
+    state, batch = train_state(cfg, opt)
+    reset_counts()
+    mesh_gradients(tag, ecfg, m, state.params, batch)
+    counts = path_counts(tag, paths)
+
+    def vg():
+        return transformer.value_and_grad(state.params, batch, ecfg, mesh=m)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vg()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vg()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    dev, _ = device_breakdown(tag, vg, top_n=10)
+    idle = "not measured" if dev is None else f"{1 - dev / ms:.1%}"
+    print(f"{tag}: mixtral_8x7b layers=2 B=4 T=257 {mesh_desc(m)}: "
+          f"value_and_grad_ms={ms:.3f} device_ms={fmt_ms(dev)} "
+          f"idle_share={idle} peak_memory_GB={peak:.2f} launches={counts} "
+          f"({gpu_line()})")
+    del state
+    torch.cuda.empty_cache()
+    for backend in ("collective", "fused"):
+        dcfg = cfg.replace(dp=2, ep=4, moe_backend=backend)
+        mesh_train(f"axes dp train {backend}", cfg, opt, dcfg,
+                   mesh.make_mesh(dcfg, device="cuda"), one_device_loss,
+                   ref, paths, gradients=False)
+    pp_phase(paths)
+
+
+def pp_phase(paths):
+    """``pipeline_loss`` over pp 2 x ep 2 x dp 2 at Mixtral widths, 4
+    layers, bf16, dropless, 2 microbatches, batch 8 x 257, GPipe and
+    interleaved (2 chunks a stage):
+
+    - ce within 1e-2 of ``loss_fn`` on one device, the lm head run once a
+      microbatch;
+    - with the aux and z coefficients at 0 (then the pipeline loss is the
+      plain loss) the loss and its gradient through the kernels (counts
+      reset before, read after): the loss within 1e-2 of one device's
+      ce, every gradient leaf within GRAD_NORMWISE_TOL of the same
+      pipeline on the plain versions replaying the kernel run's routing;
+      the forward+backward timed on the host clock and profiled, with
+      its peak memory."""
+    cfg = presets.mixtral_8x7b(num_layers=4, param_dtype=torch.bfloat16,
+                               is_training=True, drop_tokens=False)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = transformer.init_params(g, cfg, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 257),
+                                     device="cuda", generator=g)}
+    with torch.no_grad():
+        _, one = transformer.loss_fn(params, batch, cfg)
+    ce1 = float(one["ce"])
+    pcfg = cfg.replace(pp=2, ep=2, dp=2)
+    zero = pcfg.replace(aux_loss_coef=0.0, router_z_loss_coef=0.0)
+    m = mesh.make_mesh(pcfg, device="cuda")
+    mb = 2
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    wrt = tree_leaves(leaves)
+    names = leaf_names(params)
+    del params
+    for v in (1, 2):
+        tag = f"axes pp {'gpipe' if v == 1 else 'interleaved'}"
+        calls = pipeline.lm_head_ce.calls
+        with torch.no_grad():
+            _, met = pipeline.pipeline_loss(leaves, batch, pcfg, m,
+                                            num_microbatches=mb,
+                                            interleave=v)
+        check(pipeline.lm_head_ce.calls - calls == mb,
+              f"{tag}: lm head ran {pipeline.lm_head_ce.calls - calls} "
+              f"times for {mb} microbatches")
+        ce = float(met["ce"])
+        rel = abs(ce - ce1) / abs(ce1)
+        check(rel <= BF16_NORMWISE_TOL,
+              f"{tag}: ce {ce} vs one device {ce1} (relative {rel})")
+
+        def loss_grad(use_kernels=None):
+            loss, _ = pipeline.pipeline_loss(
+                leaves, batch, zero, m, num_microbatches=mb, interleave=v,
+                use_kernels=use_kernels)
+            return loss.detach(), torch.autograd.grad(loss, wrt)
+
+        reset_counts()
         torch.cuda.empty_cache()
-        rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
-        check(all(r <= BF16_NORMWISE_TOL for r in rel),
-              f"{tag}: losses without the load-balancing loss {got} vs one "
-              f"device {ref} (relative {rel})")
-        print(f"{tag}: mixtral_8x7b layers=2 B=4 T=257 ep={ep_} tp={tp_} "
-              f"moe_backend={backend}: losses={[round(v, 5) for v in losses]}"
-              f" step0 ce={ce0:.5f} aux={aux0:.5f} vs one device loss "
-              f"{one_device_loss:.5f} (relative {rel0:.3g}, tol "
-              f"{BF16_NORMWISE_TOL}); without the load-balancing loss "
-              f"losses={[round(v, 5) for v in got]} vs one device "
-              f"{[round(v, 5) for v in ref]} (relative "
-              f"{[float(f'{v:.3g}') for v in rel]}, tol {BF16_NORMWISE_TOL})"
-              f" train_step_ms={[round(v, 3) for v in step_ms]} "
-              f"device_ms={fmt_ms(dev)} idle_share={idle} launches={counts}"
-              f" ({gpu_line()})")
+        torch.cuda.reset_peak_memory_stats()
+        calls = pipeline.lm_head_ce.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RoutingLog() as rk:
+            loss_k, gk = loss_grad()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = path_counts(tag, paths)
+        check(pipeline.lm_head_ce.calls - calls == mb,
+              f"{tag}: lm head ran {pipeline.lm_head_ce.calls - calls} "
+              f"times in the training call")
+        rel_l = abs(float(loss_k) - ce1) / abs(ce1)
+        check(rel_l <= BF16_NORMWISE_TOL,
+              f"{tag}: loss without aux and z {float(loss_k)} vs one "
+              f"device ce {ce1} (relative {rel_l})")
+        # one router call a (dp, ep) rank, layer and microbatch in the
+        # forward; the remat's recompute repeats them
+        with ReplayRouting(rk.calls, cfg.expert_top_k,
+                           cfg.num_layers * mb * 4) as rp:
+            _, gp = loss_grad(use_kernels=False)
+        check(rp.n == len(rk.calls), f"{tag}: {len(rk.calls)} router calls "
+              f"with the kernels, {rp.n} replayed")
+        check(rp.gap <= SERVE_NEAR_TIE,
+              f"{tag}: a routing flip between kernels and plain is no near "
+              f"tie (probability gap {rp.gap})")
+        errs = grad_agreement(f"{tag} gradients", dict(zip(names, gk)),
+                              dict(zip(names, gp)))
+        del gk, gp
+        torch.cuda.empty_cache()
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+        dev, _ = device_breakdown(f"{tag} loss+grad", loss_grad, top_n=10)
+        idle = "not measured" if dev is None else f"{1 - dev / ms:.1%}"
+        print(f"{tag}: mixtral_8x7b layers=4 B=8 T=257 {mesh_desc(m)} "
+              f"interleave={v} microbatches={mb} dropless: ce={ce:.5f} vs "
+              f"one device {ce1:.5f} (relative {rel:.3g}, tol "
+              f"{BF16_NORMWISE_TOL}); aux=z=0 loss={float(loss_k):.5f} "
+              f"(relative {rel_l:.3g}); {len(errs)} gradient leaves vs the "
+              f"plain pipeline replaying the routing, normwise max "
+              + " ".join(f"{k}={e:.3g}" for k, e in worst)
+              + f" (tol {GRAD_NORMWISE_TOL}), plain routing would have "
+              f"flipped {rp.flips} choices (gap {rp.gap:.3g}); "
+              f"lm_head_calls={mb} loss_grad_ms={ms:.3f} "
+              f"device_ms={fmt_ms(dev)} idle_share={idle} "
+              f"peak_memory_GB={peak:.2f} launches={counts} ({gpu_line()})")
+    del leaves, wrt
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -3972,6 +4295,7 @@ def main() -> int:
     paths = engine_phase(cfg, params)
     ep_entry, gmm_recompute, ep_launches, ep_paths = ep_phase(cfg, params)
     paths.update(ep_paths)
+    axes_forward_phase(cfg, params, paths)
     entries.append(ep_entry)
     launches.update({k: ep_launches[k] for k in EP_KERNELS})
     del params, moe0, x
@@ -3983,7 +4307,8 @@ def main() -> int:
     launches.update({k: many[k] for k in MANY_EXPERT_KERNELS})
     train_launches, one_device_loss = train_phase()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
-    ep_train_phase(one_device_loss, paths)
+    tcfg, opt, ref = ep_train_phase(one_device_loss, paths)
+    axes_train_phase(tcfg, opt, ref, one_device_loss, paths)
 
     for e in entries:
         if e["name"] == "grouped_matmul":

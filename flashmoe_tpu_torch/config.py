@@ -13,10 +13,11 @@ Megatron split of each expert) carries its transport knobs
 ``moe_backend='auto'`` raises ``ValueError`` naming the ROADMAP item
 that ports it.  Quantized expert storage (``expert_quant``, ``quant/``)
 is checked as JAX checks it: an unknown store name, a training config
-and ``tp > 1`` are refused.  Knobs of later slices are absent:
-``kv_wire_dtype``, ``serving_mode`` and ``profile_phases``; ``dp``,
-``sp`` or ``pp`` above 1 raises ``NotImplementedError`` naming, by its
-title, the ROADMAP item that ports it.
+and ``tp > 1`` are refused.  The mesh axes ``dp``, ``pp``,
+``ep``, ``tp`` and ``sp`` carry no check of their own beyond JAX's (the
+mesh and the layers raise on a geometry they cannot run, as in JAX).
+Knobs of later slices are absent: ``kv_wire_dtype``, ``serving_mode``
+and ``profile_phases``.
 """
 
 from __future__ import annotations
@@ -33,15 +34,6 @@ class Activation:
     RELU = "relu"
     GELU = "gelu"  # tanh approximation, as jax.nn.gelu's default
     SILU = "silu"
-
-
-# parallel axes of the JAX config that the port does not run yet, with the
-# title of the ROADMAP queue-A item that ports them
-_UNPORTED_AXES = {
-    "dp": "'Trainer and runtime' (state_shardings and dp)",
-    "sp": "'Model-parallel axes' (ring attention over sp)",
-    "pp": "'Model-parallel axes' (pipeline parallelism over pp)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +105,7 @@ class MoEConfig:
     # FFN weights stored as 1-byte payloads with f32 scales
     expert_quant: str | None = None
 
-    # --- parallel axes (ep and tp are ported; dp, sp and pp stay 1) ---
+    # --- parallel axes (mesh axis sizes; 1 = off) ---
     dp: int = 1
     ep: int = 1
     tp: int = 1
@@ -142,12 +134,6 @@ class MoEConfig:
                              f"('relu', 'gelu', 'silu')")
         if self.expert_replicas:
             self._check_replicas()
-        for axis, item in _UNPORTED_AXES.items():
-            if getattr(self, axis) != 1:
-                raise NotImplementedError(
-                    f"{axis}={getattr(self, axis)}: the PyTorch port does "
-                    f"not run the {axis} axis yet; {axis} > 1 waits for the "
-                    f"ROADMAP item {item}")
 
     def _check_transport(self) -> None:
         """The JAX package's checks of the expert-parallel knobs, with its

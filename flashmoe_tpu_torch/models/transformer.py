@@ -5,13 +5,15 @@ blocks with RoPE (half-split) and GQA attention, an MoE FFN on every
 ``moe_frequency``-th layer (a dense FFN elsewhere), final RMS norm and an
 lm head whose logits are f32; next-token cross-entropy plus the MoE
 losses.  Parameters are nested dicts of tensors in the JAX layout.  With
-a ``mesh`` (:mod:`flashmoe_tpu_torch.parallel.mesh`, ep x tp ranks) and
-``cfg.ep > 1`` the MoE layers run expert-parallel, by
-``cfg.moe_backend`` as JAX's ``_ffn`` routes them: the fused kernel's
-layer or the dropless ragged layer (without shared experts) at tp 1,
-else the collective layer, with tensor-parallel experts at ``cfg.tp >
-1``.  ``forward``, ``loss_fn``, ``value_and_grad`` and
-``sgd_train_step`` take the mesh.  With ``cfg.is_training`` every block
+a ``mesh`` (:mod:`flashmoe_tpu_torch.parallel.mesh`, dp x pp x ep x tp x
+sp ranks) and ``cfg.ep > 1`` the MoE layers run expert-parallel with
+their tokens over (dp, ep[, sp]), by ``cfg.moe_backend`` as JAX's
+``_ffn`` routes them: the fused kernel's layer or the dropless ragged
+layer (without shared experts) at tp 1, else the collective layer, with
+tensor-parallel experts at ``cfg.tp > 1``; with ``cfg.sp > 1``
+attention is ring attention over sp.  Pipeline parallelism over pp is
+:mod:`flashmoe_tpu_torch.parallel.pipeline`.  ``forward``, ``loss_fn``,
+``value_and_grad`` and ``sgd_train_step`` take the mesh.  With ``cfg.is_training`` every block
 is rematerialised in the backward, except the blocks whose MoE layer is
 the fused kernel's (as in JAX: its backward recomputes what it needs).
 Causal self-attention runs the flash kernel on CUDA tensors (outside
@@ -33,7 +35,9 @@ from flashmoe_tpu_torch.ops.attention import flash_attention
 from flashmoe_tpu_torch.ops.moe import moe_layer
 from flashmoe_tpu_torch.parallel.ep import ep_moe_layer
 from flashmoe_tpu_torch.parallel.fused import fused_ep_moe_layer
+from flashmoe_tpu_torch.parallel.mesh import AXES
 from flashmoe_tpu_torch.parallel.ragged_ep import ragged_ep_moe_layer
+from flashmoe_tpu_torch.parallel.ringattn import ring_attention
 from flashmoe_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -124,20 +128,33 @@ def qkv(layer, x, cfg: MoEConfig, positions):
 
 
 def attention(layer, x, cfg: MoEConfig, positions=None,
-              use_kernels: bool | None = None):
+              use_kernels: bool | None = None, mesh=None):
     """Causal self-attention with RoPE and GQA.  x: [B, T, H].
 
-    The flash kernel runs on CUDA tensors outside autograd.  With grad
-    enabled and an input of the attention requiring grad (a training step)
-    the plain version runs instead, differentiated by torch: the kernel
-    has no backward, as the JAX package's has none
+    With a ``mesh`` and ``cfg.sp > 1`` it is ring attention over the sp
+    axis on the GQA-repeated heads (:func:`flashmoe_tpu_torch.parallel.
+    ringattn.ring_attention`, as ``flashmoe_tpu/models/transformer.py:
+    131-142``).  Otherwise the flash kernel runs on CUDA tensors outside
+    autograd.  With grad enabled and an input of the attention requiring
+    grad (a training step) the plain version runs instead, differentiated
+    by torch: the kernel has no backward, as the JAX package's has none
     (:func:`flashmoe_tpu_torch.ops.attention.flash_attention`)."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
     q, k, v = qkv(layer, x, cfg, positions)
-    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    ctx = flash_attention(qh, kh, vh, causal=True, use_kernels=use_kernels)
+    if mesh is not None and cfg.sp > 1:
+        check_mesh(cfg, mesh)
+        rep = cfg.num_heads // cfg.resolved_num_kv_heads
+        if rep > 1:  # GQA: repeat the kv heads (jnp.repeat)
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        ctx = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), mesh, causal=True)
+    else:
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        ctx = flash_attention(qh, kh, vh, causal=True,
+                              use_kernels=use_kernels)
     ctx = ctx.transpose(1, 2).reshape(b, t, -1).to(x.dtype)
     return ctx @ layer["wo"].to(x.dtype)
 
@@ -149,19 +166,30 @@ def _fused_block(cfg: MoEConfig, li: int, mesh) -> bool:
             and li in cfg.moe_layer_indices)
 
 
+def check_mesh(cfg: MoEConfig, mesh) -> None:
+    """Refuse a mesh whose axes are not the config's dp x pp x ep x tp x
+    sp."""
+    want = {a: getattr(cfg, a) for a in AXES}
+    if mesh.shape != want:
+        have = " x ".join(f"{a} {n}" for a, n in mesh.shape.items())
+        raise ValueError(
+            f"mesh of {mesh.size} ranks ({have}) for "
+            + " x ".join(f"{a}={n}" for a, n in want.items()))
+
+
 def _ffn(layer, x, cfg: MoEConfig, li: int, use_kernels: bool | None,
          mesh=None):
     """FFN sub-block: MoE (expert-parallel with a mesh and ep > 1, through
-    the layer ``cfg.moe_backend`` names, as ``flashmoe_tpu/models/
+    the layer ``cfg.moe_backend`` names, its tokens over the mesh's
+    ("dp", "ep") axes and "sp" when sp > 1, as ``flashmoe_tpu/models/
     transformer.py:166-209``) or dense.  Returns (out, aux + z losses, the
     layer's MoEStats or None)."""
     b, t, h = x.shape
     lcfg = layer_cfg(cfg, li)
     flat = x.reshape(b * t, h)
     if mesh is not None and lcfg.num_experts > 1 and cfg.ep > 1:
-        if mesh.size != cfg.ep * cfg.tp or mesh.tp != cfg.tp:
-            raise ValueError(f"mesh of {mesh.size} ranks (tp {mesh.tp}) for "
-                             f"ep={cfg.ep} x tp={cfg.tp}")
+        check_mesh(cfg, mesh)
+        axes = ("dp", "ep") + (("sp",) if cfg.sp > 1 else ())
         backend = cfg.moe_backend
         if backend == "fused" and cfg.tp == 1:
             layer_fn = fused_ep_moe_layer
@@ -170,7 +198,8 @@ def _ffn(layer, x, cfg: MoEConfig, li: int, use_kernels: bool | None,
             layer_fn = ragged_ep_moe_layer
         else:
             layer_fn = ep_moe_layer
-        o = layer_fn(layer["moe"], flat, lcfg, mesh, use_kernels=use_kernels)
+        o = layer_fn(layer["moe"], flat, lcfg, mesh, token_axes=axes,
+                     use_kernels=use_kernels)
     else:
         o = moe_layer(layer["moe"], flat, lcfg, use_kernels=use_kernels)
     return (o.out.reshape(b, t, h).to(x.dtype), o.aux_loss + o.z_loss,
@@ -183,7 +212,7 @@ def block(layer, x, cfg: MoEConfig, li: int,
     the layer's MoEStats when ``cfg.collect_stats`` and it is an MoE
     layer, else None."""
     x = x + attention(layer, rms_norm(x, layer["attn_norm"]), cfg,
-                      use_kernels=use_kernels)
+                      use_kernels=use_kernels, mesh=mesh)
     f, moe_loss, moe_stats = _ffn(layer, rms_norm(x, layer["ffn_norm"]),
                                   cfg, li, use_kernels, mesh)
     return x + f, moe_loss, moe_stats
@@ -199,9 +228,14 @@ def forward(params, tokens, cfg: MoEConfig, use_kernels: bool | None = None,
             *, mesh=None):
     """tokens: [B, T] int -> (logits [B, T, V] f32, summed MoE losses).
     With ``cfg.collect_stats`` a third element: the tuple of the MoE
-    layers' :class:`MoEStats`, in layer order.  ``mesh``: the mesh of
-    the expert-parallel MoE layers (the B * T tokens shard over its ep
-    ranks; it must hold ``cfg.ep * cfg.tp`` ranks), None for one device.
+    layers' :class:`MoEStats`, in layer order.  ``mesh``: the model's
+    mesh (:mod:`flashmoe_tpu_torch.parallel.mesh`; its axes must be the
+    config's dp x pp x ep x tp x sp), None for one device: with ep > 1
+    the MoE layers run expert-parallel, the B * T tokens over its (dp,
+    ep[, sp]) ranks, and with sp > 1 attention is ring attention over
+    sp.  On a local mesh the result is the one-device function of the
+    whole batch (up to the capacity each token shard gets), so autograd
+    gives the gradient's mean over dp that JAX's all-reduce gives.
 
     With ``cfg.is_training`` each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are not

@@ -20,7 +20,11 @@ meet the wrong experts).
 
 The per-rank arithmetic is written once, over the ranks this process
 holds: every stage is a list over them, and the ranks meet only in the
-mesh's all-to-all and reductions.  Quantized expert storage enters
+mesh's all-to-all and reductions.  The tokens shard over the layer's
+``token_axes`` (``("ep",)`` by default; ``("dp", "ep", "sp")`` in a
+data- and sequence-parallel model): each ep fibre of the mesh exchanges
+among its own ranks, and the losses, counts and stats reduce over every
+token axis.  Quantized expert storage enters
 through the boundary hook on each rank's shard
 (``flashmoe_tpu/parallel/ep.py:220-235``): payloads dequantize to the
 compute dtype, full-precision weights fake-quantize, and with the knob
@@ -144,7 +148,7 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
     rank.  On a tp mesh the params are each rank's tp slice and the FFN's
     partial outputs are summed over each tp group.  Returns the held
     ranks' outputs joined, and the losses, counts and stats reduced over
-    the mesh's ep axis."""
+    the mesh's token axes."""
     d = mesh.ep
     s_loc, h = xs[0].shape
     e = cfg.num_experts
@@ -263,6 +267,7 @@ def layer_output(mesh, cfg: MoEConfig, rs: list, outs: list, cap: int,
 
 
 def ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
+                 token_axes: tuple[str, ...] = ("ep",),
                  dcn_inner: int | None = None, skip_exchange: bool = False,
                  use_kernels: bool | None = None) -> MoEOutput:
     """Expert-parallel MoE layer.
@@ -270,6 +275,10 @@ def ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     params: the layer's full MoE parameters (expert leaves [E, ...],
     sliced per rank by the mesh); x: the global [S, H] tokens on a local
     mesh, this process's shard on a process mesh (the output follows).
+    ``token_axes``: the mesh axes the tokens shard over jointly, in that
+    order (``("dp", "ep", "sp")`` in a data- and sequence-parallel
+    model, JAX's ``P(token_axes, None)``); the exchange runs within each
+    ep fibre, and aux, z, counts and stats reduce over all of them.
     ``dcn_inner``: ranks per slice for the two-stage exchange; None or 0
     is the flat one.  On a mesh with a tp axis each expert is
     Megatron-split over the tp ranks.  ``use_kernels`` as in
@@ -277,6 +286,7 @@ def ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     if dcn_inner == 0:
         dcn_inner = None
     uk = _build.use_kernels_for(x, use_kernels)
+    mesh = mesh.over(token_axes)
     if cfg.num_experts == 1:
         if qt.is_quantized(params):
             params = qt.ffn_compute_params(params, cfg, out_dtype=x.dtype)

@@ -12,10 +12,11 @@ the source's return buffer, optionally at token-sorted rows that the
 kernel then combines (``FLASHMOE_FUSED_COMBINE=1``, ep > 1).
 
 The ranks are the virtual ranks of a local mesh
-(:func:`flashmoe_tpu_torch.parallel.mesh.local_mesh`): every rank's
-regions of the kernel's symmetric heap are slices of allocations on one
-card, the data regions made for each call, the flag words kept per
-device.  A process mesh, with peer heaps mapped from other GPUs, waits for
+(:func:`flashmoe_tpu_torch.parallel.mesh.local_mesh`; on a mesh with
+dp or sp each ep fibre is a kernel world of its own, launched in turn):
+every rank's regions of the kernel's symmetric heap are slices of
+allocations on one card, the data regions made for each call, the flag
+words kept per device.  A process mesh, with peer heaps mapped from other GPUs, waits for
 the multi-GPU transport (the ROADMAP item 'Blocked on hardware: the
 multi-GPU transport').
 
@@ -72,6 +73,7 @@ from flashmoe_tpu_torch.ops import expert as exp
 from flashmoe_tpu_torch.ops import health as hlt
 from flashmoe_tpu_torch.ops.gate import router
 from flashmoe_tpu_torch.parallel.ep import layer_output, local_capacity
+from flashmoe_tpu_torch.parallel.mesh import Mesh
 from flashmoe_tpu_torch.quant.core import is_quant_dtype
 
 #: the kernel's row tile and the JAX schedule's column chunk
@@ -648,7 +650,10 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
     if mesh.tp > 1:
         raise ValueError("the fused layer runs at tp 1; use "
                          "moe_backend='collective' on a tp mesh")
-    d = mesh.size
+    if len(mesh.ranks) != mesh.ep:
+        raise ValueError(f"fused_inputs takes one ep fibre; {mesh!r} "
+                         f"holds {len(mesh.ranks) // mesh.ep}")
+    d = mesh.ep
     schedule = _fused_schedule(d, cfg.fused_schedule)
     weights, scale_kw, quant_err = _quant_weights(params, cfg, mesh)
     so = check_src_order(src_order, d)
@@ -868,16 +873,50 @@ def fused_core(fi: FusedInputs, mesh):
                                    fi.ret_pos, mesh, kw)
 
 
-def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *, src_order=None,
-                       use_kernels: bool | None = None):
+def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
+                       token_axes: tuple[str, ...] = ("ep",),
+                       src_order=None, use_kernels: bool | None = None):
     """Expert-parallel MoE layer through the fused kernel; the contract of
     :func:`flashmoe_tpu_torch.parallel.ep.ep_moe_layer` on a local mesh,
     differentiable (:func:`fused_core`).
 
+    ``token_axes`` as in :func:`~flashmoe_tpu_torch.parallel.ep.
+    ep_moe_layer`: each ep fibre of the mesh (its ep ranks at one dp,
+    pp and sp coordinate) is one kernel world, launched on its own, and
+    the losses, counts and stats reduce over every token axis.
     ``src_order`` ([D, D]; row r the order in which rank r takes source
     slabs, starting with r) overrides the ring.  Shared experts run
     outside the kernel on each rank's tokens.  On CUDA tensors the kernel
     runs or the call raises."""
+    if not mesh.is_local:
+        raise NotImplementedError(
+            "fused_ep_moe_layer runs the ranks of a local mesh; one rank "
+            "per process waits for the ROADMAP item 'Blocked on hardware: "
+            "the multi-GPU transport'")
+    if mesh.tp > 1:
+        raise ValueError("the fused layer runs at tp 1; use "
+                         "moe_backend='collective' on a tp mesh")
+    mesh = mesh.over(token_axes)
+    xs = mesh.split(x)
+    sub = Mesh(mesh.ep, tuple(range(mesh.ep)), device=mesh.device)
+    per, cap = [None] * len(xs), None
+    for fib in mesh.fibres("ep"):
+        rows, cap = _fused_fibre(params, torch.cat([xs[i] for i in fib]),
+                                 cfg, sub, src_order, use_kernels)
+        for i, row in zip(fib, rows):
+            per[i] = row
+    outs, rs, healthy, quant_err = (list(c) for c in zip(*per))
+    return layer_output(mesh, cfg, rs, outs, cap,
+                        healthy if cfg.degrade_unhealthy_experts else [],
+                        quant_err=None if quant_err[0] is None
+                        else quant_err)
+
+
+def _fused_fibre(params, x, cfg: MoEConfig, mesh, src_order, use_kernels):
+    """The fused layer over one ep fibre (``mesh`` an ep-only local mesh,
+    ``x`` the fibre's tokens): per rank (output before the reductions,
+    router output, health mask or None, quantized weights' error or
+    None), and the capacity."""
     fi = fused_inputs(params, x, cfg, mesh, src_order=src_order,
                       use_kernels=use_kernels)
     res = fused_core(fi, mesh)
@@ -904,6 +943,7 @@ def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *, src_order=None,
         if cfg.num_shared_experts:
             outs[i] = outs[i] + shared_expert_ffn(xr.to(cfg.dtype), p, cfg)
         outs[i] = outs[i].to(cfg.dtype)
-    return layer_output(mesh, cfg, fi.rs, outs, fi.cap, healthy,
-                        quant_err=fi.quant_err)
+    none = [None] * len(outs)
+    return (list(zip(outs, fi.rs, healthy or none, fi.quant_err or none)),
+            fi.cap)
 

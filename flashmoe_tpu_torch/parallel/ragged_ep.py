@@ -36,7 +36,9 @@ With ``cfg.a2a_chunks = n`` the local-expert axis splits into n chunks,
 each its own row-exchange -> regroup -> FFN -> return chain over its rows
 (offsets from the one count matrix); ``None`` keeps the serial schedule.
 The per-rank arithmetic is written once, over the ranks this process
-holds.  Wire dtypes, stats, tier-0 degradation and quantized storage
+holds; with ``token_axes`` beyond ep (dp, sp) each ep fibre of the mesh
+exchanges its own rows and the reductions run over every token axis.
+Wire dtypes, stats, tier-0 degradation and quantized storage
 behave as in JAX.  The layer runs at tp 1 only (the config refuses
 ``moe_backend='ragged'`` with tp > 1) and without shared experts.
 """
@@ -68,9 +70,10 @@ def _excl(t, dim: int = -1):
 # row exchanges
 # ----------------------------------------------------------------------
 
-def _gather_rows(arrs, out_bound, send_offsets, recv_sizes, recv_offsets,
-                 block_rows):
-    """The ragged exchange on a local mesh: every destination's
+def _gather_rows(arrs, send_offsets, recv_sizes, recv_offsets, *,
+                 out_bound, block_rows):
+    """The ragged exchange within one ep fibre of a local mesh: every
+    destination's
     ``[out_bound, W]`` buffer as one gather from all sources' rows (and a
     zero row), its row map scattered from the count-derived offsets.
     Source s's rows ``[send_offsets[s][p], + recv_sizes[p][s])`` land at
@@ -103,7 +106,7 @@ def _dense_rows(mesh, arrs, out_bound, block_rows, send_offsets,
                 send_sizes, recv_sizes, recv_offsets):
     """JAX's padded fallback: each source pads every block to
     ``block_rows`` rows, one all-to-all, each destination compacts."""
-    d = mesh.size
+    d = mesh.ep
     w = arrs[0].shape[1]
     dev = arrs[0].device
     ar = torch.arange(block_rows, device=dev)
@@ -165,8 +168,14 @@ def _row_exchange(mesh, arrs, *, exchange: str, block_rows: int,
         return _dense_rows(mesh, arrs, out_bound, block_rows, send_offsets,
                            send_sizes, recv_sizes, recv_offsets)
     if mesh.is_local:
-        return _gather_rows(arrs, out_bound, send_offsets, recv_sizes,
-                            recv_offsets, block_rows)
+        out = [None] * len(arrs)
+        for fib in mesh.fibres("ep"):  # each ep fibre exchanges alone
+            got = _gather_rows(*([v[i] for i in fib] for v in (
+                arrs, send_offsets, recv_sizes, recv_offsets)),
+                out_bound=out_bound, block_rows=block_rows)
+            for i, g in zip(fib, got):
+                out[i] = g
+        return out
     return [_process_rows(mesh, arrs[0], out_bound, send_offsets[0],
                           send_sizes[0], recv_sizes[0], recv_offsets[0])]
 
@@ -275,7 +284,8 @@ def _ragged_ep_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
     """The layer over the held ranks (``ragged_ep.py:366``): ``params``
     and ``xs`` are one expert-sharded parameter dict and one [S_loc, H]
     token shard per held rank.  Returns the held ranks' outputs joined,
-    and the losses, counts and stats reduced over the mesh."""
+    and the losses, counts and stats reduced over the mesh's token
+    axes."""
     if exchange not in EXCHANGES:
         raise ValueError(f"exchange {exchange!r} not in {EXCHANGES}")
     if mesh.tp > 1:
@@ -312,7 +322,7 @@ def _ragged_ep_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
               for x, plan in zip(xs, plans)]
     all_cmat = mesh.all_gather([plan.counts.reshape(d, nlx)
                                 for plan in plans])
-    me = list(mesh.ranks)
+    me = [mesh.coord(r, "ep") for r in mesh.ranks]
 
     def stat_err(ts, wd):
         return ([wr.roundtrip_error(t, wd) for t in ts]
@@ -406,6 +416,7 @@ def decode_moe_rows(params: list, xs: list, cfg: MoEConfig, mesh, *,
 
 
 def ragged_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
+                        token_axes: tuple[str, ...] = ("ep",),
                         exchange: str | None = None,
                         block_m: int = exp.ROW_TILE,
                         use_kernels: bool | None = None) -> MoEOutput:
@@ -413,6 +424,8 @@ def ragged_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     (``ragged_ep.py:579``); the contract of
     :func:`flashmoe_tpu_torch.parallel.ep.ep_moe_layer`.
 
+    ``token_axes`` as in :func:`~flashmoe_tpu_torch.parallel.ep.
+    ep_moe_layer`: each ep fibre exchanges its own rows.
     ``exchange``: ``"ragged"`` (default; exactly the routed rows) or
     ``"dense"`` (JAX's padded fallback).  ``block_m``: the grouped
     buffer's segment tile, a multiple of the kernels' 64-row tile.
@@ -420,6 +433,7 @@ def ragged_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     if cfg.num_shared_experts:
         raise NotImplementedError("shared experts stay outside this layer")
     uk = _build.use_kernels_for(x, use_kernels)
+    mesh = mesh.over(token_axes)
     return _ragged_ep_shard(mesh, mesh.shard_params(params), mesh.split(x),
                             cfg, exchange=exchange or "ragged",
                             block_m=block_m, use_kernels=uk)

@@ -1,13 +1,16 @@
 """Training loop: AdamW train step with the gradient guard, on one device
-or over an expert-parallel mesh.
+or over a mesh.
 
-Counterpart of ``flashmoe_tpu/runtime/trainer.py:27-219``.  A mesh (ep x
-tp virtual ranks of one device, :mod:`flashmoe_tpu_torch.parallel.mesh`)
-reaches the MoE layers through ``make_train_step(..., mesh=)``; JAX's
-``state_shardings`` and ``dp`` are not ported, nor the host-side planes
-of later slices (flight recorder, SLO watchdog, runtime controller, live
-telemetry).  The optimizer is optax's chain written out as plain functions
-on tensors, so that it can be held against optax step for step:
+Counterpart of ``flashmoe_tpu/runtime/trainer.py:27-219``.  A mesh (dp x
+pp x ep x tp x sp virtual ranks of one device,
+:mod:`flashmoe_tpu_torch.parallel.mesh`) reaches the model through
+``make_train_step(..., mesh=)``: the batch shards over dp, the MoE
+layers' tokens over (dp, ep[, sp]), attention over sp.
+:func:`state_shardings` gives the train state's placement specs, JAX's
+for JAX's.  The host-side planes of later slices (flight recorder, SLO
+watchdog, runtime controller, live telemetry) are not ported.  The
+optimizer is optax's chain written out as plain functions on tensors,
+so that it can be held against optax step for step:
 ``clip_by_global_norm(1.0)``, then ``adamw`` over
 ``warmup_cosine_decay_schedule`` with the moments kept in the parameter
 dtype, as optax keeps them.  (``torch.optim.AdamW`` clips and decays in
@@ -27,7 +30,8 @@ import torch
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.models import transformer
 from flashmoe_tpu_torch.ops.stats import stats_to_host
-from flashmoe_tpu_torch.tree import tree_leaves, tree_map
+from flashmoe_tpu_torch.parallel.mesh import transformer_param_specs
+from flashmoe_tpu_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 
 class AdamWState(NamedTuple):
@@ -179,17 +183,59 @@ def init_state(generator: torch.Generator, cfg: MoEConfig,
                       init_guard_state(dev) if guard is not None else None)
 
 
+def _leaves_with_paths(tree, is_leaf=None) -> list:
+    out = []
+    tree_map_with_path(lambda p, leaf: out.append((p, leaf)), tree, is_leaf)
+    return out
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        a is None or isinstance(a, (str, tuple)) for a in x)
+
+
+def state_shardings(state: TrainState, cfg: MoEConfig, mesh=None):
+    """The train state's placement specs (``trainer.py:92``): a
+    :class:`TrainState` of specs, each a tuple of mesh axis names (or
+    None) per dimension (:mod:`flashmoe_tpu_torch.parallel.mesh`;
+    ``()`` replicated), equal to JAX's ``NamedSharding`` specs.  Params
+    follow :func:`~flashmoe_tpu_torch.parallel.mesh.
+    transformer_param_specs`; an optimizer leaf takes the spec of the
+    parameter whose key path ends its own and whose shape it has (shape
+    alone would alias an ep-sharded and a replicated leaf of one shape),
+    and everything else (counts, the step, the guard) is replicated.
+    ``mesh`` is not read: the specs depend on the config alone."""
+    pspecs = transformer_param_specs(cfg)
+    spec_of = dict(_leaves_with_paths(pspecs, _is_spec))
+    by_path = {path: (tuple(leaf.shape), spec_of[path])
+               for path, leaf in _leaves_with_paths(state.params)}
+
+    def match(path, leaf):
+        for start in range(len(path)):
+            hit = by_path.get(path[start:])
+            if hit is not None and tuple(getattr(leaf, "shape", ())) \
+                    == hit[0]:
+                return hit[1]
+        return ()
+
+    return TrainState(pspecs, tree_map_with_path(match, state.opt_state),
+                      (), tree_map_with_path(lambda *_: (), state.guard))
+
+
 def make_train_step(cfg: MoEConfig, optimizer: Optimizer,
                     guard: GradGuardConfig | None = None,
                     use_kernels: bool | None = None, *,
                     mesh=None) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``.
 
-    ``mesh``: the ep x tp mesh of the expert-parallel MoE layers
-    (:mod:`flashmoe_tpu_torch.parallel.mesh`; the batch's tokens shard
-    over its ep ranks), None for one device.  JAX's ``state_shardings``
-    and ``dp`` are not ported: the state lives whole on the device of
-    the local mesh.
+    ``mesh``: the model's mesh (:mod:`flashmoe_tpu_torch.parallel.mesh`,
+    its axes the config's), None for one device.  The batch shards over
+    dp (JAX's ``P("dp", None)``) and the MoE layers' tokens over (dp,
+    ep[, sp]).  JAX's step takes the mean of the dp replicas' gradients
+    by an all-reduce; on a local mesh every rank's graph is part of the
+    one loss of the global batch, so autograd gives that mean as it is.
+    The state lives whole on the device of the local mesh;
+    :func:`state_shardings` says where each leaf's blocks would live.
 
     ``guard`` arms the gradient anomaly guard: the state must then carry a
     :class:`GuardState` (``init_state(..., guard=guard)``), and the metrics

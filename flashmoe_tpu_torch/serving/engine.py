@@ -581,7 +581,7 @@ class ServingEngine:
                 raise _refuse("EP-sharded decode over a process mesh",
                               "'Blocked on hardware: the multi-GPU "
                               "transport'")
-            elif self.mesh.ep != d or self.mesh.tp != 1:
+            elif self.mesh.ep != d or self.mesh.size != d:
                 raise ValueError(
                     f"ep_shards={d} needs a mesh of {d} ep ranks at tp 1, "
                     f"got {self.mesh!r}")

@@ -22,6 +22,27 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn, tree, is_leaf=None, path=()):
+    """``fn(path, leaf)`` over the leaves of ``tree`` (and over the nodes
+    for which ``is_leaf`` holds), rebuilt in its nesting; a path is the
+    tuple of dict keys, sequence indices and NamedTuple field names from
+    the root (JAX's key path)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, is_leaf, path + (k,))
+                for k, v in tree.items()}
+    if hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(tree_map_with_path(fn, v, is_leaf, path + (k,))
+                            for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, is_leaf, path + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
 def tree_leaves(tree) -> list:
     """The leaves of ``tree`` in :func:`tree_map`'s order."""
     out = []

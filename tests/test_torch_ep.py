@@ -198,11 +198,14 @@ def test_chunk_divisor_and_config_errors():
             TorchConfig(**LAYER, ep=2, tp=2, moe_backend=backend)
     with pytest.raises(ValueError, match="expert_quant does not compose"):
         TorchConfig(**LAYER, ep=2, tp=2, expert_quant="int8")
-    for axis, title in (("dp", "'Trainer and runtime'"),
-                        ("sp", "'Model-parallel axes'"),
-                        ("pp", "'Model-parallel axes'")):
+    # ported: dp, sp and pp construct; a process mesh refuses them
+    from flashmoe_tpu_torch.parallel.mesh import Mesh
+
+    title = "'Blocked on hardware: the multi-GPU transport'"
+    for axis in ("dp", "sp", "pp"):
+        assert getattr(TorchConfig(**LAYER, ep=2, **{axis: 2}), axis) == 2
         with pytest.raises(NotImplementedError, match=title):
-            TorchConfig(**LAYER, ep=2, **{axis: 2})
+            Mesh(4, (0,), group=object(), **{axis: 2})
     # the shard body re-checks against the mesh it is given
     tc = TorchConfig(**LAYER, sequence_len=64, a2a_chunks=4)
     p = params_from_numpy(moe_params(tc, 0), device="cpu")

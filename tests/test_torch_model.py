@@ -255,9 +255,14 @@ def test_config_validation_matches_jax(kw):
 
 
 def test_config_refuses_unported_knobs_and_matches_capacity():
+    from flashmoe_tpu_torch.parallel.mesh import Mesh
+
     for kw in (dict(dp=2), dict(sp=2), dict(pp=2)):
+        (axis, n), = kw.items()
+        assert getattr(TorchConfig(**kw), axis) == n  # ported: the mesh
+        # across processes the axis waits for the multi-GPU transport
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchConfig(**kw)
+            Mesh(4, (0,), group=object(), **kw)
     assert TorchConfig(ep=2).ep == 2  # ported: parallel/
     assert TorchConfig(ep=2, tp=2).tp == 2  # ported: parallel/ep.py's tp
     for s in (1, 4, 100, 8192):
