@@ -146,9 +146,31 @@ Phases, each of which fails the run on any error:
    and every gradient against the same pipeline on the plain versions
    replaying the routing, timed, profiled, with its peak memory.
 
+11. runtime: the front door, on a temporary directory whose free space
+   is checked first: ``bootstrap.initialize()`` on the card; a config
+   file of BENCH_CONFIGS "reference" (E 64, top-2, H = I = 2048, 8192
+   tokens, bf16) written by ``MoEConfig.to_json``, run by
+   ``api.run_moe(1, config_path=...)`` as a worker process (rc 0, a
+   finite output), then the worker's ``main([config, "--bench"])`` in
+   this process (the worker path: counts reset before, read after,
+   ``moe_fwd_ms``); ``throughput.measure_expert_throughput`` at the same
+   widths (the probe path); one train state at Mixtral-8x7B's widths (1
+   layer, bf16, with the guard): a sync save (payload and CRC timed
+   apart), an async save (the loop's stall), a restore with verification
+   bit for bit; the training CLI (``python -m
+   flashmoe_tpu_torch.runtime.train_cli`` through ``chip_smoke.py
+   --train-cli``, which counts its kernels) at those widths on 4 x 257
+   tokens a step from a token file through the native loader: 6 unbroken
+   steps (the CLI path), then with ``--checkpoint-dir``,
+   ``--checkpoint-every 3``, ``--async-save`` and ``--grad-guard`` sent
+   SIGTERM after its step-3 line (rc 0, drained, its checkpoint verified
+   with the loader's cursor), then again to resume and finish; the
+   drained and resumed losses against the unbroken run's, bit for bit or
+   within ``CLI_LOSS_RTOL``.
+
 The second-to-last line of stdout is the kernels' JSON line (each
 kernel's launches on the main path of the slice that ported it, and, in
-``launches_by_path``, on the paths of phases 4b, 5, 6, 9 and 10 that
+``launches_by_path``, on the paths of phases 4b, 5, 6, 9, 10 and 11 that
 ran it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -161,6 +183,8 @@ import io
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -180,7 +204,10 @@ from flashmoe_tpu_torch.ops import (attention, expert, gate,  # noqa: E402
                                     moe, ragged)
 from flashmoe_tpu_torch.parallel import (ep, fused, mesh,  # noqa: E402
                                          pipeline, ragged_ep, ringattn)
-from flashmoe_tpu_torch.runtime import trainer  # noqa: E402
+from flashmoe_tpu_torch import api  # noqa: E402
+from flashmoe_tpu_torch.runtime import (bootstrap, checkpoint,  # noqa: E402
+                                        data, elastic, throughput,
+                                        train_cli, trainer, worker)
 from flashmoe_tpu_torch.serving import __main__ as serve_cli  # noqa: E402
 from flashmoe_tpu_torch.serving import engine as serving  # noqa: E402
 from flashmoe_tpu_torch.serving import loadgen  # noqa: E402
@@ -1517,15 +1544,18 @@ PATH_KERNELS = {
     "axes pp gpipe": ("gate", "grouped_ffn_res", "grouped_matmul", "tgmm"),
     "axes pp interleaved": ("gate", "grouped_ffn_res", "grouped_matmul",
                             "tgmm"),
+    "runtime worker": ("gate", "grouped_ffn"),
+    "runtime probe": ("grouped_ffn",),
+    "runtime cli": ("gate", "grouped_ffn_res", "grouped_matmul", "tgmm"),
 }
 
 
-def path_counts(name, paths):
-    """The launch counts since the last reset, recorded as path ``name``;
-    fails unless each of its kernels launched."""
-    counts = launch_counts()
-    counts["grouped_matmul_hopper"] = \
-        expert.grouped_matmul_cuda.hopper_launches
+def path_counts(name, paths, counts=None):
+    """The launch counts since the last reset (or ``counts``, read in a
+    child process), recorded as path ``name``; fails unless each of its
+    kernels launched."""
+    if counts is None:
+        counts = all_counts()
     missing = [k for k in PATH_KERNELS[name] if not counts[k]]
     check(not missing, f"{name}: no launch of {missing} ({counts})")
     paths[name] = counts
@@ -2748,6 +2778,14 @@ def launch_counts():
     by_store = fused.fused_shard_cuda.store_launches
     out.update({f"fused_ep_{q}": by_store[q] for q in ("int8", "e4m3")})
     return out
+
+
+def all_counts():
+    """:func:`launch_counts` and the grouped matmul's Hopper launches."""
+    counts = launch_counts()
+    counts["grouped_matmul_hopper"] = \
+        expert.grouped_matmul_cuda.hopper_launches
+    return counts
 
 
 def capacity_phase():
@@ -4261,13 +4299,327 @@ def device_breakdown(tag, fn, top_n=8):
     return total, launches
 
 
-def main() -> int:
+# ----------------------------------------------------------------------
+# runtime phase: the front door (config file, bootstrap, worker, probe,
+# the training CLI with checkpoints, preemption and resume)
+# ----------------------------------------------------------------------
+
+# BENCH_CONFIGS["reference"] (flashmoe_tpu/config.py:576-578): E 64,
+# top-2, H = I = 2048, S 8192, capacity factor 1.0, bf16
+REFERENCE_CFG = dict(num_experts=64, expert_top_k=2, hidden_size=2048,
+                     intermediate_size=2048, sequence_len=8192,
+                     capacity_factor=1.0)
+# the training CLI's run: Mixtral-8x7B's preset, 1 layer, bf16 weights
+# (and so bf16 moments), 4 x 257 tokens a step, 6 steps
+CLI_STEPS = 6
+CLI_BATCH = 4
+CLI_SEQ = 256
+CLI_ARGS = ["--preset", "mixtral-8x7b", "--num-layers", "1", "--batch",
+            str(CLI_BATCH), "--steps", str(CLI_STEPS), "--log-every", "1",
+            "--set", f"sequence_len={CLI_SEQ}", "--set",
+            "param_dtype=bfloat16"]
+# the CLI's resumed losses against the unbroken run's where they are not
+# bit-equal: relative, the f32 loss of the same step on the same weights
+# and tokens, moved only by the order of atomic sums in the backward
+CLI_LOSS_RTOL = 1e-4
+# a drain writes at most one checkpoint past the periodic ones; with the
+# retention of MAX_TO_KEEP steps the CLI's directory peaks at
+# MAX_TO_KEEP + 1 step directories, beside the phase's own measurement
+# directory (one step), plus 10 % for the token file and the manifests
+RUNTIME_DISK_STEPS = checkpoint.MAX_TO_KEEP + 2
+
+
+def cli_cfg():
+    return presets.mixtral_8x7b(num_layers=1, sequence_len=CLI_SEQ,
+                                param_dtype=torch.bfloat16,
+                                is_training=True)
+
+
+def checkpoint_bytes(cfg, guard=True) -> int:
+    """Bytes of one checkpoint of the config's train state (shapes on
+    'meta': nothing allocated)."""
+    opt = trainer.make_optimizer(cfg)
+    st = elastic.meta_state(cfg, opt, trainer.GradGuardConfig()
+                            if guard else None)
+    return sum(t.numel() * t.element_size() for t in tree_leaves(st))
+
+
+def check_disk(path) -> int:
+    """Fail unless ``path``'s file system has room for the runtime
+    phase's checkpoints; returns the bytes it needs."""
+    need = int(RUNTIME_DISK_STEPS * checkpoint_bytes(cli_cfg()) * 1.1)
+    free = shutil.disk_usage(path).free
+    check(free >= need,
+          f"runtime phase: {path} has {free / 1e9:.1f} GB free, the "
+          f"checkpoints need {need / 1e9:.1f} GB ({(need - free) / 1e9:.1f}"
+          f" GB short)")
+    return need
+
+
+@contextlib.contextmanager
+def stdout_to(path):
+    """The process's file descriptor 1 (children's too) into ``path``."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def cli_child(argv) -> int:
+    """``python3 chip_smoke.py --train-cli ARGS``: the training CLI's
+    ``main(ARGS)`` with the kernels' counts set to 0 before it and
+    printed after it, as the last stdout line."""
+    reset_counts()
+    rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    print(json.dumps({"launches": all_counts()}))
+    return rc
+
+
+def cli_command(extra):
+    return [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+            "--train-cli", *CLI_ARGS, *extra]
+
+
+def step_losses_of(stderr: str) -> dict:
+    """step -> loss from the CLI's stderr step lines (a step run again
+    after a rewind: its last line)."""
+    out = {}
+    for line in stderr.splitlines():
+        if line.startswith('{"step"'):
+            rec = json.loads(line)
+            out[rec["step"]] = rec["loss"]
+    return out
+
+
+def run_cli(tag, extra, paths, timeout=600):
+    """The CLI to its end in a child; returns (summary, step losses)."""
+    proc = subprocess.run(cli_command(extra), capture_output=True,
+                          text=True, timeout=timeout)
+    check(proc.returncode == 0,
+          f"{tag}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return json.loads(lines[-2]), json.loads(lines[-1])["launches"], \
+        step_losses_of(proc.stderr), proc.stderr
+
+
+def preempted_cli(tag, extra, timeout=600):
+    """The CLI in a child, sent SIGTERM after its step-3 line; returns
+    (rc, stderr, the step at which it drained)."""
+    proc = subprocess.Popen(cli_command(extra), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    err = []
+    sent = False
+    t0 = time.perf_counter()
+    try:
+        for line in proc.stderr:
+            err.append(line)
+            if not sent and line.startswith('{"step": 3'):
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+            check(time.perf_counter() - t0 < timeout, f"{tag}: timed out")
+        proc.stdout.read()
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(err)
+    drained = [ln for ln in err if ln.startswith("preempted: drained at")]
+    check(sent and proc.returncode == 0 and len(drained) == 1,
+          f"{tag}: rc {proc.returncode}, SIGTERM sent {sent}\n"
+          f"{text[-3000:]}")
+    return text, int(drained[0].split()[4])
+
+
+def checkpoint_io(cfg, root):
+    """One train state of ``cfg`` on the card (with the guard): a sync
+    save timed by its two stages (``checkpoint.save`` is ``_write_payload``
+    then ``write_manifest``, whose CRC reads the files back), a restore
+    with verification into a template on 'meta', held bit for bit, and
+    an async save (the loop's stall).  Returns the times and bytes, and a
+    function that waits for the async write (left to overlap the next
+    work), verifies it and removes the directory."""
+    opt = trainer.make_optimizer(cfg, total_steps=CLI_STEPS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state = trainer.init_state(g, cfg, opt, guard=trainer.GradGuardConfig())
+    d = os.path.join(root, "io")
+    t0 = time.perf_counter()
+    checkpoint._write_payload(d, checkpoint._flatten(state), 1)
+    t1 = time.perf_counter()
+    checkpoint.write_manifest(d, 1)
+    t2 = time.perf_counter()
+    check(checkpoint.verify(d, 1), "sync save: manifest does not verify")
+    with open(os.path.join(d, "manifest-1.json")) as f:
+        nbytes = sum(v["size"] for v in json.load(f)["files"].values())
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    back = checkpoint.restore(d, checkpoint.abstract_state(state),
+                              device="cuda")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t3) * 1e3
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                 tree_leaves(state)))
+    check(same and int(back.step) == 0, "restore: not bit-equal")
+    t4 = time.perf_counter()
+    checkpoint.save(d, state, step=2, blocking=False)
+    stall_ms = (time.perf_counter() - t4) * 1e3
+    del state, back
+    torch.cuda.empty_cache()
+
+    def finish():
+        check(checkpoint.wait_for_saves() == [], "async save: writer errors")
+        check(checkpoint.verify(d, 2), "async save: manifest does not verify")
+        shutil.rmtree(d)
+
+    return dict(bytes=nbytes, payload_ms=(t1 - t0) * 1e3,
+                crc_ms=(t2 - t1) * 1e3, save_ms=(t2 - t0) * 1e3,
+                stall_ms=stall_ms, restore_ms=restore_ms), finish
+
+
+def runtime_phase(paths):
+    """The front door on the card: ``initialize``; ``run_moe(1)`` on a
+    config file (BENCH_CONFIGS "reference", written by ``to_json``) as a
+    subprocess, then the worker's ``main --bench`` in this process (the
+    worker path); the throughput probe at the same widths (the probe
+    path); checkpoint I/O at the CLI's state; the training CLI at
+    Mixtral-8x7B's widths (1 layer) on a token file through the native
+    loader: 6 unbroken steps (the CLI path, counted in its child), the
+    same with checkpoints every 3 steps, async saves and the guard, sent
+    SIGTERM after step 3 (it drains), and a rerun that resumes; the
+    resumed losses against the unbroken ones."""
+    rt = bootstrap.initialize()
+    print(f"runtime initialize: mesh={dict(rt.mesh.shape)} device="
+          f"{rt.device} placement={rt.placement.local_experts} "
+          f"compiled dtype={api.get_compiled_config()['dtype']} "
+          f"num_local_experts={api.get_num_local_experts()}")
+    check(rt.device.type == "cuda" and rt.mesh.size == 1,
+          f"initialize: {rt}")
+    bootstrap.finalize()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_disk(tmp)
+        ref = config.MoEConfig(**REFERENCE_CFG)
+        cfg_path = os.path.join(tmp, "reference.json")
+        with open(cfg_path, "w") as f:
+            f.write(ref.to_json())
+        check(config.MoEConfig.from_json(cfg_path) == ref,
+              "config file: from_json(to_json) differs")
+        out_path = os.path.join(tmp, "worker.out")
+        t0 = time.perf_counter()
+        with stdout_to(out_path):
+            rc = api.run_moe(1, config_path=cfg_path, timeout=300)
+        with open(out_path) as f:
+            rec = json.loads(f.read().strip().splitlines()[-1])
+        check(rc == 0 and rec["finite"] and rec["output_shape"] == [
+            ref.tokens, ref.hidden_size], f"run_moe(1): rc {rc}, {rec}")
+        print(f"runtime run_moe(1) reference config: {json.dumps(rec)} "
+              f"({(time.perf_counter() - t0):.1f} s)")
+
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = worker.main([cfg_path, "--bench"])
+        torch.cuda.synchronize()
+        counts = path_counts("runtime worker", paths)
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0, f"worker --bench: rc {rc}")
+        print(f"runtime worker --bench: moe_fwd_ms={rec['moe_fwd_ms']} "
+              f"(32 calls after 8, CUDA events) launches={counts} "
+              f"({gpu_line()})")
+
+        reset_counts()
+        rate = throughput.measure_expert_throughput(ref)
+        torch.cuda.synchronize()
+        counts = path_counts("runtime probe", paths)
+        print(f"runtime throughput probe (8 experts x 256 rows, H = I = "
+              f"2048, bf16): {rate:.3f} experts/ms = "
+              f"{rate * 256 * 1e3:.4g} rows/s launches={counts} "
+              f"({gpu_line()})")
+
+        io_, io_finish = checkpoint_io(cli_cfg(), tmp)
+        print(f"runtime checkpoint (Mixtral-8x7B widths, 1 layer, bf16, "
+              f"guard): {io_['bytes']} bytes; sync save "
+              f"{io_['save_ms']:.1f} ms (payload {io_['payload_ms']:.1f} "
+              f"ms, {io_['bytes'] / io_['payload_ms'] / 1e6:.3f} GB/s; "
+              f"CRC {io_['crc_ms']:.1f} ms, "
+              f"{io_['bytes'] / io_['crc_ms'] / 1e6:.3f} GB/s); restore "
+              f"with verify {io_['restore_ms']:.1f} ms; async stall "
+              f"{io_['stall_ms']:.1f} ms ({gpu_line()})")
+
+        tok_path = os.path.join(tmp, "tokens.bin")
+        rng = __import__("numpy").random.default_rng(7)
+        n_windows = 4 * CLI_STEPS * CLI_BATCH
+        data.write_token_file(tok_path, rng.integers(
+            0, cli_cfg().vocab_size, size=n_windows * (CLI_SEQ + 1)))
+        loader = data.TokenLoader(tok_path, CLI_BATCH, CLI_SEQ)
+        check(loader.is_native, "token loader: the native arm did not load")
+        first = next(loader)["tokens"]
+        check(first.is_cuda and first.dtype == torch.int32
+              and tuple(first.shape) == (CLI_BATCH, CLI_SEQ + 1),
+              f"token loader: batch {first.shape} {first.dtype}")
+        loader.close()
+
+        data_args = ["--data", tok_path]
+        t0 = time.perf_counter()
+        summary, launches, unbroken, err = run_cli(
+            "cli unbroken", data_args, paths)
+        cli_s = time.perf_counter() - t0
+        io_finish()  # the async write overlapped the unbroken run
+        check("native=True" in err, "cli: the native loader was not used")
+        counts = path_counts("runtime cli", paths, launches)
+        ck_dir = os.path.join(tmp, "ck")
+        ck_args = data_args + ["--checkpoint-dir", ck_dir,
+                               "--checkpoint-every", "3", "--async-save",
+                               "--grad-guard"]
+        t0 = time.perf_counter()
+        err_b, drained = preempted_cli("cli preempted", ck_args)
+        pre_s = time.perf_counter() - t0
+        check(checkpoint.verify(ck_dir, drained)
+              and checkpoint.load_loader_state(ck_dir, drained) is not None
+              and checkpoint.has_guard(ck_dir, drained),
+              f"cli preempted: checkpoint {drained} does not verify")
+        t0 = time.perf_counter()
+        summary_c, _, resumed, _ = run_cli("cli resumed", ck_args, paths)
+        res_s = time.perf_counter() - t0
+        check(summary_c.get("resumes") == 1.0
+              and summary_c.get("loader_restores") == 1.0,
+              f"cli resumed: {summary_c}")
+        broken = {**step_losses_of(err_b), **resumed}
+        check(sorted(broken) == sorted(unbroken) == list(range(CLI_STEPS)),
+              f"cli: steps {sorted(broken)} vs {sorted(unbroken)}")
+        bits = all(broken[i] == unbroken[i] for i in unbroken)
+        rel = max(abs(broken[i] - unbroken[i]) / abs(unbroken[i])
+                  for i in unbroken)
+        check(bits or rel <= CLI_LOSS_RTOL,
+              f"cli: resumed losses {broken} vs unbroken {unbroken}")
+        print(f"runtime train cli (Mixtral-8x7B, 1 layer, 4 x 257 tokens, "
+              f"bf16, native loader): unbroken losses "
+              f"{[unbroken[i] for i in range(CLI_STEPS)]} median step "
+              f"{summary['step_ms_p50']:.2f} ms ({cli_s:.1f} s); SIGTERM "
+              f"after step 3: drained at step {drained} ({pre_s:.1f} s), "
+              f"resumed to {CLI_STEPS} ({res_s:.1f} s): losses "
+              f"{'bit-equal' if bits else f'max rel {rel:.3g}'} to the "
+              f"unbroken run's; launches={counts} ({gpu_line()})")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--train-cli"]:
+        return cli_child(argv[1:])
     print(gpu_line())
+    print(f"runtime phase disk: {check_disk(tempfile.gettempdir()) / 1e9:.1f}"
+          f" GB needed in {tempfile.gettempdir()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -4309,6 +4661,9 @@ def main() -> int:
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     tcfg, opt, ref = ep_train_phase(one_device_loss, paths)
     axes_train_phase(tcfg, opt, ref, one_device_loss, paths)
+    del tcfg, opt, ref
+    torch.cuda.empty_cache()
+    runtime_phase(paths)
 
     for e in entries:
         if e["name"] == "grouped_matmul":

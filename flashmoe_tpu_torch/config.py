@@ -16,13 +16,19 @@ is checked as JAX checks it: an unknown store name, a training config
 and ``tp > 1`` are refused.  The mesh axes ``dp``, ``pp``,
 ``ep``, ``tp`` and ``sp`` carry no check of their own beyond JAX's (the
 mesh and the layers raise on a geometry they cannot run, as in JAX).
-Knobs of later slices are absent: ``kv_wire_dtype``, ``serving_mode``
-and ``profile_phases``.
+Every field of JAX's config is here, so that a config file and
+``api.get_compiled_config`` read as JAX's; the knobs of later slices
+(``kv_wire_dtype`` and ``serving_mode``, "Serving fabric";
+``profile_phases``, "Host-side planes") raise ``NotImplementedError``
+naming their ROADMAP item unless they keep their defaults.
+``global_batch`` and ``router_jitter`` are carried as JAX carries them:
+no layer reads them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 import torch
@@ -34,6 +40,31 @@ class Activation:
     RELU = "relu"
     GELU = "gelu"  # tanh approximation, as jax.nn.gelu's default
     SILU = "silu"
+
+
+# the reference's ``torch_dtype`` codes (0 f32, 1 tf32, 2 bf16, 3 fp16)
+# and names, mapped as ``flashmoe_tpu/config.py:46-62`` maps them: tf32
+# and fp16 run as bf16
+_DTYPE_MAP = {
+    0: torch.float32, 1: torch.bfloat16, 2: torch.bfloat16,
+    3: torch.bfloat16, "float32": torch.float32, "f32": torch.float32,
+    "tf32": torch.bfloat16, "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16, "float16": torch.bfloat16,
+    "fp16": torch.bfloat16,
+}
+_DTYPE_FIELDS = ("dtype", "param_dtype", "accum_dtype")
+
+
+def dtype_from_name(name) -> torch.dtype:
+    """A ``torch_dtype`` code or dtype name (``"bf16"``, ``"float32"``)
+    as the torch dtype JAX's ``_DTYPE_MAP`` gives it."""
+    return name if isinstance(name, torch.dtype) else _DTYPE_MAP[name]
+
+
+def dtype_name(dt: torch.dtype) -> str:
+    """A torch dtype's numpy-style name (``"bfloat16"``), as JAX writes
+    ``jnp.dtype(d).name``."""
+    return str(dt).removeprefix("torch.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +83,7 @@ class MoEConfig:
     # --- tokens and capacity ---
     sequence_len: int = 128
     mini_batch: int = 1
+    global_batch: int = 1
     capacity_factor: float = 1.25
     drop_tokens: bool = True
     is_training: bool = False
@@ -76,6 +108,7 @@ class MoEConfig:
     gather_fused: bool | None = None
 
     # --- losses ---
+    router_jitter: float = 0.0
     aux_loss_coef: float = 0.01
     router_z_loss_coef: float = 0.0
 
@@ -112,6 +145,11 @@ class MoEConfig:
     sp: int = 1
     pp: int = 1
 
+    # --- knobs of later slices: refused unless at their defaults ---
+    kv_wire_dtype: str | None = None
+    serving_mode: str | None = None
+    profile_phases: bool = False
+
     def __post_init__(self):
         if self.num_experts < 1:
             raise ValueError("num_experts must be >= 1")
@@ -134,6 +172,22 @@ class MoEConfig:
                              f"('relu', 'gelu', 'silu')")
         if self.expert_replicas:
             self._check_replicas()
+        self._check_later_slices()
+
+    def _check_later_slices(self) -> None:
+        """Refuse the knobs whose modules the port does not have yet,
+        naming their ROADMAP item."""
+        if self.serving_mode not in (None, "prefill", "decode"):
+            raise ValueError(
+                f"serving_mode {self.serving_mode!r} not in "
+                f"(None, 'prefill', 'decode')")
+        for knob, item in (("kv_wire_dtype", "Serving fabric"),
+                           ("serving_mode", "Serving fabric"),
+                           ("profile_phases", "Host-side planes")):
+            if getattr(self, knob) not in (None, False):
+                raise NotImplementedError(
+                    f"{knob}={getattr(self, knob)!r} is not ported yet: "
+                    f"it waits for the ROADMAP item '{item}'")
 
     def _check_transport(self) -> None:
         """The JAX package's checks of the expert-parallel knobs, with its
@@ -280,6 +334,51 @@ class MoEConfig:
             return ()
         f = max(1, self.moe_frequency)
         return tuple(i for i in range(self.num_layers) if (i + 1) % f == 0)
+
+    # ------------------------------------------------------------------
+    # IO (``flashmoe_tpu/config.py:534-556``)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_json(cls, path_or_dict) -> "MoEConfig":
+        """Load a reference-style ``flashmoe_config.json`` (a path or a
+        dict): an int ``hidden_act`` (0 relu, else gelu), an int
+        ``torch_dtype`` code or a dtype name, 0/1 booleans; unknown keys
+        are ignored, as in JAX.  Also reads :meth:`to_json`'s output: its
+        ``dtype``, ``param_dtype`` and ``accum_dtype`` names (``dtype``
+        before ``torch_dtype``), and ``expert_replicas`` as pairs.  (JAX's
+        own ``from_json`` raises on a file its ``to_json`` wrote: the
+        ``dtype`` key reaches the constructor twice.)"""
+        if isinstance(path_or_dict, str):
+            with open(path_or_dict) as f:
+                raw = json.load(f)
+        else:
+            raw = dict(path_or_dict)
+        act = raw.pop("hidden_act", 1)
+        if isinstance(act, int):
+            act = Activation.RELU if act == 0 else Activation.GELU
+        code = raw.pop("torch_dtype", 2)
+        kwargs = {k: v for k, v in raw.items()
+                  if k in {f.name for f in dataclasses.fields(cls)}}
+        kwargs["dtype"] = kwargs.get("dtype", code)
+        for k in _DTYPE_FIELDS:
+            if k in kwargs:
+                kwargs[k] = dtype_from_name(kwargs[k])
+        for b in ("drop_tokens", "is_training"):
+            if b in kwargs:
+                kwargs[b] = bool(kwargs[b])
+        if "expert_replicas" in kwargs:
+            kwargs["expert_replicas"] = tuple(
+                tuple(p) for p in kwargs["expert_replicas"])
+        return cls(hidden_act=act, **kwargs)
+
+    def to_json(self) -> str:
+        """Every field as JSON, dtypes by name (``"bfloat16"``), as
+        JAX's ``to_json``."""
+        d = dataclasses.asdict(self)
+        for k in _DTYPE_FIELDS:
+            d[k] = dtype_name(d[k])
+        return json.dumps(d, indent=2)
 
     def replace(self, **kw) -> "MoEConfig":
         return dataclasses.replace(self, **kw)

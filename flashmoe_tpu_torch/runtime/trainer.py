@@ -7,8 +7,10 @@ pp x ep x tp x sp virtual ranks of one device,
 ``make_train_step(..., mesh=)``: the batch shards over dp, the MoE
 layers' tokens over (dp, ep[, sp]), attention over sp.
 :func:`state_shardings` gives the train state's placement specs, JAX's
-for JAX's.  The host-side planes of later slices (flight recorder, SLO
-watchdog, runtime controller, live telemetry) are not ported.  The
+for JAX's.  :func:`train` has JAX's flight recorder, its
+``trainer.step_ms`` histogram and its ``trainer.grad_skip`` decision
+(``trainer.py:248-395``); the planes of a later slice (SLO watchdog,
+runtime controller, live telemetry) raise ``NotImplementedError``.  The
 optimizer is optax's chain written out as plain functions on tensors,
 so that it can be held against optax step for step:
 ``clip_by_global_norm(1.0)``, then ``adamw`` over
@@ -32,6 +34,8 @@ from flashmoe_tpu_torch.models import transformer
 from flashmoe_tpu_torch.ops.stats import stats_to_host
 from flashmoe_tpu_torch.parallel.mesh import transformer_param_specs
 from flashmoe_tpu_torch.tree import tree_leaves, tree_map, tree_map_with_path
+from flashmoe_tpu_torch.utils.telemetry import FlightRecorder
+from flashmoe_tpu_torch.utils.telemetry import metrics as _telemetry
 
 
 class AdamWState(NamedTuple):
@@ -316,13 +320,30 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
           generator: torch.Generator | None = None, log_every: int = 10,
           state: TrainState | None = None,
           guard: GradGuardConfig | None = None,
-          use_kernels: bool | None = None, *, mesh=None):
+          use_kernels: bool | None = None, *, mesh=None,
+          recorder: FlightRecorder | None = None,
+          flight_path: str | None = None, flight_flush_every: int = 0,
+          slo=None, controller=None, telemetry_port: int | None = None):
     """Simple host training loop (over ``mesh``, as
     :func:`make_train_step`).  Returns ``(state, history)``: history
     holds the metrics of every ``log_every``-th step and of the last one,
     as floats, with ``step_ms`` (host clock, the step ended by reading its
     metrics back).  Without ``state`` the parameters are drawn from
-    ``generator``, by default one on the card seeded with 0."""
+    ``generator``, by default one on the card seeded with 0.
+
+    ``recorder``: a :class:`~flashmoe_tpu_torch.utils.telemetry.
+    FlightRecorder` that records every step (each step is then timed);
+    with ``flight_path`` one is made if needed and exported there at the
+    end, and ``flight_flush_every`` > 0 appends the new records every
+    that many steps (the offset-aware export).  Every timed step feeds
+    the global ``trainer.step_ms`` histogram, and a step whose update the
+    guard skipped records a ``trainer.grad_skip`` decision.  ``slo``,
+    ``controller`` and ``telemetry_port`` raise ``NotImplementedError``
+    ("Host-side planes")."""
+    from flashmoe_tpu_torch.runtime.resilient import refuse_planes
+
+    refuse_planes(slo=slo, controller=controller,
+                  telemetry_port=telemetry_port)
     optimizer = make_optimizer(cfg, total_steps=num_steps)
     if state is None:
         if generator is None:
@@ -330,13 +351,34 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
         state = init_state(generator, cfg, optimizer, guard=guard)
     step = make_train_step(cfg, optimizer, guard=guard,
                            use_kernels=use_kernels, mesh=mesh)
+    if flight_path is not None and recorder is None:
+        recorder = FlightRecorder()
     history = []
+    flushed = 0  # the offset-aware export's cursor
     for i in range(num_steps):
         batch = next(data_iter)
+        log_step = i % log_every == 0 or i == num_steps - 1
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
-        if i % log_every == 0 or i == num_steps - 1:
-            rec = host_metrics(metrics, cfg.moe_layer_indices)
-            rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+        if recorder is None and not log_step:
+            continue
+        rec = host_metrics(metrics, cfg.moe_layer_indices)
+        rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+        _telemetry.histogram("trainer.step_ms", rec["step_ms"])
+        if rec.get("grad_ok", 1.0) == 0.0:
+            _telemetry.decision("trainer.grad_skip", step=i,
+                                grad_norm=rec.get("grad_norm"),
+                                grad_norm_ema=rec.get("grad_norm_ema"))
+        if recorder is not None:
+            recorder.record(step=i, **rec)
+            if flight_path is not None and flight_flush_every > 0 \
+                    and (i + 1) % flight_flush_every == 0:
+                flushed = recorder.export_jsonl(flight_path, start=flushed)
+        if log_step:
             history.append(rec)
+    if flight_path is not None and recorder is not None:
+        if flight_flush_every > 0:
+            recorder.export_jsonl(flight_path, start=flushed)
+        else:
+            recorder.export_jsonl(flight_path)
     return state, history

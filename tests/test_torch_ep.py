@@ -193,6 +193,12 @@ def test_chunk_divisor_and_config_errors():
                     num_shared_experts=1)
     with pytest.raises(ValueError, match="'Host-side planes'"):
         TorchConfig(**LAYER, ep=2, moe_backend="auto")
+    # the knobs of later slices, by their ROADMAP titles
+    with pytest.raises(NotImplementedError, match="'Host-side planes'"):
+        TorchConfig(**LAYER, profile_phases=True)
+    for knob, val in (("kv_wire_dtype", "e4m3"), ("serving_mode", "decode")):
+        with pytest.raises(NotImplementedError, match="'Serving fabric'"):
+            TorchConfig(**LAYER, **{knob: val})
     for backend in ("fused", "ragged"):
         with pytest.raises(ValueError, match="tp>1"):
             TorchConfig(**LAYER, ep=2, tp=2, moe_backend=backend)
