@@ -183,10 +183,34 @@ Phases, each of which fails the run on any error:
    ``planner.fallback``, or a failed backend left at the end of the run,
    fails it.
 
+13. planes (after phase 12, on phase 4's weights, layer 0's experts and
+   8192 tokens over 8 virtual ranks): ``bootstrap.initialize(devices=8,
+   use_decider=True, measure=True)`` plainly and under
+   ``FLASHMOE_MOCK_SLICES=2`` (ep pinned at 8), each run's group plan,
+   the native and the Python Decider equal on the measured rates, and
+   under the mock the fused layer (B5) in the runtime's arrival order,
+   bit for bit against the ring order and within the bf16 tolerance of
+   its plain version; the collective layer's two-stage exchange
+   (``dcn_inner`` 4) bit for bit against the flat one, and with an e4m3
+   cross-slice hop within ``FP8_HOP_NORMWISE_TOL`` of its plain version,
+   each timed; ``profile_moe_phases`` and ``phase_ledger`` for the
+   collective, ragged and fused layers (3 fenced steps each: every
+   phase's median ms, the step, the uncovered share, the unfenced ms,
+   each prediction and ratio), their Perfetto trace validated; the
+   engine's mixed trace plainly and with the request tracer, the scrape
+   server and an SLO watchdog: the same tokens, the tracer's gate empty,
+   ``/metrics``, ``/healthz`` and ``/vars`` scraped.  After phase 11:
+   ``train`` over 8 ranks (2 layers, 4 steps) under an SLO below the
+   step (4 breaches, exactly one demotion of ``ragged``, reset after),
+   and ``resilient_train`` with ``postmortem_dir`` on a stream whose
+   batches after the first fail the step: one bundle, read back.  The
+   final fallback check skips that ``slo:`` demotion only.  Each run a
+   path (counts reset before, read after).
+
 The second-to-last line of stdout is the kernels' JSON line (each
 kernel's launches on the main path of the slice that ported it, and, in
-``launches_by_path``, on the paths of phases 4b, 5, 6, 9, 10, 11 and 12
-that ran it), the last
+``launches_by_path``, on the paths of phases 4b, 5, 6, 9, 10, 11, 12
+and 13 that ran it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -195,6 +219,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -208,6 +233,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -4768,6 +4794,391 @@ def planner_phase(cfg, params, ep_times, paths):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# the host-side planes: the Decider, the two-stage exchange, the phase
+# ledger, the traced engine, the SLO watchdog and postmortems
+# ----------------------------------------------------------------------
+
+PATH_KERNELS.update({
+    "planes decider fused": ("gate", "fused_ep"),
+    "planes two-stage": ("gate", "grouped_ffn"),
+    "planes two-stage e4m3": ("gate", "grouped_ffn"),
+    "planes ledger collective": ("gate", "grouped_ffn"),
+    "planes ledger ragged": ("gate", "grouped_ffn"),
+    "planes ledger fused": ("gate", "fused_ep"),
+    "planes engine": ENGINE_KERNELS,
+    "planes traced engine": ENGINE_KERNELS,
+    "planes slo train": ("gate", "grouped_ffn_res", "grouped_matmul",
+                         "tgmm"),
+})
+# the collective layer with an e4m3 cross-slice hop against its plain
+# version on the same wire: one fp8 rounding of each row a leg (2^-4
+# relative) on both sides, apart where the two sides' rows straddle an
+# fp8 boundary
+FP8_HOP_NORMWISE_TOL = 5e-2
+
+
+def planes_decider(cfg, moe0, x, paths):
+    """``bootstrap.initialize(devices=8, use_decider=True, measure=True)``
+    once plain and once under ``FLASHMOE_MOCK_SLICES=2`` (ep pinned at
+    8): each run's group plan; the native and the Python Decider on the
+    measured rates give the same placement; under the mock, the fused
+    layer (B5; counts reset before, read after) runs the runtime's
+    arrival order, bit for bit against the ring order and within
+    ``BF16_NORMWISE_TOL`` of its plain version.  Returns the mocked
+    runtime's ranks per slice."""
+    from flashmoe_tpu_torch.parallel import decider
+
+    lcfg = cfg.replace(ep=8, sequence_len=x.shape[0], mini_batch=1)
+    m = mesh.local_mesh(8, device="cuda")
+    dcn_inner = None
+    for mock in (None, "2"):
+        bootstrap.finalize()
+        if mock is None:
+            os.environ.pop("FLASHMOE_MOCK_SLICES", None)
+        else:
+            os.environ["FLASHMOE_MOCK_SLICES"] = mock
+        try:
+            t = time.perf_counter()
+            rt = bootstrap.initialize(lcfg, devices=8, use_decider=True,
+                                      measure=True, device="cuda")
+            init_s = time.perf_counter() - t
+            gp = rt.group_plan
+            attrs = topology.measured_worker_attrs(8, lcfg, probe=True,
+                                                   device="cuda")
+            adj = topology.ici_adjacency([0] * 8, platform="local")
+            py = decider.decide(adj, attrs, rt.cfg, native=False)
+            cc = decider.decide(adj, attrs, rt.cfg, native=True)
+            check(py == cc, f"decider mock={mock}: native {cc} against "
+                  f"python {py}")
+            check(rt.placement.groups == py.groups,
+                  f"decider mock={mock}: runtime groups "
+                  f"{rt.placement.groups} against {py.groups}")
+            order = ("ring" if rt.src_order is None
+                     else rt.src_order.tolist())
+            print(f"planes decider mock_slices={mock}: GroupPlan "
+                  f"mapping={gp.mapping} dp={gp.dp} ep={gp.ep} "
+                  f"dcn_inner={gp.dcn_inner} slices={gp.slices} "
+                  f"groups={gp.groups}; runtime ep={rt.cfg.ep} "
+                  f"dcn_inner={rt.dcn_inner} src_order={order}; "
+                  f"experts_per_ms={attrs[0].throughput:.3f} "
+                  f"memory_gb={attrs[0].memory_gb:.1f}; native == python "
+                  f"placement {py.local_experts}; initialize_s="
+                  f"{init_s:.3f} ({gpu_line()})")
+            if mock is None:
+                continue
+            dcn_inner = rt.dcn_inner
+            check(rt.src_order is not None and bootstrap.current_src_order(
+                m, 8) is rt.src_order, "decider: the mocked runtime "
+                "publishes no arrival order for its mesh")
+            fcfg = lcfg.replace(moe_backend="fused")
+            reset_counts()
+            got = fused.fused_ep_moe_layer(moe0, x, fcfg, m)
+            torch.cuda.synchronize()
+            counts = path_counts("planes decider fused", paths)
+            check(counts["fused_ep"] == 1 and counts["gate"] == 8,
+                  f"planes decider fused launches {counts}")
+            ring = fused.fused_ep_moe_layer(
+                moe0, x, fcfg, m, src_order=topology.default_ring(8))
+            check(torch.equal(got.out, ring.out),
+                  "decider: B5 in the runtime's order differs from the "
+                  "ring order")
+            plain = fused.fused_ep_moe_layer(moe0, x, fcfg, m,
+                                             use_kernels=False)
+            err = normwise(got.out, plain.out)
+            check(err <= BF16_NORMWISE_TOL,
+                  f"decider: B5 against plain {err}")
+            print(f"planes decider fused: S={x.shape[0]} ep=8 B5 in the "
+                  f"runtime's arrival order bit-equal to the ring order; "
+                  f"normwise {err:.3g} against plain (tol "
+                  f"{BF16_NORMWISE_TOL}); launches={counts}")
+        finally:
+            bootstrap.finalize()
+            os.environ.pop("FLASHMOE_MOCK_SLICES", None)
+    return dcn_inner
+
+
+def planes_two_stage(cfg, moe0, x, inner, paths):
+    """The collective layer with the two-stage exchange at ``inner``
+    ranks a slice, against the flat one (bit for bit), then with an e4m3
+    cross-slice hop against its plain version on the same wire; each
+    timed on CUDA events (counts reset before, read after)."""
+    lcfg = cfg.replace(ep=8, sequence_len=x.shape[0], mini_batch=1)
+    m = mesh.local_mesh(8, device="cuda")
+    reset_counts()
+    hier = ep.ep_moe_layer(moe0, x, lcfg, m, dcn_inner=inner)
+    torch.cuda.synchronize()
+    counts = path_counts("planes two-stage", paths)
+    flat = ep.ep_moe_layer(moe0, x, lcfg, m, dcn_inner=0)
+    check(torch.equal(hier.out, flat.out),
+          f"two-stage exchange (inner {inner}) differs from the flat one")
+    wcfg = lcfg.replace(wire_dtype_dcn="e4m3")
+    reset_counts()
+    wired = ep.ep_moe_layer(moe0, x, wcfg, m, dcn_inner=inner)
+    torch.cuda.synchronize()
+    wcounts = path_counts("planes two-stage e4m3", paths)
+    plain = ep.ep_moe_layer(moe0, x, wcfg, m, dcn_inner=inner,
+                            use_kernels=False)
+    err = normwise(wired.out, plain.out)
+    check(err <= FP8_HOP_NORMWISE_TOL,
+          f"two-stage e4m3 hop against plain {err}")
+    times = {name: cuda_ms(fn, 3) for name, fn in (
+        ("flat", lambda: ep.ep_moe_layer(moe0, x, lcfg, m, dcn_inner=0)),
+        ("two_stage", lambda: ep.ep_moe_layer(moe0, x, lcfg, m,
+                                              dcn_inner=inner)),
+        ("two_stage_e4m3", lambda: ep.ep_moe_layer(moe0, x, wcfg, m,
+                                                   dcn_inner=inner)))}
+    print(f"planes two-stage exchange: collective layer S={x.shape[0]} "
+          f"ep=8 dcn_inner={inner} bit-equal to the flat exchange; e4m3 "
+          f"cross-slice hop normwise {err:.3g} against plain on the same "
+          f"wire (tol {FP8_HOP_NORMWISE_TOL}); layer_ms "
+          + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+          + f" (CUDA events) launches={counts} e4m3 launches={wcounts} "
+          f"({gpu_line()})")
+
+
+def planes_ledger(cfg, moe0, x, paths):
+    """``profile_moe_phases`` for the collective, ragged and fused layers
+    at 8192 tokens over 8 virtual ranks, 3 steps each (counts reset
+    before, read after), and ``phase_ledger`` against
+    ``predicted_phase_ms`` on the local-mesh row: one line a path with
+    each phase's median ms, the step wall ms and the share no phase
+    covers, the unfenced call's ms, each phase's prediction and the
+    ratio; the three timelines written as one Perfetto trace, which must
+    validate."""
+    from flashmoe_tpu_torch.profiler import export as pexport
+    from flashmoe_tpu_torch.profiler import ledger as pledger
+
+    lcfg = cfg.replace(ep=8, sequence_len=x.shape[0], mini_batch=1)
+    m = mesh.local_mesh(8, device="cuda")
+    tls, labels = [], []
+    for path in ("collective", "ragged", "fused"):
+        reset_counts()
+        tl = pledger.profile_moe_phases(lcfg, m, path=path, steps=3,
+                                        params=moe0, x=x,
+                                        label=f"{path} S={x.shape[0]} ep=8")
+        counts = path_counts(f"planes ledger {path}", paths)
+        rows, overlap = pledger.phase_ledger(tl, lcfg, d=8, gen="local",
+                                             path=path)
+        pred = pledger.predicted_phase_ms(lcfg, 8, "local", path=path)
+        med = {ph: float(np.median([s["phases"].get(ph, 0.0)
+                                    for s in tl.steps]))
+               for ph in tl.phase_means()}
+        wall = float(np.median([s["wall_ms"] for s in tl.steps]))
+        covered = sum(med.values())
+        print(f"planes ledger {path}: S={x.shape[0]} ep=8 steps=3 "
+              f"step_wall_ms={wall:.3f} uncovered_share="
+              f"{1 - covered / wall:.3f} overlapped_ms="
+              f"{tl.overlapped_ms:.3f} phases_ms "
+              + " ".join(f"{k}={v:.3f}" for k, v in med.items())
+              + " predicted_ms " + " ".join(
+                  f"{k}={v:.4f}" for k, v in pred.items())
+              + " measured/predicted " + " ".join(
+                  f"{r['phase']}={r['measured_ms'] / r['predicted_ms']:.2f}"
+                  for r in rows)
+              + (f" overlap measured={overlap['measured_fraction']} "
+                 f"bound={overlap['predicted_fraction']}"
+                 if overlap else "")
+              + f" launches={counts} ({gpu_line()})")
+        tls.append(tl)
+        labels.append(tl.label)
+    os.makedirs(os.path.join(HERE, ".chip_scratch"), exist_ok=True)
+    out = os.path.join(HERE, ".chip_scratch", "planes_trace.json")
+    doc = pexport.write_trace(tls, out, labels=labels)
+    errors = pexport.validate_trace(doc)
+    check(not errors, f"planes ledger trace: {errors[:3]}")
+    print(f"planes ledger trace: {len(doc['traceEvents'])} events, "
+          f"validates, written to {os.path.relpath(out, HERE)}")
+
+
+def planes_engine(cfg, params, paths):
+    """The engine's mixed trace at 4 layers, once plain and once with the
+    request tracer, the scrape server (port 0) and an SLO watchdog
+    (counts reset before, read after each): every request's tokens bit
+    for bit between the two, the tracer's contiguity gate empty, its
+    Perfetto document valid, ``/metrics`` (in the exposition's content
+    type), ``/healthz`` and ``/vars`` scraped from the bound port; each
+    run's host step median."""
+    from flashmoe_tpu_torch.profiler import export as pexport
+    from flashmoe_tpu_torch.profiler.slo import SLOConfig
+    from flashmoe_tpu_torch.telemetry_plane.server import scrape
+    from flashmoe_tpu_torch.utils.telemetry import PROM_CONTENT_TYPE
+
+    reqs, arrivals = engine_trace(cfg)
+    base = dict(ENGINE_SERVE, max_pages_per_slot=slot_pages(reqs,
+                                                           ENGINE_SERVE))
+    serve_kw = dict(base, num_pages=8 * base["max_pages_per_slot"] + 1)
+    outs, step_ms = [], []
+    for name, kw in (("planes engine", {}),
+                     ("planes traced engine", dict(
+                         tracer=True, telemetry_port=0,
+                         slo=SLOConfig(step_ms=1000.0, ttft_ms=5000.0,
+                                       tpot_ms=1000.0)))):
+        mx = Metrics()
+        eng = serving.ServingEngine(params, cfg,
+                                    serving.ServeConfig(**serve_kw),
+                                    metrics_obj=mx, **kw)
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = eng.run(reqs, arrivals)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = engine_counts(name, paths)
+            outs.append(out)
+            step_ms.append(mx.sketches["serve.step_ms"].quantile(0.5))
+            extra = ""
+            if eng.tracer is not None:
+                problems = eng.tracer.validate()
+                check(not problems, f"{name}: tracer {problems[:3]}")
+                doc = pexport.request_trace_document(eng.tracer)
+                check(not pexport.validate_trace(doc),
+                      f"{name}: request trace invalid")
+                url = eng.telemetry.url
+                body, ctype = scrape(f"{url}/metrics")
+                check(ctype == PROM_CONTENT_TYPE
+                      and "flashmoe_serve_step_ms" in body,
+                      f"{name}: /metrics {ctype}")
+                health = json.loads(scrape(f"{url}/healthz")[0])
+                check(health["ok"] and health["completed"] == len(reqs)
+                      and "slo" in health, f"{name}: /healthz {health}")
+                svars = json.loads(scrape(f"{url}/vars")[0])
+                check(svars["tracing"] and svars["decode_plan"],
+                      f"{name}: /vars {svars}")
+                traces = sum(d["decision"] == "serve.trace"
+                             for d in mx.decisions)
+                check(traces == len(reqs), f"{name}: {traces} traces")
+                extra = (f" tracer spans={sum(len(st.spans) for st in eng.tracer.requests.values())}"
+                         f" trace_events={len(doc['traceEvents'])} "
+                         f"/metrics {len(body)} bytes, /healthz and /vars "
+                         f"answered on port {eng.telemetry.port}; "
+                         f"slo_breaches="
+                         f"{int(eng.watchdog.metrics.counters['slo.breaches'])}")
+        finally:
+            eng.close()
+        print(f"{name}: requests={len(reqs)} steps={eng.stats['steps']} "
+              f"wall_s={wall:.3f} host step_ms_p50={step_ms[-1]:.3f} "
+              f"launches={counts}{extra} ({gpu_line()})")
+    check(outs[1] == outs[0], "planes engine: the traced run's tokens "
+          "differ from the plain run's")
+    print(f"planes engine: traced tokens bit-identical to the plain run's; "
+          f"host step_ms_p50 plain={step_ms[0]:.3f} traced={step_ms[1]:.3f}")
+
+
+def planes_phase(cfg, params, paths):
+    """The host-side planes at Mixtral widths on the serve phase's
+    weights (layer 0's experts, 8192 tokens, 8 virtual ranks): the
+    Decider, the two-stage exchange, the phase ledger and the traced
+    engine (:func:`planes_train_phase` runs the SLO watchdog and the
+    postmortem after the runtime phase)."""
+    t = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    moe0 = params["layers"][0]["moe"]
+    x = torch.randn(8192, cfg.hidden_size, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    inner = planes_decider(cfg, moe0, x, paths)
+    planes_two_stage(cfg, moe0, x, inner or 4, paths)
+    planes_ledger(cfg, moe0, x, paths)
+    del x
+    planes_engine(cfg, params, paths)
+    torch.cuda.empty_cache()
+    print(f"planes phase_s={time.perf_counter() - t:.2f}")
+
+
+def planes_train_phase(paths):
+    """``train`` over 8 virtual ranks (collective, Mixtral widths, 2
+    layers, 4 x 257 tokens, 4 steps; counts reset before, read after)
+    under an SLO whose step budget sits below the step: a breach every
+    step and exactly one demotion of the named path in the episode
+    (reset after); then ``resilient_train`` with ``postmortem_dir`` on a
+    data stream whose batches after the first fail the step: one bundle,
+    read back (manifest, ``traceback.txt``, ``flight.jsonl``)."""
+    from flashmoe_tpu_torch.profiler import postmortem
+    from flashmoe_tpu_torch.profiler.slo import SLOConfig, SLOWatchdog
+    from flashmoe_tpu_torch.runtime import resilient
+
+    t0 = time.perf_counter()
+    cfg = presets.mixtral_8x7b(num_layers=2, param_dtype=torch.bfloat16,
+                               is_training=True, ep=8,
+                               moe_backend="collective")
+    m = mesh.local_mesh(8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 257),
+                                     device="cuda", generator=g)}
+    mx = Metrics()
+    wd = SLOWatchdog(SLOConfig(step_ms=1.0, consecutive=2,
+                               demote_backend="ragged"), mx)
+    before = sum(d["decision"] == "planner.fallback"
+                 for d in global_metrics.decisions)
+    reset_counts()
+    state, hist = trainer.train(cfg, itertools.repeat(batch), 4,
+                                generator=g, log_every=1, mesh=m, slo=wd)
+    torch.cuda.synchronize()
+    counts = path_counts("planes slo train", paths)
+    demotions = [d for d in global_metrics.decisions
+                 if d["decision"] == "planner.fallback"][before:]
+    breaches = [d for d in mx.decisions if d["decision"] == "slo.breach"]
+    check(len(breaches) == 4 and all(d["target"] == "step"
+                                     for d in breaches),
+          f"slo train: breaches {breaches}")
+    check(len(demotions) == 1 and demotions[0]["failed"] == "ragged"
+          and str(demotions[0]["reason"]).startswith("slo:")
+          and mx.counters["slo.escalations"] == 1
+          and "ragged" in pselect.failed_backends(),
+          f"slo train: demotions {demotions}")
+    pselect.reset_path_failures()
+    losses = [round(h["loss"], 5) for h in hist]
+    check(all(math.isfinite(v) for v in losses), f"slo train: {losses}")
+    print(f"planes slo train: mixtral_8x7b layers=2 B=4 T=257 ep=8 "
+          f"collective steps=4 step_ms="
+          f"{[round(h['step_ms'], 3) for h in hist]} budget 1.0 ms: "
+          f"breaches={len(breaches)} escalations="
+          f"{int(mx.counters['slo.escalations'])} demotion={demotions[0]} "
+          f"(reset after) losses={losses} launches={counts} "
+          f"({gpu_line()})")
+
+    # a postmortem bundle when recovery gives up
+    step = trainer.make_train_step(cfg, trainer.make_optimizer(cfg),
+                                   mesh=m)
+    root = tempfile.mkdtemp(prefix="planes_pm_")
+    try:
+        def data():
+            yield batch
+            while True:
+                yield None  # every later batch fails the step
+
+        rcfg = resilient.ResilienceConfig(
+            checkpoint_dir=os.path.join(root, "ckpt"), max_retries=1,
+            emergency_save=False)
+        err = None
+        try:
+            resilient.resilient_train(
+                state, step, data(), int(state.step) + 3, rcfg=rcfg,
+                postmortem_dir=os.path.join(root, "pm"), cfg=cfg)
+        except resilient.StepFailure as e:
+            err = e
+        check(err is not None and getattr(err, "postmortem_bundle", None),
+              f"postmortem: no bundle ({err!r})")
+        bundles = postmortem.find_bundles(os.path.join(root, "pm"))
+        check(len(bundles) == 1, f"postmortem: bundles {bundles}")
+        b = postmortem.load_bundle(bundles[0])
+        check(b["manifest"]["error"] and b.get("traceback")
+              and b["flight"] and {"traceback.txt", "flight.jsonl",
+                                   "config.json", "env.json"}
+              <= set(b["manifest"]["files"]),
+              f"postmortem: bundle {b['manifest']}")
+        print(f"planes postmortem: one bundle, files="
+              f"{b['manifest']['files']} step={b['manifest']['step']} "
+              f"error={b['manifest']['error'][:80]!r} flight_records="
+              f"{len(b['flight'])} env device={b['env'].get('device_name')}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del state, step
+    torch.cuda.empty_cache()
+    print(f"planes train phase_s={time.perf_counter() - t0:.2f}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -4810,6 +5221,7 @@ def main(argv=None) -> int:
     paths.update(ep_paths)
     axes_forward_phase(cfg, params, paths)
     planner_phase(cfg, params, ep_times, paths)
+    planes_phase(cfg, params, paths)
     entries.append(ep_entry)
     launches.update({k: ep_launches[k] for k in EP_KERNELS})
     del params, moe0, x
@@ -4826,8 +5238,12 @@ def main(argv=None) -> int:
     del tcfg, opt, ref
     torch.cuda.empty_cache()
     runtime_phase(paths)
+    planes_train_phase(paths)
+    # the SLO watchdog's demotion of the planes phase is deliberate (it
+    # checked and reset it); any other fallback fails the run
     fallbacks = [r for r in global_metrics.decisions
-                 if r["decision"] == "planner.fallback"]
+                 if r["decision"] == "planner.fallback"
+                 and not str(r.get("reason")).startswith("slo:")]
     check(not fallbacks and not pselect.failed_backends(),
           f"planner fallbacks {fallbacks}, failed backends "
           f"{sorted(pselect.failed_backends())}")

@@ -18,9 +18,11 @@ and ``tp > 1`` are refused.  The mesh axes ``dp``, ``pp``,
 mesh and the layers raise on a geometry they cannot run, as in JAX).
 Every field of JAX's config is here, so that a config file and
 ``api.get_compiled_config`` read as JAX's; the knobs of later slices
-(``kv_wire_dtype`` and ``serving_mode``, "Serving fabric";
-``profile_phases``, "Host-side planes") raise ``NotImplementedError``
-naming their ROADMAP item unless they keep their defaults.
+(``kv_wire_dtype`` and ``serving_mode``, "Serving fabric") raise
+``NotImplementedError`` naming their ROADMAP item unless they keep their
+defaults.  ``profile_phases`` fences the EP layers' phases for the phase
+profiler (:mod:`flashmoe_tpu_torch.profiler.spans`) and changes no
+output.
 ``global_batch`` and ``router_jitter`` are carried as JAX carries them:
 no layer reads them.
 """
@@ -182,8 +184,7 @@ class MoEConfig:
                 f"serving_mode {self.serving_mode!r} not in "
                 f"(None, 'prefill', 'decode')")
         for knob, item in (("kv_wire_dtype", "Serving fabric"),
-                           ("serving_mode", "Serving fabric"),
-                           ("profile_phases", "Host-side planes")):
+                           ("serving_mode", "Serving fabric")):
             if getattr(self, knob) not in (None, False):
                 raise NotImplementedError(
                     f"{knob}={getattr(self, knob)!r} is not ported yet: "

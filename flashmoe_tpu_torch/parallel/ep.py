@@ -10,13 +10,20 @@ kernel on CUDA tensors), returns the results by the reverse all-to-all
 and combines its own tokens.
 
 The exchange is flat, or the two-stage (inner, outer) decomposition of a
-multi-slice world (``dcn_inner`` ranks per slice); either leg may
-compress its payload to a wire dtype (:mod:`flashmoe_tpu_torch.ops.wire`),
-and the cross-slice hop may take its own (``wire_dtype_dcn``).  With
+multi-slice world (``dcn_inner`` ranks per slice, by default the
+bootstrapped runtime's: ``flashmoe_tpu/parallel/ep.py:91-195, 458-480``):
+on a local mesh both stages are permutations of the rank axes, on a
+process mesh ``all_to_all_single`` calls within the inner and outer
+groups.  Either leg may compress its payload to a wire dtype
+(:mod:`flashmoe_tpu_torch.ops.wire`), and the cross-slice hop may take
+its own (``wire_dtype_dcn``).  With
 ``a2a_chunks = n`` the slabs split into n chunks of local experts, each
 its own dispatch -> FFN -> return chain.  ``skip_exchange`` elides both
 exchanges (the compute-only leg of an overlap measurement; tokens then
-meet the wrong experts).
+meet the wrong experts).  The phases run under JAX's span names
+(``moe.gate``, ``moe.dispatch``, ``moe.a2a_dispatch[.k]``,
+``moe.expert[.k]``, ``moe.a2a_combine[.k]``, ``moe.combine``), each
+fenced under ``cfg.profile_phases`` for the phase profiler.
 
 The per-rank arithmetic is written once, over the ranks this process
 holds: every stage is a list over them, and the ranks meet only in the
@@ -54,6 +61,8 @@ from flashmoe_tpu_torch.ops import stats as st
 from flashmoe_tpu_torch.ops import wire as wr
 from flashmoe_tpu_torch.ops.gate import router
 from flashmoe_tpu_torch.ops.moe import MoEOutput, dense_ffn
+from flashmoe_tpu_torch.profiler import spans as prof
+from flashmoe_tpu_torch.utils.telemetry import trace_span
 
 _FFN_KEYS = ("w_up", "w_gate", "b_up", "w_down", "b_down")
 
@@ -180,11 +189,20 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
             f"axis (num_experts={e} // ep={d} = {nlx}); pick a divisor "
             f"or leave a2a_chunks=None for the serial schedule")
 
-    rs = [router(x, p["gate_w"], cfg, use_kernels=use_kernels)
-          for x, p in zip(xs, params)]
-    plans = [dsp.make_plan(r.expert_idx, cfg, cap) for r in rs]
-    sends = [dsp.dispatch(x.to(cfg.dtype), plan, cfg, cap)
-             .reshape(d, nlx, cap, h) for x, plan in zip(xs, plans)]
+    # phase spans (gate, dispatch, each exchange leg, the expert FFN,
+    # combine; a chunked pipeline's as name.k); with cfg.profile_phases
+    # each phase also fences its result for the phase profiler
+    with trace_span("moe.gate"):
+        rs = [router(x, p["gate_w"], cfg, use_kernels=use_kernels)
+              for x, p in zip(xs, params)]
+        if cfg.profile_phases:
+            prof.fence(rs)
+    with trace_span("moe.dispatch"):
+        plans = [dsp.make_plan(r.expert_idx, cfg, cap) for r in rs]
+        sends = [dsp.dispatch(x.to(cfg.dtype), plan, cfg, cap)
+                 .reshape(d, nlx, cap, h) for x, plan in zip(xs, plans)]
+        if cfg.profile_phases:
+            prof.fence(sends)
 
     def stat_err(ts, wd):
         """Per-rank round-trip error of a wire, only with collect_stats."""
@@ -202,40 +220,57 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
         return _wired_exchange(mesh, ts, wd, d, dcn_inner, reverse=reverse,
                                wire_dcn=wire_dcn)
 
+    def span(base, ck):
+        return trace_span(base if n_chunks == 1 else f"{base}.{ck}")
+
     nc = nlx // n_chunks
     ybacks = []
     for ck in range(n_chunks):
         lo = ck * nc
-        recv = exchange([s[:, lo:lo + nc] for s in sends], wire_disp, False)
-        ys = []
-        for rv, p in zip(recv, ffn_params):
-            p_k = {k: (v[lo:lo + nc] if k in _FFN_KEYS else v)
-                   for k, v in p.items()}
-            buf = rv.transpose(0, 1).reshape(nc, d * cap, h)
-            ys.append(exp.capacity_buffer_ffn_ad(buf, p_k, cfg,
-                                                 use_kernels=use_kernels))
-        ys = mesh.tp_psum(ys)
-        ysend = [y.reshape(nc, d, cap, h).transpose(0, 1) for y in ys]
-        for errs, wd in ((comb_errs, wire_comb), (dcn_errs, wire_dcn)):
-            err = stat_err(ysend, wd)
-            if err is not None:
-                errs.append(err)
-        ybacks.append(exchange(ysend, wire_comb, True))
+        with span("moe.a2a_dispatch", ck):
+            recv = exchange([s[:, lo:lo + nc] for s in sends], wire_disp,
+                            False)
+            if cfg.profile_phases:
+                prof.fence(recv)
+        with span("moe.expert", ck):
+            ys = []
+            for rv, p in zip(recv, ffn_params):
+                p_k = {k: (v[lo:lo + nc] if k in _FFN_KEYS else v)
+                       for k, v in p.items()}
+                buf = rv.transpose(0, 1).reshape(nc, d * cap, h)
+                ys.append(exp.capacity_buffer_ffn_ad(
+                    buf, p_k, cfg, use_kernels=use_kernels))
+            ys = mesh.tp_psum(ys)
+            if cfg.profile_phases:
+                prof.fence(ys)
+        with span("moe.a2a_combine", ck):
+            ysend = [y.reshape(nc, d, cap, h).transpose(0, 1) for y in ys]
+            for errs, wd in ((comb_errs, wire_comb), (dcn_errs, wire_dcn)):
+                err = stat_err(ysend, wd)
+                if err is not None:
+                    errs.append(err)
+            yback = exchange(ysend, wire_comb, True)
+            if cfg.profile_phases:
+                prof.fence(yback)
+        ybacks.append(yback)
     ybufs = [torch.cat([yb[i] for yb in ybacks], 1).reshape(e, cap, h)
              for i in range(len(xs))]
 
     outs, healthy = [], []
-    for x, p, r, plan, ybuf in zip(xs, params, rs, plans, ybufs):
-        combine_w = r.combine_weights
-        if cfg.degrade_unhealthy_experts:
-            ok = hlt.expert_health_capacity(ybuf)
-            healthy.append(ok)
-            ybuf, combine_w = hlt.degrade_outputs(ybuf, combine_w,
-                                                  r.expert_idx, ok)
-        out = dsp.combine(ybuf, plan, combine_w, cfg, cap)
-        if cfg.num_shared_experts:
-            out = out + shared_expert_ffn(x.to(cfg.dtype), p, cfg)
-        outs.append(out.to(cfg.dtype))
+    with trace_span("moe.combine"):
+        for x, p, r, plan, ybuf in zip(xs, params, rs, plans, ybufs):
+            combine_w = r.combine_weights
+            if cfg.degrade_unhealthy_experts:
+                ok = hlt.expert_health_capacity(ybuf)
+                healthy.append(ok)
+                ybuf, combine_w = hlt.degrade_outputs(ybuf, combine_w,
+                                                      r.expert_idx, ok)
+            out = dsp.combine(ybuf, plan, combine_w, cfg, cap)
+            if cfg.num_shared_experts:
+                out = out + shared_expert_ffn(x.to(cfg.dtype), p, cfg)
+            outs.append(out.to(cfg.dtype))
+        if cfg.profile_phases:
+            prof.fence(outs)
     return layer_output(mesh, cfg, rs, outs, cap, healthy, disp_err,
                         comb_errs, dcn_errs, quant_err)
 
@@ -283,11 +318,18 @@ def ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     order (``("dp", "ep", "sp")`` in a data- and sequence-parallel
     model, JAX's ``P(token_axes, None)``); the exchange runs within each
     ep fibre, and aux, z, counts and stats reduce over all of them.
-    ``dcn_inner``: ranks per slice for the two-stage exchange; None or 0
-    is the flat one.  On a mesh with a tp axis each expert is
+    ``dcn_inner``: ranks per slice for the two-stage exchange; None reads
+    the bootstrapped runtime's blocking of this mesh
+    (:func:`~flashmoe_tpu_torch.runtime.bootstrap.current_dcn_inner`:
+    None without one), 0 forces the flat exchange.  On a mesh with a tp
+    axis each expert is
     Megatron-split over the tp ranks.  ``use_kernels`` as in
     :func:`flashmoe_tpu_torch.ops.moe.moe_layer`."""
-    if dcn_inner == 0:
+    if dcn_inner is None:
+        from flashmoe_tpu_torch.runtime.bootstrap import current_dcn_inner
+
+        dcn_inner = current_dcn_inner(mesh, mesh.ep)
+    elif dcn_inner == 0:
         dcn_inner = None
     uk = _build.use_kernels_for(x, use_kernels)
     mesh = mesh.over(token_axes)

@@ -75,7 +75,9 @@ from flashmoe_tpu_torch.ops.gate import router
 from flashmoe_tpu_torch.parallel.ep import layer_output, local_capacity
 from flashmoe_tpu_torch.parallel.mesh import Mesh
 from flashmoe_tpu_torch.parallel.topology import default_ring
+from flashmoe_tpu_torch.profiler import spans as prof
 from flashmoe_tpu_torch.quant.core import is_quant_dtype
+from flashmoe_tpu_torch.utils.telemetry import trace_span
 
 #: the kernel's row tile and the JAX schedule's column chunk
 ROW_TILE = 64
@@ -675,17 +677,28 @@ def fused_inputs(params, x, cfg: MoEConfig, mesh, *, src_order=None,
     cap = local_capacity(cfg, s_loc)
     cap_pad = _padded_capacity(cap)
 
-    rs, plans, sends, counts = [], [], [], []
-    for xr, p in zip(xs, ps):
-        r = router(xr, p["gate_w"], cfg, use_kernels=uk)
-        plan = dsp.make_plan(r.expert_idx, cfg, cap)
-        xbuf = dsp.dispatch(xr.to(cfg.dtype), plan, cfg, cap)
-        xbuf = torch.nn.functional.pad(xbuf, (0, 0, 0, cap_pad - cap))
-        rs.append(r)
-        plans.append(plan)
-        sends.append(xbuf.reshape(d, nlx, cap_pad, h))
-        # counts clamp to the real capacity: padded rows are never sent
-        counts.append(torch.clamp(plan.counts, max=cap).reshape(d, nlx))
+    # phase spans (JAX's names: moe.gate, moe.dispatch, then the
+    # layer's moe.fused_kernel and moe.combine), fenced under
+    # cfg.profile_phases
+    with trace_span("moe.gate"):
+        rs = [router(xr, p["gate_w"], cfg, use_kernels=uk)
+              for xr, p in zip(xs, ps)]
+        if cfg.profile_phases:
+            prof.fence(rs)
+    plans, sends, counts = [], [], []
+    with trace_span("moe.dispatch"):
+        for xr, r in zip(xs, rs):
+            plan = dsp.make_plan(r.expert_idx, cfg, cap)
+            xbuf = dsp.dispatch(xr.to(cfg.dtype), plan, cfg, cap)
+            xbuf = torch.nn.functional.pad(xbuf, (0, 0, 0, cap_pad - cap))
+            plans.append(plan)
+            sends.append(xbuf.reshape(d, nlx, cap_pad, h))
+            # counts clamp to the real capacity: padded rows are never
+            # sent
+            counts.append(torch.clamp(plan.counts, max=cap).reshape(d,
+                                                                    nlx))
+        if cfg.profile_phases:
+            prof.fence(sends)
     args = (torch.stack(counts), so, torch.stack(sends), *weights)
     kw = dict(act_name=cfg.hidden_act, gated=cfg.gated_ffn,
               schedule=schedule, use_kernels=uk, **scale_kw)
@@ -896,7 +909,10 @@ def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     pp and sp coordinate) is one kernel world, launched on its own, and
     the losses, counts and stats reduce over every token axis.
     ``src_order`` ([D, D]; row r the order in which rank r takes source
-    slabs, starting with r) overrides the ring.  Shared experts run
+    slabs, starting with r) overrides the ring; None reads the
+    bootstrapped runtime's arrival order for this mesh
+    (:func:`~flashmoe_tpu_torch.runtime.bootstrap.current_src_order`),
+    then the ring.  Shared experts run
     outside the kernel on each rank's tokens.  On CUDA tensors the kernel
     runs or the call raises."""
     if not mesh.is_local:
@@ -907,6 +923,12 @@ def fused_ep_moe_layer(params, x, cfg: MoEConfig, mesh, *,
     if mesh.tp > 1:
         raise ValueError("the fused layer runs at tp 1; use "
                          "moe_backend='collective' on a tp mesh")
+    if src_order is None:
+        # a bootstrapped runtime on a heterogeneous fabric publishes its
+        # arrival order for its own world; elsewhere the ring stands
+        from flashmoe_tpu_torch.runtime.bootstrap import current_src_order
+
+        src_order = current_src_order(mesh, mesh.ep)
     mesh = mesh.over(token_axes)
     xs = mesh.split(x)
     sub = Mesh(mesh.ep, tuple(range(mesh.ep)), device=mesh.device)
@@ -930,26 +952,33 @@ def _fused_fibre(params, x, cfg: MoEConfig, mesh, src_order, use_kernels):
     None), and the capacity."""
     fi = fused_inputs(params, x, cfg, mesh, src_order=src_order,
                       use_kernels=use_kernels)
-    res = fused_core(fi, mesh)
+    with trace_span("moe.fused_kernel"):
+        res = fused_core(fi, mesh)
+        if cfg.profile_phases:
+            prof.fence(res)
     e, h = cfg.num_experts, x.shape[1]
     outs, healthy = [], []
     if "recv_pos" in fi.kw:
         outs = list(res[:, :fi.s_loc])
     else:
         slot = torch.arange(fi.cap_pad, device=x.device)
-        for i, (r, plan) in enumerate(zip(fi.rs, fi.plans)):
-            ybuf = res[i].reshape(e, fi.cap_pad, h)
-            combine_w = r.combine_weights
-            if cfg.degrade_unhealthy_experts:
-                # rows past a count are unspecified in the kernel's
-                # output: only populated rows may flag an expert
-                live = (slot < fi.args[0][i].reshape(e, 1))[..., None]
-                ybuf = torch.where(live, ybuf, torch.zeros_like(ybuf))
-                ok = hlt.expert_health_capacity(ybuf)
-                healthy.append(ok)
-                ybuf, combine_w = hlt.degrade_outputs(ybuf, combine_w,
-                                                      r.expert_idx, ok)
-            outs.append(dsp.combine(ybuf, plan, combine_w, cfg, fi.cap_pad))
+        with trace_span("moe.combine"):
+            for i, (r, plan) in enumerate(zip(fi.rs, fi.plans)):
+                ybuf = res[i].reshape(e, fi.cap_pad, h)
+                combine_w = r.combine_weights
+                if cfg.degrade_unhealthy_experts:
+                    # rows past a count are unspecified in the kernel's
+                    # output: only populated rows may flag an expert
+                    live = (slot < fi.args[0][i].reshape(e, 1))[..., None]
+                    ybuf = torch.where(live, ybuf, torch.zeros_like(ybuf))
+                    ok = hlt.expert_health_capacity(ybuf)
+                    healthy.append(ok)
+                    ybuf, combine_w = hlt.degrade_outputs(
+                        ybuf, combine_w, r.expert_idx, ok)
+                outs.append(dsp.combine(ybuf, plan, combine_w, cfg,
+                                        fi.cap_pad))
+            if cfg.profile_phases:
+                prof.fence(outs)
     for i, (xr, p) in enumerate(zip(mesh.split(x), mesh.shard_params(params))):
         if cfg.num_shared_experts:
             outs[i] = outs[i] + shared_expert_ffn(xr.to(cfg.dtype), p, cfg)

@@ -39,7 +39,10 @@ The per-rank arithmetic is written once, over the ranks this process
 holds; with ``token_axes`` beyond ep (dp, sp) each ep fibre of the mesh
 exchanges its own rows and the reductions run over every token axis.
 Wire dtypes, stats, tier-0 degradation and quantized storage
-behave as in JAX.  The layer runs at tp 1 only (the config refuses
+behave as in JAX.  The phases run under JAX's span names (``moe.gate``,
+``moe.dispatch``, ``moe.a2a_dispatch[.k]``, ``moe.expert[.k]``,
+``moe.a2a_combine[.k]``, ``moe.combine``), each fenced under
+``cfg.profile_phases``.  The layer runs at tp 1 only (the config refuses
 ``moe_backend='ragged'`` with tp > 1) and without shared experts.
 """
 
@@ -57,6 +60,8 @@ from flashmoe_tpu_torch.ops import wire as wr
 from flashmoe_tpu_torch.ops.gate import router
 from flashmoe_tpu_torch.ops.moe import MoEOutput
 from flashmoe_tpu_torch.parallel.ep import layer_output
+from flashmoe_tpu_torch.profiler import spans as prof
+from flashmoe_tpu_torch.utils.telemetry import trace_span
 
 EXCHANGES = ("ragged", "dense")
 
@@ -314,14 +319,21 @@ def _ragged_ep_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
             f"axis (num_experts={e} // ep={d} = {nlx}); pick a divisor "
             f"or leave a2a_chunks=None for the serial schedule")
 
-    rs = [router(x, p["gate_w"], cfg, use_kernels=use_kernels)
-          for x, p in zip(xs, params)]
-    # the local expert-sorted layout (contiguous, unpadded: block 1)
-    plans = [rag.make_ragged_plan(r.expert_idx, cfg, 1) for r in rs]
-    staged = [rag.ragged_dispatch(x.to(cfg.dtype), plan, cfg, 1)[:n_assign]
-              for x, plan in zip(xs, plans)]
-    all_cmat = mesh.all_gather([plan.counts.reshape(d, nlx)
-                                for plan in plans])
+    # phase spans as in the collective layer (JAX's names); with
+    # cfg.profile_phases each phase fences its result
+    with trace_span("moe.gate"):
+        rs = [router(x, p["gate_w"], cfg, use_kernels=use_kernels)
+              for x, p in zip(xs, params)]
+        if cfg.profile_phases:
+            prof.fence(rs)
+    with trace_span("moe.dispatch"):
+        # the local expert-sorted layout (contiguous, unpadded: block 1)
+        plans = [rag.make_ragged_plan(r.expert_idx, cfg, 1) for r in rs]
+        staged = [rag.ragged_dispatch(x.to(cfg.dtype), plan, cfg,
+                                      1)[:n_assign]
+                  for x, plan in zip(xs, plans)]
+        if cfg.profile_phases:
+            prof.fence(staged)
     me = [mesh.coord(r, "ep") for r in mesh.ranks]
 
     def stat_err(ts, wd):
@@ -339,55 +351,77 @@ def _ragged_ep_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
                                    block_rows=n_assign, out_bound=out_bound,
                                    **meta)
 
+    def span(base, ck):
+        return trace_span(base if n_chunks == 1 else f"{base}.{ck}")
+
     nc = nlx // n_chunks
-    ys = None
+    ys = all_cmat = None
     for ck in range(n_chunks):
         lo = ck * nc
-        geo = [_chunk_geometry(a, m, lo, lo + nc)
-               for a, m in zip(all_cmat, me)]
-        x_recv = move(staged, wire_disp, recv_bound, geo, False)
-        y_src = []
-        for xr, g, p in zip(x_recv, geo, params):
-            target, grouped_rows, tile_gid, total_recv, num_rows = \
-                _regroup_maps(g["recv_cmat"], g["recv_offsets"],
-                              g["recv_sizes"], recv_bound, block_m)
-            x_grp = xr.new_zeros(grouped_rows + 1, h).index_put(
-                (target,), xr)[:grouped_rows]
-            w_gate = p.get("w_gate") if cfg.gated_ffn else None
-            y_grp = _grouped_ffn(
-                x_grp, tile_gid,
-                (p["w_up"][lo:lo + nc], p["b_up"][lo:lo + nc],
-                 p["w_down"][lo:lo + nc], p["b_down"][lo:lo + nc],
-                 None if w_gate is None else w_gate[lo:lo + nc]),
-                cfg, use_kernels=use_kernels, block_m=block_m,
-                num_rows=num_rows)
-            live = (torch.arange(recv_bound, device=xr.device)
-                    < total_recv)[:, None]
-            # dead rows read the buffer's last row, which no live row
-            # targets (see _gather_rows on index_select)
-            y = y_grp.index_select(0, target.clamp(0, grouped_rows - 1))
-            y_src.append(torch.where(live, y, torch.zeros(
-                (), dtype=y.dtype, device=y.device)).to(xr.dtype))
-        err = stat_err(y_src, wire_comb)
-        if err is not None:
-            comb_errs.append(err)
-        # back to each source's staging slots; chunks return disjoint
-        # rows (zeros elsewhere), so their sum is the whole layout
-        ys_c = move(y_src, wire_comb, n_assign, geo, True)
+        with span("moe.a2a_dispatch", ck):
+            if all_cmat is None:
+                all_cmat = mesh.all_gather([plan.counts.reshape(d, nlx)
+                                            for plan in plans])
+            geo = [_chunk_geometry(a, m, lo, lo + nc)
+                   for a, m in zip(all_cmat, me)]
+            x_recv = move(staged, wire_disp, recv_bound, geo, False)
+            if cfg.profile_phases:
+                prof.fence(x_recv)
+        with span("moe.expert", ck):
+            maps, y_grps = [], []
+            for xr, g, p in zip(x_recv, geo, params):
+                target, grouped_rows, tile_gid, total_recv, num_rows = \
+                    _regroup_maps(g["recv_cmat"], g["recv_offsets"],
+                                  g["recv_sizes"], recv_bound, block_m)
+                x_grp = xr.new_zeros(grouped_rows + 1, h).index_put(
+                    (target,), xr)[:grouped_rows]
+                w_gate = p.get("w_gate") if cfg.gated_ffn else None
+                y_grps.append(_grouped_ffn(
+                    x_grp, tile_gid,
+                    (p["w_up"][lo:lo + nc], p["b_up"][lo:lo + nc],
+                     p["w_down"][lo:lo + nc], p["b_down"][lo:lo + nc],
+                     None if w_gate is None else w_gate[lo:lo + nc]),
+                    cfg, use_kernels=use_kernels, block_m=block_m,
+                    num_rows=num_rows))
+                maps.append((target, grouped_rows, total_recv))
+            if cfg.profile_phases:
+                prof.fence(y_grps)
+        with span("moe.a2a_combine", ck):
+            y_src = []
+            for xr, y_grp, (target, grouped_rows, total_recv) in zip(
+                    x_recv, y_grps, maps):
+                live = (torch.arange(recv_bound, device=xr.device)
+                        < total_recv)[:, None]
+                # dead rows read the buffer's last row, which no live row
+                # targets (see _gather_rows on index_select)
+                y = y_grp.index_select(0, target.clamp(0, grouped_rows - 1))
+                y_src.append(torch.where(live, y, torch.zeros(
+                    (), dtype=y.dtype, device=y.device)).to(xr.dtype))
+            err = stat_err(y_src, wire_comb)
+            if err is not None:
+                comb_errs.append(err)
+            # back to each source's staging slots; chunks return disjoint
+            # rows (zeros elsewhere), so their sum is the whole layout
+            ys_c = move(y_src, wire_comb, n_assign, geo, True)
+            if cfg.profile_phases:
+                prof.fence(ys_c)
         ys = ys_c if ys is None else [a + b for a, b in zip(ys, ys_c)]
 
     outs, healthy = [], []
-    for r, plan, y in zip(rs, plans, ys):
-        combine_w = r.combine_weights
-        if cfg.degrade_unhealthy_experts:
-            # the block-1 layout: expert e owns counts[e] rows; the ragged
-            # combine does not renormalize, so the mask does
-            ok = hlt.expert_health_segments(y, plan.counts)
-            healthy.append(ok)
-            y, combine_w = hlt.degrade_outputs(y, combine_w, r.expert_idx,
-                                               ok, renormalize=True)
-        outs.append(rag.ragged_combine(y, plan, combine_w, cfg)
-                    .to(cfg.dtype))
+    with trace_span("moe.combine"):
+        for r, plan, y in zip(rs, plans, ys):
+            combine_w = r.combine_weights
+            if cfg.degrade_unhealthy_experts:
+                # the block-1 layout: expert e owns counts[e] rows; the
+                # ragged combine does not renormalize, so the mask does
+                ok = hlt.expert_health_segments(y, plan.counts)
+                healthy.append(ok)
+                y, combine_w = hlt.degrade_outputs(
+                    y, combine_w, r.expert_idx, ok, renormalize=True)
+            outs.append(rag.ragged_combine(y, plan, combine_w, cfg)
+                        .to(cfg.dtype))
+        if cfg.profile_phases:
+            prof.fence(outs)
     # dropless: no capacity, zero drops
     return layer_output(mesh, cfg, rs, outs, None, healthy, disp_err,
                         comb_errs, quant_err=quant_err)

@@ -42,7 +42,9 @@ from flashmoe_tpu_torch.config import MoEConfig
 # planner path name -> the moe_backend string that runs it
 BACKEND_OF = {
     "collective": "collective",
-    "hierarchical": "collective",   # the same layer, two-stage exchange
+    # the collective layer: on a bootstrapped multi-slice world it runs
+    # the two-stage exchange at the runtime's blocking (current_dcn_inner)
+    "hierarchical": "collective",
     "ragged": "ragged",
     "fused[batched]": "fused",
     "fused[resident]": "fused",

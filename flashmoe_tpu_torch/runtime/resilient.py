@@ -29,9 +29,14 @@ PathFailure` has its backend reported to the planner before the retry
 backend demoted), so an ``'auto'`` step rebuilt for the retry resolves
 onto a healthy path, as JAX's loop does.
 
-Not ported: the host-side planes (``slo``,
-``controller``, ``telemetry_port``, ``postmortem_dir``,
-``ResilienceConfig.adapt``), refused naming their ROADMAP item.  The
+The host-side planes: ``slo`` judges every successful step against its
+budgets (sustained breaches demote a path), ``telemetry_port`` serves
+``/metrics``, ``/healthz`` and ``/vars`` for the run, and
+``postmortem_dir`` receives a crash bundle
+(:mod:`flashmoe_tpu_torch.profiler.postmortem`) when recovery gives up.
+With a profiler timeline armed each step is a timeline step and the
+loop's host work its sections.  The runtime controller (``controller``,
+``ResilienceConfig.adapt``) is refused, naming its ROADMAP item.  The
 port's step returns new tensors and never donates its input, so the
 state before the first checkpoint is kept by reference, not as a host
 copy.
@@ -49,6 +54,7 @@ import torch
 
 from flashmoe_tpu_torch.planner.select import (PathFailure,
                                                report_path_failure)
+from flashmoe_tpu_torch.profiler import spans as prof
 from flashmoe_tpu_torch.runtime import checkpoint as ckpt
 from flashmoe_tpu_torch.runtime.trainer import TrainState
 from flashmoe_tpu_torch.tree import tree_leaves
@@ -215,8 +221,8 @@ def resilient_train(state: TrainState, step_fn: Callable,
                     metrics: Metrics | None = None,
                     fail_injector: Callable | None = None,
                     preempt=None, slo=None,
-                    postmortem_dir: str | None = None, controller=None,
-                    telemetry_port: int | None = None):
+                    postmortem_dir: str | None = None, cfg=None,
+                    controller=None, telemetry_port: int | None = None):
     """Run ``num_steps`` with detection and restore-and-retry recovery.
 
     ``step_fn(state, batch) -> (state, metrics)``, e.g. from
@@ -226,19 +232,38 @@ def resilient_train(state: TrainState, step_fn: Callable,
     polled once a step; a notice drains (final checkpoint with the
     loader's cursor) and returns with ``state.step < num_steps``.  A
     stateful ``data_iter`` (``state_dict`` / ``load_state_dict``) has its
-    cursor in every manifest and restored on resume.  ``slo``,
-    ``postmortem_dir``, ``controller`` and ``telemetry_port`` raise
-    ``NotImplementedError`` ("Host-side planes").
+    cursor in every manifest and restored on resume.
+
+    ``slo``: an :class:`~flashmoe_tpu_torch.profiler.slo.SLOConfig` (or
+    a watchdog) judging every successful step's wall time.
+    ``telemetry_port``: the scrape server for the run (``/healthz``
+    carries the step, the SLO episode and the last durable checkpoint).
+    ``postmortem_dir``: when recovery gives up, a postmortem bundle is
+    written there (flight history, decisions, ``cfg`` when given, env,
+    traceback) and its path set on the raised error's
+    ``postmortem_bundle``.  ``controller`` raises ``NotImplementedError``
+    ("Host-side planes").
 
     Returns (state, history).  Raises :class:`StepFailure` after
     ``max_retries`` consecutive failures of one step, after a best-effort
     emergency checkpoint of the last good state."""
-    refuse_planes(slo=slo, postmortem_dir=postmortem_dir,
-                  controller=controller, telemetry_port=telemetry_port)
+    from flashmoe_tpu_torch.profiler.slo import as_watchdog
+
+    refuse_planes(controller=controller)
     rcfg = rcfg or ResilienceConfig()
     metrics = metrics or Metrics()
+    watchdog = as_watchdog(slo)
     history = []
     device = _state_device(state)
+    progress = {"step": None}
+    server = None
+    if telemetry_port is not None:
+        from flashmoe_tpu_torch.runtime.telemetry_hooks import train_server
+
+        server = train_server(
+            telemetry_port, cfg, num_steps=num_steps, progress=progress,
+            watchdog=watchdog, checkpoint_dir=rcfg.checkpoint_dir,
+            metrics_obj=metrics)
 
     # resume if a checkpoint exists
     start = ckpt.latest_step(rcfg.checkpoint_dir)
@@ -266,8 +291,10 @@ def resilient_train(state: TrainState, step_fn: Callable,
     ex_box: list = [None]
     try:
         while i < num_steps:
+            progress["step"] = i
             if preempt is not None and preempt.requested:
-                with trace_span("train.drain"):
+                with trace_span("train.drain"), \
+                        prof.section("train.drain", step=i):
                     ckpt.wait_for_saves()
                     if ckpt.latest_step(rcfg.checkpoint_dir) != i:
                         ckpt.save(rcfg.checkpoint_dir, state, step=i,
@@ -278,15 +305,24 @@ def resilient_train(state: TrainState, step_fn: Callable,
                     "preempt.drain", step=i, source=preempt.source,
                     remaining_grace_s=preempt.remaining_grace_s())
                 return state, history
-            with trace_span("train.data_pull"):
+            with trace_span("train.data_pull"), \
+                    prof.section("train.data_pull", step=i):
                 batch = replay.batch_for(i)
             try:
                 if fail_injector is not None:
                     fail_injector(i)
                 t0 = time.perf_counter()
+                tl = prof.active()
                 with trace_span("train.step"):
-                    new_state, m = _run_step(step_fn, state, batch,
-                                             rcfg.step_timeout_s, ex_box)
+                    # the step opens inside the span, so the span is a
+                    # section of the timeline, not a phase of its step
+                    if tl is not None:
+                        tl.begin_step(i)
+                    with prof.section("train.step", step=i):
+                        new_state, m = _run_step(step_fn, state, batch,
+                                                 rcfg.step_timeout_s, ex_box)
+                    step_phases = (tl.end_step()["phases"]
+                                   if tl is not None else None)
                 loss = _step_loss(m)
                 if loss is not None and not math.isfinite(loss):
                     raise StepFailure(f"non-finite loss at step {i}: {loss}")
@@ -343,7 +379,10 @@ def resilient_train(state: TrainState, step_fn: Callable,
                 retries = 0
             state = new_state
             metrics.count("steps")
-            metrics.times["step"].append(time.perf_counter() - t0)
+            step_s = time.perf_counter() - t0
+            metrics.times["step"].append(step_s)
+            if watchdog is not None:
+                watchdog.observe_step(i, step_s * 1e3, phases=step_phases)
             rec = scalar_metrics(m)
             if rec.get("grad_ok", 1.0) == 0.0:
                 # the guard skipped this step's update on the device
@@ -354,7 +393,8 @@ def resilient_train(state: TrainState, step_fn: Callable,
             history.append(rec)
             i += 1
             if i % rcfg.checkpoint_every == 0 or i == num_steps:
-                with trace_span("train.checkpoint"):
+                with trace_span("train.checkpoint"), \
+                        prof.section("train.checkpoint", step=i):
                     ckpt.save(rcfg.checkpoint_dir, state, step=i,
                               blocking=not rcfg.async_save,
                               loader_state=replay.loader_state_for(i))
@@ -379,8 +419,21 @@ def resilient_train(state: TrainState, step_fn: Callable,
         return state, history
     except StepFailure as e:
         e.partial_history = list(history)
+        if postmortem_dir:
+            # recovery gave up: freeze what a triage needs (best-effort:
+            # the writer never masks the failure it documents)
+            from flashmoe_tpu_torch.profiler import postmortem as pm
+
+            bundle = pm.write_bundle(
+                postmortem_dir, error=e, cfg=cfg, metrics_obj=metrics,
+                history=history, step=i,
+                extra={"retries": retries, "num_steps": num_steps})
+            if bundle is not None:
+                e.postmortem_bundle = bundle
         raise
     finally:
+        if server is not None:
+            server.stop()
         if ex_box[0] is not None:
             ex_box[0].shutdown(wait=False)
 
@@ -410,76 +463,119 @@ def supervise(cfg, data_factory: Callable, num_steps: int,
     ``data_factory(cfg)``'s loader from the manifest, and runs
     :func:`resilient_train`.  A drain ends an incarnation (the notice is
     cleared); a :class:`StepFailure` consumes one of ``max_restarts``.
-    ``step_wrapper`` wraps the built step (tests stall it).  The planes
-    (``slo``, ``postmortem_dir``, ``controller``, ``telemetry_port``,
-    ``rcfg.adapt``) raise ``NotImplementedError``.  Returns (state,
+    ``step_wrapper`` wraps the built step (tests stall it).  ``slo`` (one
+    watchdog for the whole job) and ``postmortem_dir`` ride through to
+    :func:`resilient_train`; a supervisor-level death (incarnations
+    exhausted, refusing to spin) writes its own bundle.
+    ``telemetry_port``: one scrape server for the whole job, re-pointed
+    at each incarnation's config and mesh.  ``controller`` and
+    ``rcfg.adapt`` raise ``NotImplementedError``.  Returns (state,
     history), history over all incarnations."""
     from flashmoe_tpu_torch.runtime.elastic import (elastic_resume,
                                                     fold_parallelism,
                                                     train_mesh)
+    from flashmoe_tpu_torch.profiler.slo import as_watchdog
     from flashmoe_tpu_torch.runtime.trainer import (init_state,
                                                     make_optimizer,
                                                     make_train_step)
 
-    refuse_planes(slo=slo, postmortem_dir=postmortem_dir,
-                  controller=controller, telemetry_port=telemetry_port)
+    refuse_planes(controller=controller)
     rcfg = rcfg or ResilienceConfig()
     metrics = metrics or Metrics()
     history: list = []
     restarts = 0
     incarnation = 0
+    # one watchdog (one episode state) and one scrape server for the job;
+    # the box re-points the server at each incarnation
+    watchdog = as_watchdog(slo)
+    tbox: dict = {"phase": "supervise",
+                  "checkpoint_dir": rcfg.checkpoint_dir,
+                  "watchdog": watchdog}
+    tserver = None
+    if telemetry_port is not None:
+        from flashmoe_tpu_torch.runtime.telemetry_hooks import train_server
+
+        tserver = train_server(
+            telemetry_port, cfg, num_steps=num_steps, metrics_obj=metrics,
+            box=tbox, extra_health=lambda: {
+                "steps_done": int(metrics.counters.get("steps", 0))})
+
+    def bundle(err):
+        if postmortem_dir:
+            from flashmoe_tpu_torch.profiler import postmortem as pm
+
+            pm.write_bundle(postmortem_dir, error=err, cfg=cfg,
+                            metrics_obj=metrics, history=history,
+                            extra={"incarnation": incarnation,
+                                   "restarts": restarts})
+
     # drains do not consume restarts, but a notice stuck on "always
     # preempted" must not loop forever either
     max_incarnations = max(8, 4 * (max_restarts + 1))
-    while True:
-        if incarnation >= max_incarnations:
-            raise StepFailure(
-                f"supervisor exceeded {max_incarnations} incarnations "
-                f"without reaching step {num_steps}")
-        world = _world(devices_fn()) if devices_fn is not None else 1
-        if ckpt.latest_step(rcfg.checkpoint_dir) is not None:
-            state, mesh, fcfg, opt = elastic_resume(
-                cfg, rcfg.checkpoint_dir, devices=world, guard=guard,
-                total_steps=num_steps, device=device)
-            metrics.decision(
-                "supervisor.resume", incarnation=incarnation,
-                step=int(state.step), world=world, ep=fcfg.ep, dp=fcfg.dp)
-        else:
-            fcfg = fold_parallelism(cfg, world)
-            mesh = train_mesh(fcfg, world, device)
-            opt = make_optimizer(fcfg, total_steps=num_steps)
-            gen = torch.Generator(device=device).manual_seed(seed)
-            state = init_state(gen, fcfg, opt, guard=guard)
-        data = data_factory(fcfg)
-        if ckpt.restore_loader_state(rcfg.checkpoint_dir, int(state.step),
-                                     data):
-            metrics.count("loader_restores")
-        step_fn = make_train_step(fcfg, opt, guard=guard,
-                                  use_kernels=use_kernels, mesh=mesh)
-        if step_wrapper is not None:
-            step_fn = step_wrapper(step_fn)
-        incarnation += 1
-        try:
-            state, hist = resilient_train(
-                state, step_fn, data, num_steps, rcfg=rcfg, metrics=metrics,
-                fail_injector=fail_injector, preempt=preempt)
-            history.extend(hist)
-        except StepFailure as e:
-            # in-job recovery exhausted: the scheduler would restart the
-            # process; here the next incarnation does
-            history.extend(getattr(e, "partial_history", []))
-            restarts += 1
-            metrics.count("supervisor_restarts")
-            if restarts > max_restarts:
-                e.partial_history = list(history)
-                raise
-            continue
-        if int(state.step) >= num_steps:
-            return state, history
-        if preempt is not None and preempt.requested:
-            preempt.clear()
-            metrics.count("preempt_restarts")
-            continue
-        raise StepFailure(
-            f"incarnation ended at step {int(state.step)} of {num_steps} "
-            f"with no drain and no failure: refusing to spin")
+    try:
+        while True:
+            if incarnation >= max_incarnations:
+                e = StepFailure(
+                    f"supervisor exceeded {max_incarnations} incarnations "
+                    f"without reaching step {num_steps}")
+                bundle(e)
+                raise e
+            world = _world(devices_fn()) if devices_fn is not None else 1
+            if ckpt.latest_step(rcfg.checkpoint_dir) is not None:
+                state, mesh, fcfg, opt = elastic_resume(
+                    cfg, rcfg.checkpoint_dir, devices=world, guard=guard,
+                    total_steps=num_steps, device=device)
+                metrics.decision(
+                    "supervisor.resume", incarnation=incarnation,
+                    step=int(state.step), world=world, ep=fcfg.ep,
+                    dp=fcfg.dp)
+            else:
+                fcfg = fold_parallelism(cfg, world)
+                mesh = train_mesh(fcfg, world, device)
+                opt = make_optimizer(fcfg, total_steps=num_steps)
+                gen = torch.Generator(device=device).manual_seed(seed)
+                state = init_state(gen, fcfg, opt, guard=guard)
+            data = data_factory(fcfg)
+            if ckpt.restore_loader_state(rcfg.checkpoint_dir,
+                                         int(state.step), data):
+                metrics.count("loader_restores")
+            step_fn = make_train_step(fcfg, opt, guard=guard,
+                                      use_kernels=use_kernels, mesh=mesh)
+            if step_wrapper is not None:
+                step_fn = step_wrapper(step_fn)
+            tbox.update(cfg=fcfg, mesh=mesh,
+                        health={"incarnation": incarnation,
+                                "restarts": restarts, "world": world})
+            incarnation += 1
+            try:
+                state, hist = resilient_train(
+                    state, step_fn, data, num_steps, rcfg=rcfg,
+                    metrics=metrics, fail_injector=fail_injector,
+                    preempt=preempt, slo=watchdog,
+                    postmortem_dir=postmortem_dir, cfg=fcfg)
+                history.extend(hist)
+            except StepFailure as e:
+                # in-job recovery exhausted: the scheduler would restart
+                # the process; here the next incarnation does
+                history.extend(getattr(e, "partial_history", []))
+                restarts += 1
+                metrics.count("supervisor_restarts")
+                if restarts > max_restarts:
+                    e.partial_history = list(history)
+                    raise
+                continue
+            if int(state.step) >= num_steps:
+                return state, history
+            if preempt is not None and preempt.requested:
+                preempt.clear()
+                metrics.count("preempt_restarts")
+                continue
+            e = StepFailure(
+                f"incarnation ended at step {int(state.step)} of "
+                f"{num_steps} with no drain and no failure: refusing to "
+                f"spin")
+            bundle(e)
+            raise e
+    finally:
+        if tserver is not None:
+            tserver.stop()

@@ -7,8 +7,9 @@ calls and over a chain of one, each the median of ``trials``; their
 difference over ``chain - 1`` is one call (JAX differences two jitted
 chains the same way).  On the card the chains are timed on CUDA events,
 on the CPU on the host clock.  The result is experts per ms, cached per
-(device kind, shape), or per device when one is named.  The Decider
-(ROADMAP "Host-side planes") will read it.
+(device kind, shape), or per device when one is named.  The Decider reads
+it through ``topology.measured_worker_attrs`` when the bootstrap measures
+(``runtime.bootstrap.initialize(measure=True)``).
 """
 
 from __future__ import annotations

@@ -20,6 +20,8 @@ with ``--checkpoint-dir``, each such step as it completes, a replayed
 step again); the last stdout line is the run's summary (JAX's keys:
 the metrics' counters and step timer, ``final_loss``, ``steps``).  A step
 is timed until its work on the device has completed.
+``--telemetry-port`` serves ``/metrics``, ``/healthz`` and ``/vars`` for
+the run.
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ from flashmoe_tpu_torch.runtime.data import TokenLoader
 from flashmoe_tpu_torch.runtime.elastic import train_mesh
 from flashmoe_tpu_torch.runtime.resilient import (ResilienceConfig,
                                                   _block_until_ready,
-                                                  refuse_planes,
                                                   resilient_train,
                                                   scalar_metrics)
 from flashmoe_tpu_torch.runtime.trainer import (GradGuardConfig, init_state,
@@ -102,8 +103,9 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-jsonl", default=None)
     ap.add_argument("--telemetry-port", type=int, default=None,
                     metavar="PORT",
-                    help="live /metrics (not ported: ROADMAP 'Host-side "
-                         "planes')")
+                    help="serve live /metrics, /healthz and /vars on "
+                         "this port for the run's duration (0 = "
+                         "ephemeral; default off = no thread)")
     ap.add_argument("--grad-guard", action="store_true",
                     help="skip non-finite or spiking updates on the device")
     ap.add_argument("--grad-spike-factor", type=float, default=10.0)
@@ -120,7 +122,6 @@ def main(argv=None) -> int:
         print("train_cli: no CUDA device (pass --device cpu to run on the "
               "CPU)", file=sys.stderr)
         return 2
-    refuse_planes(telemetry_port=args.telemetry_port)
 
     if args.preset:
         cfg = PRESETS[args.preset]()
@@ -171,7 +172,8 @@ def main(argv=None) -> int:
             try:
                 state, history = resilient_train(
                     state, logged, data, args.steps, rcfg=rcfg,
-                    metrics=metrics, preempt=preempt)
+                    metrics=metrics, preempt=preempt, cfg=cfg,
+                    telemetry_port=args.telemetry_port)
             finally:
                 preempt.uninstall()
             if preempt.requested:
@@ -180,15 +182,30 @@ def main(argv=None) -> int:
                       f"{args.checkpoint_dir}); re-run to resume",
                       file=sys.stderr)
         else:
+            server = None
+            progress = {"step": 0}
+            if args.telemetry_port is not None:
+                from flashmoe_tpu_torch.runtime.telemetry_hooks import (
+                    train_server)
+
+                server = train_server(args.telemetry_port, cfg, mesh,
+                                      num_steps=args.steps,
+                                      progress=progress,
+                                      metrics_obj=metrics)
             history = []
-            for i in range(args.steps):
-                with metrics.timer("step"):
-                    state, m = step(state, next(data))
-                    _block_until_ready(m)
-                if i % args.log_every == 0 or i == args.steps - 1:
-                    rec = scalar_metrics(m)
-                    history.append(rec)
-                    _log(i, rec)
+            try:
+                for i in range(args.steps):
+                    progress["step"] = i
+                    with metrics.timer("step"):
+                        state, m = step(state, next(data))
+                        _block_until_ready(m)
+                    if i % args.log_every == 0 or i == args.steps - 1:
+                        rec = scalar_metrics(m)
+                        history.append(rec)
+                        _log(i, rec)
+            finally:
+                if server is not None:
+                    server.stop()
     finally:
         if isinstance(data, TokenLoader):
             data.close()

@@ -9,8 +9,8 @@ layers' tokens over (dp, ep[, sp]), attention over sp.
 :func:`state_shardings` gives the train state's placement specs, JAX's
 for JAX's.  :func:`train` has JAX's flight recorder, its
 ``trainer.step_ms`` histogram and its ``trainer.grad_skip`` decision
-(``trainer.py:248-395``); the planes of a later slice (SLO watchdog,
-runtime controller, live telemetry) raise ``NotImplementedError``.  The
+(``trainer.py:248-395``), its SLO watchdog, scrape server and profiler
+sections; the runtime controller raises ``NotImplementedError``.  The
 optimizer is optax's chain written out as plain functions on tensors,
 so that it can be held against optax step for step:
 ``clip_by_global_norm(1.0)``, then ``adamw`` over
@@ -337,13 +337,23 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
     end, and ``flight_flush_every`` > 0 appends the new records every
     that many steps (the offset-aware export).  Every timed step feeds
     the global ``trainer.step_ms`` histogram, and a step whose update the
-    guard skipped records a ``trainer.grad_skip`` decision.  ``slo``,
-    ``controller`` and ``telemetry_port`` raise ``NotImplementedError``
-    ("Host-side planes")."""
+    guard skipped records a ``trainer.grad_skip`` decision.
+
+    ``slo``: an :class:`~flashmoe_tpu_torch.profiler.slo.SLOConfig` (or a
+    watchdog): every step is timed and judged against its budgets
+    (``slo.breach`` / ``slo.recovered``; sustained breaches demote the
+    configured path).  ``telemetry_port``: serve ``/metrics``,
+    ``/healthz`` (step progress, SLO episode) and ``/vars`` for the
+    loop's duration.  With a profiler timeline armed
+    (:func:`flashmoe_tpu_torch.profiler.spans.profiling`) the loop's host
+    work is recorded as ``train.data_pull`` / ``train.step`` sections and
+    each timed step as a timeline step.  ``controller`` raises
+    ``NotImplementedError`` ("Host-side planes")."""
+    from flashmoe_tpu_torch.profiler import spans as prof
+    from flashmoe_tpu_torch.profiler.slo import as_watchdog
     from flashmoe_tpu_torch.runtime.resilient import refuse_planes
 
-    refuse_planes(slo=slo, controller=controller,
-                  telemetry_port=telemetry_port)
+    refuse_planes(controller=controller)
     optimizer = make_optimizer(cfg, total_steps=num_steps)
     if state is None:
         if generator is None:
@@ -353,32 +363,59 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
                            use_kernels=use_kernels, mesh=mesh)
     if flight_path is not None and recorder is None:
         recorder = FlightRecorder()
+    watchdog = as_watchdog(slo)
     history = []
     flushed = 0  # the offset-aware export's cursor
-    for i in range(num_steps):
-        batch = next(data_iter)
-        log_step = i % log_every == 0 or i == num_steps - 1
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        if recorder is None and not log_step:
-            continue
-        rec = host_metrics(metrics, cfg.moe_layer_indices)
-        rec["step_ms"] = (time.perf_counter() - t0) * 1e3
-        _telemetry.histogram("trainer.step_ms", rec["step_ms"])
-        if rec.get("grad_ok", 1.0) == 0.0:
-            _telemetry.decision("trainer.grad_skip", step=i,
-                                grad_norm=rec.get("grad_norm"),
-                                grad_norm_ema=rec.get("grad_norm_ema"))
-        if recorder is not None:
-            recorder.record(step=i, **rec)
-            if flight_path is not None and flight_flush_every > 0 \
-                    and (i + 1) % flight_flush_every == 0:
-                flushed = recorder.export_jsonl(flight_path, start=flushed)
-        if log_step:
-            history.append(rec)
-    if flight_path is not None and recorder is not None:
-        if flight_flush_every > 0:
-            recorder.export_jsonl(flight_path, start=flushed)
-        else:
-            recorder.export_jsonl(flight_path)
-    return state, history
+    progress = {"step": 0}
+    server = None
+    if telemetry_port is not None:
+        from flashmoe_tpu_torch.runtime.telemetry_hooks import train_server
+
+        server = train_server(telemetry_port, cfg, mesh,
+                              num_steps=num_steps, progress=progress,
+                              watchdog=watchdog)
+    try:
+        for i in range(num_steps):
+            progress["step"] = i
+            with prof.section("train.data_pull", step=i):
+                batch = next(data_iter)
+            log_step = i % log_every == 0 or i == num_steps - 1
+            tl = prof.active()
+            if recorder is None and not log_step and watchdog is None \
+                    and tl is None:
+                with prof.section("train.step", step=i):
+                    state, metrics = step(state, batch)
+                continue
+            t0 = time.perf_counter()
+            if tl is not None:
+                tl.begin_step(i)
+            with prof.section("train.step", step=i):
+                state, metrics = step(state, batch)
+                # reading the metrics back ends the step on the device
+                rec = host_metrics(metrics, cfg.moe_layer_indices)
+            phases = tl.end_step()["phases"] if tl is not None else None
+            rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+            _telemetry.histogram("trainer.step_ms", rec["step_ms"])
+            if watchdog is not None:
+                watchdog.observe_step(i, rec["step_ms"], phases=phases)
+            if rec.get("grad_ok", 1.0) == 0.0:
+                _telemetry.decision("trainer.grad_skip", step=i,
+                                    grad_norm=rec.get("grad_norm"),
+                                    grad_norm_ema=rec.get("grad_norm_ema"))
+            if recorder is not None:
+                recorder.record(step=i, **rec)
+                if flight_path is not None and flight_flush_every > 0 \
+                        and (i + 1) % flight_flush_every == 0:
+                    flushed = recorder.export_jsonl(flight_path,
+                                                    start=flushed)
+            if log_step:
+                history.append(rec)
+        if flight_path is not None and recorder is not None:
+            if flight_flush_every > 0:
+                recorder.export_jsonl(flight_path, start=flushed)
+            else:
+                recorder.export_jsonl(flight_path)
+        return state, history
+    finally:
+        if server is not None:
+            server.stop()

@@ -6,6 +6,8 @@ Usage::
     python -m flashmoe_tpu_torch.serving --device cpu     # on the CPU
     python -m flashmoe_tpu_torch.serving --requests 12 --max-batch 8 \\
         --max-new 8 --arrival-every 2 --seed 7 --obs-dir obs/
+    python -m flashmoe_tpu_torch.serving --trace --telemetry-port 9464 \\
+        --ttft-slo-ms 50 --obs-dir obs/   # live plane, request traces
 
 Counterpart of ``python -m flashmoe_tpu.serving``, with its flags: a
 small MoE transformer on random weights through the engine under a
@@ -15,9 +17,12 @@ plans) and, with ``--obs-dir``, writes ``flight.jsonl`` and
 ``decisions.jsonl``.  It runs on the card unless ``--device cpu`` is
 given; without a GPU it fails.  On the card ``--hidden`` defaults to
 128 (JAX's 64 makes heads of 32, which the flash attention kernel does
-not take).  ``--ttft-slo-ms`` / ``--tpot-slo-ms``,
-``--telemetry-port`` and ``--trace`` reach keywords the engine refuses
-(ROADMAP "Host-side planes") and raise ``NotImplementedError``.
+not take).  ``--ttft-slo-ms`` / ``--tpot-slo-ms`` arm the SLO watchdog
+(``slo.breach`` decisions), ``--telemetry-port`` the scrape server for
+the run (its port joins the summary), and ``--trace`` the request tracer:
+with ``--obs-dir`` it writes ``trace.jsonl``, ``request_trace.json``
+(Perfetto) and the per-host shard, and the summary carries the tracer's
+``trace_problems``.
 """
 
 from __future__ import annotations
@@ -57,17 +62,19 @@ def main(argv=None) -> int:
                     help="where to serve: 'cuda' (default; fails without "
                          "a GPU) or 'cpu'")
     ap.add_argument("--ttft-slo-ms", type=float, default=None,
-                    help="refused: the SLO watchdog is not ported")
-    ap.add_argument("--tpot-slo-ms", type=float, default=None,
-                    help="refused: the SLO watchdog is not ported")
+                    help="per-request time-to-first-token budget "
+                         "(slo.breach decisions on violation)")
+    ap.add_argument("--tpot-slo-ms", type=float, default=None)
     ap.add_argument("--obs-dir", default=os.environ.get(
         "FLASHMOE_OBS_DIR"),
         help="write flight.jsonl + decisions.jsonl here")
     ap.add_argument("--telemetry-port", type=int, default=None,
                     metavar="PORT",
-                    help="refused: the live telemetry plane is not ported")
+                    help="serve /metrics, /healthz and /vars on this port "
+                         "for the run (0: ephemeral; default off)")
     ap.add_argument("--trace", action="store_true",
-                    help="refused: request tracing is not ported")
+                    help="trace every request: trace.jsonl and the "
+                         "Perfetto request_trace.json into --obs-dir")
     ap.add_argument("--json", action="store_true",
                     help="(default) emit the JSON summary line")
     args = ap.parse_args(argv)
@@ -95,8 +102,12 @@ def main(argv=None) -> int:
         max_new=args.max_new, seed=args.seed,
         arrival_every=args.arrival_every,
         temperature=args.temperature)
-    slo = ((args.ttft_slo_ms, args.tpot_slo_ms)
-           if args.ttft_slo_ms or args.tpot_slo_ms else None)
+    slo = None
+    if args.ttft_slo_ms or args.tpot_slo_ms:
+        from flashmoe_tpu_torch.profiler.slo import SLOConfig
+
+        slo = SLOConfig(ttft_ms=args.ttft_slo_ms,
+                        tpot_ms=args.tpot_slo_ms)
 
     recorder = FlightRecorder()
     serve = ServeConfig(
@@ -111,24 +122,45 @@ def main(argv=None) -> int:
     engine = ServingEngine(params, cfg, serve, recorder=recorder,
                            slo=slo, tracer=args.trace,
                            telemetry_port=args.telemetry_port)
-    engine.run(reqs, arrivals)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    wall_s = time.monotonic() - t0
+    try:
+        engine.run(reqs, arrivals)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall_s = time.monotonic() - t0
 
-    summary = engine.summary()
-    summary["wall_s"] = round(wall_s, 3)
-    summary["tokens_per_sec"] = round(summary["tokens"] / wall_s, 1) \
-        if wall_s > 0 else None
-    summary["slo_breaches"] = int(metrics.counters.get("slo.breaches", 0))
-    summary["device"] = (torch.cuda.get_device_name(device)
-                         if device.type == "cuda" else "cpu")
-    if args.obs_dir:
-        os.makedirs(args.obs_dir, exist_ok=True)
-        recorder.export_jsonl(os.path.join(args.obs_dir, "flight.jsonl"))
-        metrics.dump_decisions_jsonl(
-            os.path.join(args.obs_dir, "decisions.jsonl"))
-        summary["obs_dir"] = args.obs_dir
+        summary = engine.summary()
+        summary["wall_s"] = round(wall_s, 3)
+        summary["tokens_per_sec"] = round(summary["tokens"] / wall_s, 1) \
+            if wall_s > 0 else None
+        summary["slo_breaches"] = int(
+            metrics.counters.get("slo.breaches", 0))
+        summary["device"] = (torch.cuda.get_device_name(device)
+                             if device.type == "cuda" else "cpu")
+        if args.telemetry_port is not None:
+            summary["telemetry_port"] = engine.telemetry.port
+        if args.obs_dir:
+            os.makedirs(args.obs_dir, exist_ok=True)
+            recorder.export_jsonl(os.path.join(args.obs_dir,
+                                               "flight.jsonl"))
+            metrics.dump_decisions_jsonl(
+                os.path.join(args.obs_dir, "decisions.jsonl"))
+            summary["obs_dir"] = args.obs_dir
+            if engine.tracer is not None:
+                from flashmoe_tpu_torch.profiler.export import (
+                    write_request_trace)
+                from flashmoe_tpu_torch.telemetry_plane.server import (
+                    host_shard_path)
+
+                summary["trace_problems"] = engine.tracer.validate()
+                engine.tracer.export_jsonl(
+                    os.path.join(args.obs_dir, "trace.jsonl"))
+                write_request_trace(
+                    engine.tracer,
+                    os.path.join(args.obs_dir, "request_trace.json"))
+                # this process's spans under its host id
+                engine.tracer.export_jsonl(host_shard_path(args.obs_dir))
+    finally:
+        engine.close()
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -40,8 +40,10 @@ The sampler keys each draw on (request seed, token index) through a
 ``torch.Generator`` on the logits' device (Gumbel-max), where JAX folds
 the index into a ``PRNGKey``: a request's stream does not depend on the
 batch it shares, and the verify step can recompute the canonical sample
-of any drafted position.  The JAX package's live plane, SLO watchdog,
-request tracer and the fabric's seams are refused (:class:`ServingEngine`).
+of any drafted position.  The live plane (the request tracer, the scrape
+server) and the SLO watchdog are wired as in JAX
+(``flashmoe_tpu/serving/engine.py:721-800, 935-991``); the fabric's
+seams are refused (:class:`ServingEngine`).
 """
 
 from __future__ import annotations
@@ -78,12 +80,10 @@ from flashmoe_tpu_torch.utils.telemetry import trace_span
 
 # the JAX engine's keywords the port refuses, with the title of the
 # ROADMAP item that ports each
-_HOST_PLANES = "'Host-side planes'"
 _FABRIC = "'Serving fabric'"
 _REFUSED = {
-    "tracer": _HOST_PLANES, "telemetry_port": _HOST_PLANES,
-    "slo": _HOST_PLANES, "prefill_fn": _FABRIC, "replica_tag": _FABRIC,
-    "pools_info": _FABRIC, "heartbeat_fn": _FABRIC,
+    "prefill_fn": _FABRIC, "replica_tag": _FABRIC, "pools_info": _FABRIC,
+    "heartbeat_fn": _FABRIC,
 }
 
 
@@ -513,10 +513,16 @@ class ServingEngine:
     default); ``mesh``: a local mesh of ``ep_shards`` ranks for the
     EP-sharded decode (made when None); ``clock``: a zero-argument
     seconds source replacing ``time.monotonic`` for every latency.
-    ``tracer``, ``telemetry_port`` and ``slo`` (the live plane
-    and the SLO watchdog) and ``prefill_fn``, ``replica_tag``,
-    ``pools_info`` and ``heartbeat_fn`` (the fabric's seams) raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+    ``tracer``: True (or a :class:`~flashmoe_tpu_torch.telemetry_plane.
+    tracing.RequestTracer`) traces every request's lifecycle;
+    ``telemetry_port``: serve ``/metrics``, ``/healthz`` and ``/vars`` on
+    that port (0: an ephemeral one) until :meth:`close`; ``slo``: an
+    :class:`~flashmoe_tpu_torch.profiler.slo.SLOConfig` (or a watchdog)
+    judging every step and every retired request's TTFT / TPOT.  The
+    token streams are the same with any of them on.  ``prefill_fn``,
+    ``replica_tag``, ``pools_info`` and ``heartbeat_fn`` (the fabric's
+    seams) raise ``NotImplementedError`` naming the ROADMAP item that
+    ports them."""
 
     def __init__(self, params, cfg: MoEConfig,
                  serve: ServeConfig | None = None, *,
@@ -524,8 +530,7 @@ class ServingEngine:
                  tracer=None, telemetry_port=None, slo=None,
                  prefill_fn=None, replica_tag=None, pools_info=None,
                  heartbeat_fn=None):
-        given = dict(tracer=tracer or None, telemetry_port=telemetry_port,
-                     slo=slo, prefill_fn=prefill_fn, replica_tag=replica_tag,
+        given = dict(prefill_fn=prefill_fn, replica_tag=replica_tag,
                      pools_info=pools_info, heartbeat_fn=heartbeat_fn)
         for name, value in given.items():
             if value is not None:
@@ -543,6 +548,29 @@ class ServingEngine:
         self.metrics = metrics_obj if metrics_obj is not None \
             else _global_metrics
         self._clock = clock if clock is not None else time.monotonic
+        from flashmoe_tpu_torch.profiler.slo import as_watchdog
+
+        self.watchdog = as_watchdog(slo)
+        # ---- the live telemetry plane (off by default: no thread, and
+        # the token streams are the same either way)
+        self.tracer = None
+        if tracer:
+            from flashmoe_tpu_torch.telemetry_plane.tracing import (
+                RequestTracer)
+
+            self.tracer = (tracer if isinstance(tracer, RequestTracer)
+                           else RequestTracer(metrics_obj=self.metrics,
+                                              clock=self._clock))
+            self.tracer.install()
+        self.telemetry = None
+        if telemetry_port is not None:
+            from flashmoe_tpu_torch.telemetry_plane.server import (
+                maybe_server)
+
+            self.telemetry = maybe_server(
+                telemetry_port, metrics_fn=lambda: self.metrics,
+                health_fn=self._health_snapshot,
+                vars_fn=self._vars_snapshot)
         self._rates = {"tokens": WindowedRate(), "admits": WindowedRate(),
                        "evictions": WindowedRate()}
 
@@ -658,6 +686,60 @@ class ServingEngine:
             heterogeneous=(pre_b, pre_c) != (dec_b, dec_c),
             ep=cfg.ep, moe_backend=cfg.moe_backend)
 
+    # ---- live-plane snapshots ----------------------------------------
+
+    def _health_snapshot(self) -> dict:
+        """The ``/healthz`` document: the engine's load and the SLO
+        watchdog's episode state."""
+        doc = {
+            "steps": self.step_idx,
+            "queue_depth": len(self.queue),
+            "active_requests": len(self._active()),
+            "cache_occupancy": round(self.pool.occupancy, 4),
+            "completed": self.stats["completed"],
+            "evictions": self.stats["evictions"],
+        }
+        if self.serve.speculate is not None:
+            doc["spec"] = self.spec_snapshot()
+        if self.watchdog is not None:
+            doc["slo"] = self.watchdog.snapshot()
+        return doc
+
+    def _vars_snapshot(self) -> dict:
+        """The ``/vars`` document: the plans this engine resolved and
+        its shape knobs."""
+        cfg = self.cfg
+        return {
+            "prefill_plan": list(self.prefill_plan),
+            "decode_plan": list(self.decode_plan),
+            "serve": dataclasses.asdict(self.serve),
+            "config": {
+                "num_experts": cfg.num_experts,
+                "expert_top_k": cfg.expert_top_k,
+                "hidden_size": cfg.hidden_size,
+                "intermediate_size": cfg.intermediate_size,
+                "num_layers": cfg.num_layers,
+                "moe_backend": cfg.moe_backend,
+                "serving_mode": cfg.serving_mode,
+                "wire_dtype": cfg.wire_dtype,
+                "a2a_chunks": cfg.a2a_chunks,
+                "expert_quant": cfg.expert_quant,
+                "kv_wire_dtype": cfg.kv_wire_dtype,
+                "ep": cfg.ep,
+            },
+            "quant": self.quant_info,
+            "tracing": self.tracer is not None,
+        }
+
+    def close(self) -> None:
+        """Tear down the live plane (the scrape server's thread, the
+        tracer's listener).  Idempotent."""
+        if self.telemetry is not None:
+            self.telemetry.stop()
+            self.telemetry = None
+        if self.tracer is not None:
+            self.tracer.uninstall()
+
     # ---- submission --------------------------------------------------
 
     def submit(self, req: Request, arrival_step: int = 0) -> None:
@@ -746,6 +828,8 @@ class ServingEngine:
             if entry.arrival_s is None \
                     and entry.arrival_step <= self.step_idx:
                 entry.arrival_s = now
+                if self.tracer is not None:
+                    self.tracer.on_arrival(entry.orig.rid)
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=torch.long,
@@ -772,6 +856,10 @@ class ServingEngine:
                 break                      # head-of-line: deterministic
             pages = self._alloc_pages(slot, n_pages)
             self.queue.popleft()
+            if self.tracer is not None:
+                # closes the queued span and arms prefill attribution
+                self.tracer.on_admit(orig.rid, self.step_idx,
+                                     resumed=req is not orig)
             if chunked:
                 # whole chunks; trailing all-pad chunks past the true end
                 # never run (_advance_prefill stops at the last token's)
@@ -849,6 +937,9 @@ class ServingEngine:
             chunk_ids = gpages[first_pg:need_pages]
             rel_last = min(max(t0 - 1 - pos, 0), chunk - 1)
             toks = s.prefill_toks[pos:pos + chunk]
+            if self.tracer is not None:
+                # chunks interleave across slots: re-arm attribution
+                self.tracer.on_prefill_chunk(s.orig.rid)
             with trace_span("serve.prefill_chunk"):
                 logits, _, _ = _prefill_chunk(
                     self.params, self.cfg, self.cache.k_pages,
@@ -879,6 +970,8 @@ class ServingEngine:
                                             self.slots[i].req.rid))
         s = self.slots[victim]
         self._free_slot_pages(victim, s.pages)
+        if self.tracer is not None:
+            self.tracer.on_evict(s.orig.rid, self.step_idx)
         delivered = self._delivered(s)
         remaining = s.orig.max_new_tokens - delivered
         # the resumed prompt carries every delivered token (across any
@@ -1107,6 +1200,10 @@ class ServingEngine:
             self.metrics.sketch("serve.ttft_ms", ttft_ms)
         if tpot_ms is not None:
             self.metrics.sketch("serve.tpot_ms", tpot_ms)
+        if self.tracer is not None:
+            self.tracer.on_retire(s.orig.rid, self.step_idx,
+                                  tokens=n_tok, ttft_ms=ttft_ms,
+                                  tpot_ms=tpot_ms)
         spec_kw = {}
         if self.serve.speculate is not None:
             spec_kw = {
@@ -1126,6 +1223,19 @@ class ServingEngine:
                 kind="serve_request", step=self.step_idx,
                 rid=s.orig.rid, tokens=n_tok, ttft_ms=ttft_ms,
                 tpot_ms=tpot_ms, **spec_kw)
+        if self.watchdog is not None:
+            dominant = None
+            if self.tracer is not None:
+                # name the critical path's largest component on any
+                # breach this retirement raises
+                from flashmoe_tpu_torch.telemetry_plane.attribution import (
+                    attribute_track)
+
+                dominant = attribute_track(
+                    self.tracer.request_track(s.orig.rid))["dominant"]
+            self.watchdog.observe_request(
+                self.step_idx, s.orig.rid, ttft_ms=ttft_ms,
+                tpot_ms=tpot_ms, dominant=dominant)
 
     # ---- the engine step ---------------------------------------------
 
@@ -1135,6 +1245,12 @@ class ServingEngine:
         when one is attached)."""
         t0_s = self._clock()
         sv = self.serve
+        if self.tracer is not None:
+            # the step window opens before admissions: everything in this
+            # step rides a serve.step span on each active request's track
+            self.tracer.begin_step(
+                self.step_idx,
+                [self.slots[i].orig.rid for i in self._active()])
         self._mark_arrivals()
         self._admit()
         self._advance_prefill()
@@ -1193,6 +1309,8 @@ class ServingEngine:
             for i in active:
                 self.slots[i].length += 1
 
+        if self.tracer is not None:
+            self.tracer.end_step()
         step_ms = (self._clock() - t0_s) * 1e3
         n_active = len(self._active())
         qd = len(self.queue)
@@ -1228,6 +1346,8 @@ class ServingEngine:
             rec["spec_on"] = self._spec is not None
         if self.recorder is not None:
             self.recorder.record(**rec)
+        if self.watchdog is not None:
+            self.watchdog.observe_step(self.step_idx, step_ms)
         self.step_idx += 1
         return rec
 

@@ -1,7 +1,9 @@
 """PyTorch port: the bootstrap, the API facade, the throughput probe, the
 trainer's host hooks and the CLIs on the CPU.  ``get_bookkeeping`` and
 ``get_compiled_config`` against JAX's for the same config (the Decider
-off); every argument this slice refuses names its ROADMAP item; three
+off); the runtime controller's arguments name their ROADMAP item and the
+planes' (``slo``, ``telemetry_port``, ``postmortem_dir``, the Decider)
+run; three
 subprocess runs: the worker CLI, ``run_moe(2)`` on gloo against a local
 mesh of 2, and ``train_cli --synthetic --device cpu``, whose summary has
 JAX's keys."""
@@ -73,20 +75,53 @@ def test_bookkeeping_and_compiled_config_equal_jax(over, n):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
+    from flashmoe_tpu_torch.profiler import postmortem as pm
+    from flashmoe_tpu_torch.profiler.slo import SLOConfig, SLOWatchdog
+
     planes = "'Host-side planes'"
     state = ttrainer.TrainState({"w": torch.zeros(2)}, {}, torch.tensor(0))
-    for kw in ("slo", "controller", "telemetry_port", "postmortem_dir"):
-        with pytest.raises(NotImplementedError, match=planes):
-            tres.resilient_train(state, None, iter(()), 1, **{kw: 1})
-        with pytest.raises(NotImplementedError, match=planes):
-            tres.supervise(TorchConfig(**SMALL), None, 1, **{kw: 1})
-    for kw in ("slo", "controller", "telemetry_port"):
-        with pytest.raises(NotImplementedError, match=planes):
-            ttrainer.train(TorchConfig(**SMALL), iter(()), 1, **{kw: 1})
+    # the runtime controller is still refused
+    with pytest.raises(NotImplementedError, match=planes):
+        tres.resilient_train(state, None, iter(()), 1, controller=1)
+    with pytest.raises(NotImplementedError, match=planes):
+        tres.supervise(TorchConfig(**SMALL), None, 1, controller=1)
+    with pytest.raises(NotImplementedError, match=planes):
+        ttrainer.train(TorchConfig(**SMALL), iter(()), 1, controller=1)
     with pytest.raises(NotImplementedError, match=planes):
         tres.ResilienceConfig(adapt=object())
-    with pytest.raises(NotImplementedError, match=planes):
-        tboot.initialize(TorchConfig(**SMALL), devices=2, device="cpu")
+    # ported with the planes: slo, telemetry_port and postmortem_dir run
+
+    def step_fn(s, b):
+        return s._replace(step=s.step + 1), {"loss": torch.tensor(1.0)}
+
+    def failing(s, b):
+        raise RuntimeError("step fails")
+
+    rcfg = tres.ResilienceConfig(checkpoint_dir=str(tmp_path / "ck"),
+                                 checkpoint_every=10, max_retries=1,
+                                 emergency_save=False)
+    m = ttel.Metrics()
+    wd = SLOWatchdog(SLOConfig(step_ms=1e-9, consecutive=2), metrics=m)
+    out, hist = tres.resilient_train(state, step_fn, iter(range(9)), 3,
+                                     rcfg=rcfg, metrics=m, slo=wd,
+                                     telemetry_port=0)
+    assert int(out.step) == 3 and len(hist) == 3
+    assert m.counters["slo.breaches"] == 3
+    assert m.counters["decision.telemetry.server_stop"] == 1
+    with pytest.raises(tres.StepFailure) as e:
+        tres.resilient_train(state, failing, iter(range(9)), 2,
+                             rcfg=tres.ResilienceConfig(
+                                 checkpoint_dir=str(tmp_path / "ck2"),
+                                 max_retries=1, emergency_save=False),
+                             metrics=ttel.Metrics(),
+                             postmortem_dir=str(tmp_path / "pm"),
+                             cfg=TorchConfig(**SMALL))
+    b = pm.load_bundle(e.value.postmortem_bundle)
+    assert "step fails" in b["traceback"] and b["config"] is not None
+    # the Decider over more than one rank
+    rt = tboot.initialize(TorchConfig(**SMALL), devices=2, device="cpu")
+    assert rt.group_plan is not None and rt.cfg.ep == 2
+    tboot.finalize()
     assert tboot.initialize(TorchConfig(**SMALL), device="cpu").cfg.ep == 1
 
 

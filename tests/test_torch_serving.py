@@ -423,32 +423,77 @@ def test_request_submit_and_engine_errors_match_jax(weights):
     assert msgs[0] == msgs[1]
 
 
-REFUSED = [("tracer", True, "Host-side planes"),
-           ("telemetry_port", 0, "Host-side planes"),
-           ("slo", object(), "Host-side planes"),
+# the JAX engine's keywords: the live plane's run (item None), the
+# fabric's seams are refused naming their ROADMAP item
+REFUSED = [("tracer", True, None),
+           ("telemetry_port", 0, None),
+           ("slo", "slo", None),
            ("prefill_fn", lambda *a, **k: None, "Serving fabric"),
            ("replica_tag", "r0", "Serving fabric"),
            ("pools_info", {}, "Serving fabric"),
            ("heartbeat_fn", lambda phase: None, "Serving fabric")]
 
 
+def _plane_run(weights, **kw):
+    """Greedy tokens of a short drill (an eviction included) through the
+    port's engine, with ``kw`` armed; the engine is closed after."""
+    prompts = prompt_rows(4, 6, seed=3)
+    reqs = both_requests(prompts, 5)[1]
+    eng = teng.ServingEngine(
+        weights[1], TCFG, teng.ServeConfig(max_batch=4, page_size=4,
+                                           num_pages=9,
+                                           max_pages_per_slot=4,
+                                           prompt_bucket=4),
+        metrics_obj=Metrics(), **kw)
+    try:
+        out = eng.run(reqs, [0, 0, 1, 1])
+        return out, eng
+    finally:
+        eng.close()
+
+
 @pytest.mark.parametrize("kw,value,item", REFUSED,
                          ids=[r[0] for r in REFUSED])
 def test_refused_keywords_name_their_roadmap_item(weights, kw, value, item):
+    if item is None:
+        # ported with the live plane: the keyword runs, and the tokens
+        # are those of the engine without it
+        from flashmoe_tpu_torch.profiler.slo import SLOConfig
+
+        if kw == "slo":
+            value = SLOConfig(step_ms=1e-6, ttft_ms=1e-6, tpot_ms=1e-6)
+        want, _ = _plane_run(weights)
+        got, eng = _plane_run(weights, **{kw: value})
+        assert got == want
+        if kw == "tracer":
+            assert eng.tracer.validate() == []
+            assert eng.stats["evictions"] > 0
+        if kw == "slo":
+            assert eng.watchdog.metrics.counters["slo.breaches"] > 0
+        if kw == "telemetry_port":
+            assert eng.telemetry is None  # closed
+        return
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
         teng.ServingEngine(weights[1], TCFG, **{kw: value})
 
 
-def test_refused_fabric_methods_and_cli_flags(weights, capsys):
+def test_refused_fabric_methods_and_cli_flags(weights, capsys, tmp_path):
     eng = teng.ServingEngine(weights[1], TCFG, metrics_obj=Metrics())
     with pytest.raises(NotImplementedError, match="'Serving fabric'"):
         eng.evacuate()
     with pytest.raises(NotImplementedError, match="'Serving fabric'"):
         eng.adopt(None)
-    for flags in (["--trace"], ["--telemetry-port", "0"],
-                  ["--ttft-slo-ms", "5"], ["--tpot-slo-ms", "5"]):
-        with pytest.raises(NotImplementedError, match="'Host-side planes'"):
-            tcli.main(["--device", "cpu", "--requests", "1"] + flags)
+    # the live plane's flags run (ported with it)
+    obs = tmp_path / "obs"
+    assert tcli.main(["--device", "cpu", "--requests", "2", "--max-new",
+                      "2", "--layers", "1", "--trace", "--telemetry-port",
+                      "0", "--ttft-slo-ms", "5", "--tpot-slo-ms", "5",
+                      "--obs-dir", str(obs)]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["trace_problems"] == [] and got["telemetry_port"] > 0
+    for name in ("trace.jsonl", "request_trace.json", "flight.jsonl",
+                 "decisions.jsonl"):
+        assert (obs / name).is_file()
 
 
 def test_cli_prints_jax_summary_keys(tmp_path, capsys):
