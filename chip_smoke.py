@@ -207,10 +207,35 @@ Phases, each of which fails the run on any error:
    final fallback check skips that ``slo:`` demotion only.  Each run a
    path (counts reset before, read after).
 
+14. controller (after phase 13): tier 0 through the exchange (the
+   collective layer at Mixtral widths, 8192 tokens over 8 virtual
+   ranks, degradation and stats on, no wire and e4m3; ``nan_expert``
+   armed at expert 3: finite, one expert masked a rank with expert 3's
+   share, every row off expert 3 bit for bit the unarmed run's, within
+   1e-2 of the plain version armed alike, each timed armed and
+   unarmed); ``skew_sustained`` -> path morph (``train(controller=)``,
+   Mixtral widths, 2 layers, the collective capacity layer over 4
+   virtual ranks, 4 x 257 tokens, 12 steps: one ``controller.morph``,
+   the drop EMA under ``drop_high`` after it, B1 on every step with the
+   skew as its logit bias and held against the plain router armed
+   alike, B6, B7 and B8 on each side, a step before and after on
+   the host clock and on CUDA events); ``slow_device`` -> re-placement
+   (the same run with rank 0 probed at a quarter rate and its stall
+   priced from its load share, under an SLO: one ``controller.replace``
+   with the probed rates and expert 0 off rank 0, every MoE leaf and
+   both moments permuted bit for bit, the forward within 5e-3 and the
+   top-k the same but at near ties, the stall collapsing,
+   ``slo.recovered``); the drill matrix (``run_matrix``, f32, on CUDA
+   tensors: every training-ladder fault recovers at its tier); and
+   ``python -m flashmoe_tpu_torch.observe`` in text and ``--json`` over
+   their flight and decision files.  The ``path_raise`` drill's
+   injected ``planner.fallback`` is deliberate and skipped by the final
+   check; any other drill's fallback or failed backend fails the phase.
+
 The second-to-last line of stdout is the kernels' JSON line (each
 kernel's launches on the main path of the slice that ported it, and, in
-``launches_by_path``, on the paths of phases 4b, 5, 6, 9, 10, 11, 12
-and 13 that ran it), the last
+``launches_by_path``, on the paths of phases 4b, 5, 6, 9, 10, 11, 12,
+13 and 14 that ran it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -410,13 +435,23 @@ def routing_flips(ids_k, ids_p, probs_p) -> int:
     return n
 
 
-def check_gate(tag, x, w, cfg):
+def check_gate(tag, x, w, cfg, exact_ids=False):
+    """B1 against the plain router on the same inputs, under the armed
+    ``skewed_routing`` bias if any (both take it); ``exact_ids``: no
+    routing flip allowed."""
+    from flashmoe_tpu_torch.chaos import inject
+
     cfg = cfg.replace(router_z_loss_coef=1e-3)  # so z_loss is compared
     got = gate.router_cuda(x, w, cfg)
     want = gate.router_plain(x, w, cfg)
-    probs = torch.softmax(reference.dot_f32(x, w), -1)
+    logits = reference.dot_f32(x, w)
+    if inject.is_armed("skewed_routing"):
+        logits = inject.poison_logits(logits)
+    probs = torch.softmax(logits, -1)
     torch.cuda.synchronize()
     flips = routing_flips(got.expert_idx, want.expert_idx, probs)
+    check(not exact_ids or torch.equal(got.expert_idx, want.expert_idx),
+          f"gate {tag}: ids differ from plain")
     same = (got.expert_idx == want.expert_idx).all(-1)
     err = max_abs(got.combine_weights[same], want.combine_weights[same])
     check(err <= GATE_ABS_TOL, f"gate {tag}: combine weights err {err}")
@@ -442,6 +477,23 @@ def check_gate(tag, x, w, cfg):
           f"aux_rel_err={losses['aux_loss']:.3g} "
           f"z_rel_err={losses['z_loss']:.3g} (tol {GATE_LOSS_RTOL})")
     return err
+
+
+def skew_gate_check(tag, x, w, cfg):
+    """B1 under the armed ``skewed_routing`` bias on expert 0, at a logit
+    gap past 87 (bias 100: every other probability subnormal, 0 in the
+    kernel and the plain router alike, where the gap passes 87, so those
+    ties break to the lowest index and the ids are exact) and at the
+    re-placement run's ``SLOW_SKEW_BIAS``."""
+    from flashmoe_tpu_torch.chaos import inject
+
+    for bias in (100.0, SLOW_SKEW_BIAS):
+        inject.arm("skewed_routing", expert=0, bias=bias)
+        try:
+            check_gate(f"{tag} skew bias {bias:g}", x, w, cfg,
+                       exact_ids=bias > 87)
+        finally:
+            inject.disarm("skewed_routing")
 
 
 def gate_times(cfg, x, w, iters):
@@ -481,6 +533,7 @@ def gate_phase(cfg, x, w):
     g = torch.Generator(device="cuda").manual_seed(5)
     check_gate("f32", torch.randn(100, 256, device="cuda", generator=g),
                torch.randn(256, 16, device="cuda", generator=g) / 16, tc)
+    skew_gate_check("prefill", x, w, cfg)
     pre = gate_times(cfg, x, w, 200)
     dec = gate_times(cfg, x[:4].contiguous(), w, 200)
     for tag, r, s in (("prefill", pre, x.shape[0]), ("decode", dec, 4)):
@@ -5179,6 +5232,616 @@ def planes_train_phase(paths):
     print(f"planes train phase_s={time.perf_counter() - t0:.2f}")
 
 
+# ----------------------------------------------------------------------
+# the runtime controller, the chaos drills and the observe CLI
+# ----------------------------------------------------------------------
+
+PATH_KERNELS.update({
+    "controller tier0": ("gate", "grouped_ffn"),
+    "controller tier0 e4m3": ("gate", "grouped_ffn"),
+    "controller morph before": ("gate", "grouped_ffn_res",
+                                "grouped_matmul", "tgmm"),
+    "controller morph after": ("gate", "grouped_ffn_res", "grouped_matmul",
+                               "tgmm"),
+    "controller replace": ("gate", "grouped_ffn_res", "grouped_matmul",
+                           "tgmm"),
+    "controller drills": ("gate", "grouped_ffn_res", "grouped_matmul",
+                          "tgmm"),
+})
+# the controller phase's re-placed model against the model before it,
+# both replaying one routing: the same function with the softmax's sum
+# over E in another order
+REPLACE_NORMWISE_TOL = 5e-3
+# a top-k difference across the re-placement must be a near tie of the
+# probabilities before it (the k-th and (k+1)-th within this)
+REPLACE_NEAR_TIE = 2e-2
+# the slow_device stall: seconds a step of the degraded rank holds the
+# step when all its work sits there, and the rank's probed rates
+SLOW_SLEEP_S = 0.4
+SLOW_RATES = (0.25, 1.0, 1.0, 1.0)
+# the re-placement run's skew: at a logit bias of 100 every other
+# probability is subnormal, 0 by the gate's rule (B1 and router_plain
+# alike), so each token's second choice would be the lowest free expert
+# index, on rank 0 whatever the placement; at 10 the first choice is
+# still expert 0 for every token and the second stays the content's
+SLOW_SKEW_BIAS = 10.0
+CONTROLLER_OBS = os.path.join(HERE, ".chip_scratch", "controller_obs")
+
+
+def controller_tier0(paths):
+    """Tier 0 through the exchange: the collective layer at Mixtral
+    widths, 8192 tokens over 8 virtual ranks, degradation and stats on,
+    once with no wire and once with e4m3 on both legs; ``nan_expert``
+    armed at expert 3 poisons its owner's rows before the return
+    exchange.  The output is finite, the stats mask one expert a rank
+    with expert 3's assignment share, every row without a top-k slot on
+    expert 3 equals the unarmed run's bit for bit, and the armed layer
+    is within the bf16 tolerance of its plain version armed alike."""
+    from flashmoe_tpu_torch.chaos import inject
+
+    cfg = presets.mixtral_8x7b(num_layers=1, param_dtype=torch.bfloat16,
+                               ep=8, degrade_unhealthy_experts=True,
+                               collect_stats=True)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    p = reference.init_moe_params(g, cfg, device="cuda")
+    x = torch.randn(8192, cfg.hidden_size, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    m = mesh.local_mesh(8, device="cuda")
+    # a token's routing is the same in any batch (the gate card test)
+    ids = gate.router_cuda(x, p["gate_w"], cfg).expert_idx
+    clean = (ids != 3).all(-1)
+    for tag, wire in (("controller tier0", None),
+                      ("controller tier0 e4m3", "e4m3")):
+        wcfg = cfg.replace(wire_dtype=wire, wire_dtype_combine=wire)
+
+        def layer(**kw):
+            return ep.ep_moe_layer(p, x, wcfg, m, **kw)
+
+        unarmed = layer()
+        unarmed_ms = cuda_ms(layer, 3)
+        inject.arm("nan_expert", expert=3)
+        try:
+            reset_counts()
+            armed = layer()
+            torch.cuda.synchronize()
+            counts = path_counts(tag, paths)
+            plain = layer(use_kernels=False)
+            armed_ms = cuda_ms(layer, 3)
+        finally:
+            inject.disarm()
+        st = armed.stats
+        share = float(armed.expert_counts[3]) / (x.shape[0]
+                                                 * cfg.expert_top_k)
+        err = normwise(armed.out, plain.out)
+        check(bool(torch.isfinite(armed.out).all()), f"{tag}: non-finite")
+        check(float(st.masked_experts) == m.ep
+              and abs(float(st.masked_fraction) - share) <= 1e-6,
+              f"{tag}: masked {float(st.masked_experts)} experts, "
+              f"fraction {float(st.masked_fraction)} (expert 3's share "
+              f"{share})")
+        check(torch.equal(armed.out[clean], unarmed.out[clean]),
+              f"{tag}: rows off expert 3 differ from the unarmed run")
+        check(err <= BF16_NORMWISE_TOL, f"{tag}: armed vs plain {err}")
+        print(f"{tag}: mixtral_8x7b layer T=8192 ep=8 collective "
+              f"wire={wire} nan_expert=3: masked_experts="
+              f"{float(st.masked_experts):g} masked_fraction="
+              f"{float(st.masked_fraction):.6f} (expert 3's share "
+              f"{share:.6f}) rows_off_expert3={int(clean.sum())} bit-equal "
+              f"to the unarmed run, armed vs plain normwise={err:.3g} "
+              f"(tol {BF16_NORMWISE_TOL}) device_ms armed={armed_ms:.3f} "
+              f"unarmed={unarmed_ms:.3f} launches={counts} ({gpu_line()})")
+    del p, x, unarmed, armed, plain
+    torch.cuda.empty_cache()
+
+
+class StepLaunches:
+    """While active, every train step ``trainer.make_train_step`` builds
+    records the kernel launches it made (``per_step``, in call order);
+    ``wrap`` wraps each built step (the slow_device stall)."""
+
+    def __init__(self, wrap=None):
+        self.wrap, self.per_step = wrap, []
+
+    def __enter__(self):
+        self._make = trainer.make_train_step
+
+        def make(*a, **kw):
+            fn = self._make(*a, **kw)
+            if self.wrap is not None:
+                fn = self.wrap(fn)
+
+            def step(state, batch):
+                before = all_counts()
+                out = fn(state, batch)
+                after = all_counts()
+                self.per_step.append(
+                    {k: after[k] - before[k] for k in after})
+                return out
+            return step
+
+        trainer.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        trainer.make_train_step = self._make
+
+    def summed(self, lo, hi):
+        out = {}
+        for c in self.per_step[lo:hi]:
+            for k, v in c.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+
+class FirstRoute:
+    """While active, keeps a copy of the first gate call's inputs (x and
+    gate_w) that the MoE layers make."""
+
+    def __enter__(self):
+        self.inputs, self._router = None, moe.router
+
+        def kept(x, gate_w, cfg, use_kernels=None):
+            if self.inputs is None:
+                self.inputs = (x.detach().clone(), gate_w.detach().clone())
+            return self._router(x, gate_w, cfg, use_kernels=use_kernels)
+
+        for mod in RoutingLog.MODULES:
+            mod.router = kept
+        return self
+
+    def __exit__(self, *exc):
+        for mod in RoutingLog.MODULES:
+            mod.router = self._router
+
+
+def controller_cfg():
+    """The controller phase's model: Mixtral-8x7B's widths, 2 layers,
+    bf16, the collective capacity layer over 4 virtual ranks, stats on."""
+    return presets.mixtral_8x7b(num_layers=2, param_dtype=torch.bfloat16,
+                                is_training=True, ep=4,
+                                moe_backend="collective", drop_tokens=True,
+                                collect_stats=True)
+
+
+def controller_batch(cfg):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    return g, {"tokens": torch.randint(0, cfg.vocab_size, (4, 257),
+                                       device="cuda", generator=g)}
+
+
+def dump_jsonl(path, recs):
+    with open(path, "w") as f:
+        for r in recs:
+            f.write(json.dumps(r, default=str) + "\n")
+
+
+def controller_morph(paths):
+    """``skew_sustained`` -> path morph: ``train(controller=)`` for 12
+    steps under a routing skew onto expert 0 (bias 100).  Exactly one
+    ``controller.morph`` after the debounce, with the planner's
+    overrides, then the drop EMA under ``drop_high``.  B1 launches on
+    every step with the armed skew as its logit bias; its launch on the
+    first gate input of the run is held against router_plain armed alike
+    (ids exact: at bias 100 the other probabilities tie at 0).  Returns
+    the phase's host step ms before and after the morph."""
+    from flashmoe_tpu_torch.chaos import FaultPlan, arm_plan, clear
+    from flashmoe_tpu_torch.runtime.controller import (ControllerConfig,
+                                                       RuntimeController)
+
+    cfg = controller_cfg()
+    m = mesh.local_mesh(4, device="cuda")
+    g, batch = controller_batch(cfg)
+    mx = Metrics()
+    # the skew holds the imbalance at 4 after the morph too (every token's
+    # first choice is expert 0), so after the cooldown a second, latency
+    # driven re-selection could follow: one morph is the phase's budget,
+    # as in JAX's drill
+    ctl = RuntimeController(cfg, ControllerConfig(morph_budget=1),
+                            metrics=mx)
+    emas = []
+    observe = ctl.observe_step
+
+    def observed(i, ms, md=None):
+        observe(i, ms, md)
+        emas.append(ctl.drop_ema)
+
+    ctl.observe_step = observed
+    rec = FlightRecorder()
+    arm_plan(FaultPlan("skew_sustained", step=0, duration=12, expert=0,
+                       bias=100.0))
+    try:
+        reset_counts()
+        with StepLaunches() as log, FirstRoute() as first:
+            state, hist = trainer.train(
+                cfg, itertools.repeat(batch), 12, generator=g,
+                log_every=1, mesh=m, controller=ctl, recorder=rec)
+        torch.cuda.synchronize()
+        skew_err = check_gate("controller morph skew", *first.inputs, cfg,
+                              exact_ids=True)
+        morphs = [d for d in ctl.timeline
+                  if d["decision"] == "controller.morph"]
+        check(len(morphs) == 1, f"morph: {ctl.timeline}")
+        mo = morphs[0]
+        at = mo["step"]
+        before, after = log.summed(0, at), log.summed(at, 12)
+        path_counts("controller morph before", paths, before)
+        path_counts("controller morph after", paths, after)
+        check(all(c["gate"] > 0 for c in log.per_step),
+              f"morph: a step without B1 under the armed skew "
+              f"{log.per_step}")
+        check(mo["dropless"] and ctl.cfg_overrides == mo["overrides"],
+              f"morph: {mo} overrides {ctl.cfg_overrides}")
+        check(ctl.drop_ema is not None
+              and ctl.drop_ema < ctl.ccfg.drop_high
+              and max(emas[:at]) > ctl.ccfg.drop_high,
+              f"morph: drop EMA {emas}")
+        opt = trainer.make_optimizer(cfg, total_steps=12)
+        dev = {}
+        for side, scfg in (("before", cfg),
+                           ("after", cfg.replace(**ctl.cfg_overrides))):
+            step = trainer.make_train_step(scfg, opt, mesh=m)
+            dev[side] = cuda_ms(lambda: step(state, batch), 2)
+    finally:
+        clear()
+    host = [round(h["step_ms"], 3) for h in hist]
+    print(f"controller morph: mixtral_8x7b layers=2 B=4 T=257 ep=4 "
+          f"collective capacity, skew_sustained on expert 0 (bias 100), "
+          f"ControllerConfig(morph_budget=1): controller.morph at step "
+          f"{at} trigger={mo['trigger']} mode={mo['mode']} "
+          f"backend={mo['backend']} overrides={mo['overrides']} "
+          f"drop_ema={mo['drop_ema']} imbalance_ema={mo['imbalance_ema']}"
+          f" predicted_ms={mo['predicted_ms']}; drop EMA by step "
+          f"{[round(v, 4) for v in emas]} (drop_high "
+          f"{ctl.ccfg.drop_high}); host step_ms {host}; device step_ms "
+          f"before={dev['before']:.3f} after={dev['after']:.3f} (CUDA "
+          f"events); launches before the morph (steps 0-{at - 1}) "
+          f"{before}, after (steps {at}-11) {after}; B1 on every step with "
+          f"the skew as its logit bias, against router_plain armed alike "
+          f"on the run's first gate input {tuple(first.inputs[0].shape)}: "
+          f"ids exact, max_abs_err={skew_err:.3g} ({gpu_line()})")
+    os.makedirs(CONTROLLER_OBS, exist_ok=True)
+    rec.export_jsonl(os.path.join(CONTROLLER_OBS, "morph_flight.jsonl"))
+    dump_jsonl(os.path.join(CONTROLLER_OBS, "morph_decisions.jsonl"),
+               mx.decisions)
+    del state
+    torch.cuda.empty_cache()
+    return host[:at], host[at:]
+
+
+def replaced_equal(before, after, perm) -> int:
+    """Every MoE leaf of the parameters and of both AdamW moments after
+    the re-placement equals the leaf before it indexed by ``perm``, bit
+    for bit (``gate_w`` by its columns); returns the leaves checked."""
+    idx = torch.tensor(perm, device="cuda")
+    n = 0
+    for b_tree, a_tree in ((before.params, after.params),
+                           (before.opt_state.mu, after.opt_state.mu),
+                           (before.opt_state.nu, after.opt_state.nu)):
+        for lb, la in zip(b_tree["layers"], a_tree["layers"]):
+            for k, v in lb["moe"].items():
+                want = (v.index_select(v.ndim - 1, idx) if k == "gate_w"
+                        else v.index_select(0, idx))
+                check(torch.equal(la["moe"][k], want),
+                      f"replace: {k} not permuted bit for bit")
+                n += 1
+    return n
+
+
+def same_function(cfg, m, tokens, before, after, perm) -> dict:
+    """The state after a re-placement computes the function of the state
+    before it.  Each forward of ``tokens`` routes through B1 (unarmed):
+    the top-k of every MoE layer the same up to the permutation but at
+    near ties of the probabilities before it (``flips``; B1's bf16 logits
+    tie exactly now and then, and a tie breaks to the lower slot, which
+    the permutation moves).  Then both forwards again with the routing of
+    the one before replayed (mapped through the permutation), their
+    logits within ``REPLACE_NORMWISE_TOL`` normwise (``err``; the
+    unreplayed difference is ``err_own``)."""
+    idx = torch.tensor(perm, device="cuda")
+    inv = torch.argsort(idx)   # old expert -> its new slot
+    fwd, calls = {}, {}
+    for side, st in (("before", before), ("after", after)):
+        with RoutingLog() as rl, torch.no_grad():
+            fwd[side] = transformer.forward(st.params, tokens, cfg,
+                                            mesh=m)[0]
+        calls[side] = rl.calls
+        fwd[side + "_route"] = rl.per_position(cfg.num_layers,
+                                               tokens.shape[0], ranks=m.ep)
+    flips = 0
+    for (ib, pb), (ia, _) in zip(fwd["before_route"], fwd["after_route"]):
+        ib = ib.reshape(-1, ib.shape[-1])
+        ia = idx[ia.reshape(-1, ia.shape[-1])]
+        diff = (ib.sort(-1).values != ia.sort(-1).values).any(-1)
+        flips += int(diff.sum())
+        if diff.any():
+            top = pb.reshape(-1, pb.shape[-1])[diff].sort(
+                -1, descending=True).values
+            gaps = top[:, cfg.expert_top_k - 1] - top[:, cfg.expert_top_k]
+            check(bool((gaps <= REPLACE_NEAR_TIE).all()),
+                  f"replace: top-k differs off a near tie "
+                  f"({float(gaps.max()):.3g})")
+    replayed = {}
+    mapped = [(inv[ids], probs[:, idx]) for ids, probs in calls["before"]]
+    for side, st, rec in (("before", before, calls["before"]),
+                          ("after", after, mapped)):
+        with ReplayRouting(rec, cfg.expert_top_k, len(rec)), \
+                torch.no_grad():
+            replayed[side] = transformer.forward(st.params, tokens, cfg,
+                                                 mesh=m)[0]
+    err = normwise(replayed["after"], replayed["before"])
+    check(err <= REPLACE_NORMWISE_TOL, f"replace: forward {err} (perm "
+          f"{perm})")
+    return {"err": err, "flips": flips,
+            "err_own": normwise(fwd["after"], fwd["before"])}
+
+
+def controller_replace(paths, base_ms):
+    """``slow_device`` -> expert re-placement: ``train(controller=,
+    slo=)`` for 12 steps under a skew onto expert 0 (``SLOW_SKEW_BIAS``),
+    rank 0 probed at a quarter of the others' rate (the ``probe_rates``
+    seam) and each step stalled by ``SLOW_SLEEP_S`` x rank 0's load share
+    / its rate from step 3 (``wrap_step``).  Exactly one ``controller.replace`` carrying the
+    probed rates moves expert 0 off rank 0 (``replicate=False``: a pure
+    permutation); the state after it is the state before it permuted, bit
+    for bit, and computes the same function; the stall collapses, the
+    step EMA returns under ``slow_factor`` x the new baseline, and the
+    SLO watchdog records ``slo.recovered``."""
+    from flashmoe_tpu_torch.chaos import (FaultPlan, arm_plan, clear,
+                                          inject, wrap_step)
+    from flashmoe_tpu_torch.profiler.slo import SLOConfig, SLOWatchdog
+    from flashmoe_tpu_torch.runtime.controller import (ControllerConfig,
+                                                       RuntimeController)
+
+    cfg = controller_cfg()
+    m = mesh.local_mesh(4, device="cuda")
+    g, batch = controller_batch(cfg)
+    mx = Metrics()
+    # a pure permutation: a replica's victim slot keeps its router column,
+    # so the model after a replication computes another function for the
+    # tokens that column draws (the CPU tests cover replication)
+    ctl = RuntimeController(cfg, ControllerConfig(enable_morph=False,
+                                                  replicate=False),
+                            metrics=mx)
+    plan = FaultPlan("slow_device", step=3, duration=12,
+                     sleep_s=SLOW_SLEEP_S)
+
+    def load_share(i):
+        return ctl.device_load_share(0) / (SLOW_RATES[0] / max(SLOW_RATES))
+
+    tokens = batch["tokens"][:, :-1]
+    held = {}
+    apply = ctl.apply_action
+
+    def applied(act, st):
+        out = apply(act, st)
+        # checked at once, while both states exist (holding the old one
+        # through the rest of the run would not fit beside the steps)
+        held.update(act=act, leaves=replaced_equal(st, out, act.perm))
+        inject.disarm("skewed_routing")
+        held.update(same_function(cfg, m, tokens, st, out, act.perm))
+        # the skew follows the hot expert's function to its new column
+        inject.arm("skewed_routing", expert=list(act.perm).index(0),
+                   bias=SLOW_SKEW_BIAS)
+        return out
+
+    ctl.apply_action = applied
+    # the SLO's budget sits between the stalled and the re-placed step
+    budget = base_ms + SLOW_SLEEP_S * 1e3
+    wd = SLOWatchdog(SLOConfig(step_ms=budget, consecutive=3), mx)
+    rec = FlightRecorder()
+    arm_plan(FaultPlan("skew_sustained", step=0, duration=12, expert=0,
+                       bias=SLOW_SKEW_BIAS))
+    inject.arm("probe_rates", rates=SLOW_RATES)
+    try:
+        reset_counts()
+        with StepLaunches(wrap=lambda fn: wrap_step(
+                fn, plan, load_share=load_share)) as log:
+            state, hist = trainer.train(
+                cfg, itertools.repeat(batch), 12, generator=g,
+                log_every=1, mesh=m, controller=ctl, slo=wd, recorder=rec)
+        torch.cuda.synchronize()
+    finally:
+        clear()
+    counts = path_counts("controller replace", paths, log.summed(0, 12))
+    reps = [d for d in ctl.timeline
+            if d["decision"] == "controller.replace"]
+    check(len(reps) == 1 and "act" in held, f"replace: {ctl.timeline}")
+    rp, act = reps[0], held["act"]
+    at = rp["step"]
+    nlx = cfg.num_experts // 4
+    check(rp["rates"] == list(SLOW_RATES)
+          and list(act.perm).index(0) // nlx != 0,
+          f"replace: {rp}")
+    host = [h["step_ms"] for h in hist]
+    pre, post = host[plan.step:at], host[at:]
+    names = {d["decision"] for d in mx.decisions}
+    check(max(pre) > budget and min(post) < budget
+          and max(post[1:]) < min(pre),
+          f"replace: step ms before {pre} after {post} (budget {budget})")
+    check(ctl.step_ms_ema <= ctl.ccfg.slow_factor * ctl.baseline_ms,
+          f"replace: step EMA {ctl.step_ms_ema} vs baseline "
+          f"{ctl.baseline_ms}")
+    check({"slo.breach", "slo.recovered"} <= names,
+          f"replace: SLO decisions {sorted(names)}")
+    n_leaves, err, flips = held["leaves"], held["err"], held["flips"]
+    print(f"controller replace: mixtral_8x7b layers=2 B=4 T=257 ep=4 "
+          f"collective, skew on expert 0 (bias {SLOW_SKEW_BIAS}), "
+          f"probe_rates={SLOW_RATES}, "
+          f"slow_device stall {SLOW_SLEEP_S} s x rank 0's share / rate "
+          f"from step {plan.step}, SLO step budget {budget:.1f} ms: "
+          f"controller.replace at step {at} perm={rp['perm']} "
+          f"replicas={rp['replicas']} rates={rp['rates']} "
+          f"device_share_before={rp['device_share_before']} "
+          f"step_ms_ema={rp['step_ms_ema']} baseline_ms="
+          f"{rp['baseline_ms']}; host step_ms "
+          f"{[round(v, 3) for v in host]} (stalled steps before "
+          f"{[round(v, 1) for v in pre]}, after "
+          f"{[round(v, 1) for v in post]}); step EMA "
+          f"{ctl.step_ms_ema:.1f} vs slow_factor x baseline "
+          f"{ctl.ccfg.slow_factor * ctl.baseline_ms:.1f}; "
+          f"SLO {sorted(n for n in names if n.startswith('slo.'))}; "
+          f"{n_leaves} MoE leaves (params, mu, nu) permuted bit for bit; "
+          f"forward after vs before, the routing replayed, normwise="
+          f"{err:.3g} (tol {REPLACE_NORMWISE_TOL}; each routing its own "
+          f"{held['err_own']:.3g}), top-k flips={flips} (near ties <= "
+          f"{REPLACE_NEAR_TIE}); launches={counts} ({gpu_line()})")
+    rec.export_jsonl(os.path.join(CONTROLLER_OBS, "replace_flight.jsonl"))
+    dump_jsonl(os.path.join(CONTROLLER_OBS, "replace_decisions.jsonl"),
+               mx.decisions)
+    del state, held
+    torch.cuda.empty_cache()
+
+
+def controller_drills(paths):
+    """``run_matrix()`` on the card: every fault of the training ladder at
+    ``drill_config`` (f32), each under its own directory in
+    ``.chip_scratch/chaos/``; each recovers at its tier, reaches its last
+    step (6; 12 for the controller drills) and re-runs no step at tiers
+    0 and 1 and under the controller.  No drill but ``path_raise``
+    records a ``planner.fallback`` or leaves a failed backend behind
+    (read at each of its ``chaos.clear()`` calls, which forget them); the
+    ``path_raise`` drill's fallbacks all carry its injected reason.  The
+    fabric's faults are listed as waiting for the serving fabric.  The
+    drills run at ``drill_config``'s size: a functional ladder, whose
+    seconds are no recovery cost at a real width."""
+    from flashmoe_tpu_torch.chaos import EXPECTED_TIER, FAULTS
+    from flashmoe_tpu_torch.chaos import drill
+
+    root = os.path.join(HERE, ".chip_scratch", "chaos")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    old, tempfile.tempdir = tempfile.tempdir, root
+    # each drill's failed backends at each chaos.clear() it calls
+    failed, current = {}, [None]
+    run_drill, clear = drill.run_drill, drill.clear
+
+    def one(fault, **kw):
+        current[0] = fault
+        try:
+            return run_drill(fault, **kw)
+        finally:
+            current[0] = None
+
+    def watched_clear():
+        failed.setdefault(current[0], []).append(
+            sorted(pselect.failed_backends()))
+        clear()
+
+    drill.run_drill, drill.clear = one, watched_clear
+    try:
+        reset_counts()
+        results = drill.run_matrix(device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        tempfile.tempdir = old
+        drill.run_drill, drill.clear = run_drill, clear
+    counts = path_counts("controller drills", paths)
+    for r in results:
+        fb = [d for d in r.decisions if d["decision"] == "planner.fallback"]
+        if r.fault == "path_raise":
+            check(fb and all(str(d.get("reason")).startswith(
+                "chaos: injected path failure") for d in fb),
+                f"drill path_raise: fallbacks {fb}")
+        else:
+            check(not fb and not any(failed.get(r.fault, [])),
+                  f"drill {r.fault}: fallbacks {fb}, failed backends at "
+                  f"its clears {failed.get(r.fault)}")
+    for r in results:
+        want = 12 if r.expected_tier.startswith("controller") else 6
+        print(f"chaos {r.fault}: tier={r.expected_tier} recovered="
+              f"{r.recovered} final_step={r.final_step} steps_rerun="
+              f"{r.steps_rerun} wall_s={r.wall_s} evidence="
+              f"{r.evidence['decision_names']}"
+              + (f" reason={r.reason}" if r.reason else ""))
+        check(r.recovered and r.final_step == want,
+              f"drill {r.fault}: {r.reason} (final step {r.final_step})")
+        if r.expected_tier.startswith(("tier0", "tier1", "controller")):
+            check(r.steps_rerun == 0,
+                  f"drill {r.fault}: {r.steps_rerun} steps re-run")
+    for f in FAULTS:
+        if f not in drill.TRAINING_FAULTS:
+            print(f"chaos {f}: tier={EXPECTED_TIER[f]} waits for "
+                  f"'Serving fabric'")
+    print(f"chaos matrix: {len(results)} faults recovered at their tier, "
+          f"wall_s={sum(r.wall_s for r in results):.2f} launches={counts} "
+          f"({gpu_line()})")
+    dump_jsonl(os.path.join(CONTROLLER_OBS, "drill_decisions.jsonl"),
+               [dict(d, fault=r.fault) for r in results
+                for d in r.decisions])
+    return results
+
+
+def controller_report(results):
+    """``python -m flashmoe_tpu_torch.observe`` in text and ``--json``
+    over the morph run's flight and decisions, the re-placement run's,
+    and the drills' decisions: the adaptation reports list the morph and
+    the re-placement with their before and after windows, the drills'
+    resilience report the ladder's events."""
+    runs = {"morph": ["morph_flight.jsonl", "morph_decisions.jsonl"],
+            "replace": ["replace_flight.jsonl", "replace_decisions.jsonl"],
+            "drills": ["drill_decisions.jsonl"]}
+    procs = {}
+    for name, files in runs.items():
+        paths_ = [os.path.join(CONTROLLER_OBS, f) for f in files]
+        for mode in ([], ["--json"]):
+            procs[name, bool(mode)] = subprocess.Popen(
+                [sys.executable, "-m", "flashmoe_tpu_torch.observe", *mode,
+                 *paths_], cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    out = {}
+    for key, proc in procs.items():
+        so, se = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"observe {key}: rc {proc.returncode} "
+              f"{se[-2000:]}")
+        out[key] = so
+    for name, act in (("morph", "controller.morph"),
+                      ("replace", "controller.replace")):
+        doc = json.loads(out[name, True])
+        tl = [t for t in doc["adaptation"]["timeline"]
+              if t["decision"] == act]
+        check(len(tl) == 1 and tl[0]["before"] and tl[0]["after"],
+              f"observe {name}: adaptation {doc['adaptation']}")
+        text = out[name, False]
+        check("self-healing controller:" in text,
+              f"observe {name}: {text[-2000:]}")
+        print(f"observe {name} (text):")
+        for line in text.splitlines():
+            if line.startswith(("self-healing", "  step", "    imbalance",
+                                "resilience", "drop rate")):
+                print(f"  {line}")
+    events = json.loads(out["drills", True])["resilience"]["events"]
+    want = {"trainer.grad_skip", "checkpoint.fallback", "planner.fallback",
+            "preempt.drain", "supervisor.resume", "postmortem.saved",
+            "slo.breach", "slo.recovered"}
+    check(want <= set(events), f"observe resilience: {events}")
+    check("resilience events:" in out["drills", False],
+          f"observe drills: {out['drills', False][-2000:]}")
+    tier0 = {r.fault: r.evidence.get("probe", {}).get("masked_experts")
+             for r in results if r.expected_tier.startswith("tier0")}
+    restores = [r.evidence.get("restores") for r in results
+                if r.fault == "slow_step"]
+    print(f"observe drills resilience events: {events}; tier 0 leaves no "
+          f"decision: masked experts in the drills' probe stats {tier0}; "
+          f"slow_step (tier2:timeout_retry) leaves none either: restores "
+          f"{restores}")
+
+
+def controller_phase(paths):
+    """The runtime controller on the card: tier 0 through the exchange,
+    ``skew_sustained`` -> morph, ``slow_device`` -> re-placement, the
+    drill matrix and the observe reports.  Returns the ``path_raise``
+    drill's ``planner.fallback`` decisions, which are deliberate."""
+    t0 = time.perf_counter()
+    controller_tier0(paths)
+    pre, _ = controller_morph(paths)
+    controller_replace(paths, min(pre))
+    results = controller_drills(paths)
+    controller_report(results)
+    print(f"controller phase_s={time.perf_counter() - t0:.2f}")
+    return [d for r in results if r.fault == "path_raise"
+            for d in r.decisions if d["decision"] == "planner.fallback"]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5239,11 +5902,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     runtime_phase(paths)
     planes_train_phase(paths)
-    # the SLO watchdog's demotion of the planes phase is deliberate (it
-    # checked and reset it); any other fallback fails the run
+    drilled = controller_phase(paths)
+    # the SLO watchdog's demotion of the planes phase and the path_raise
+    # drill's injected fallback are deliberate (each checked and reset);
+    # any other fallback fails the run
     fallbacks = [r for r in global_metrics.decisions
                  if r["decision"] == "planner.fallback"
-                 and not str(r.get("reason")).startswith("slo:")]
+                 and not str(r.get("reason")).startswith("slo:")
+                 and not any(r is d for d in drilled)]
     check(not fallbacks and not pselect.failed_backends(),
           f"planner fallbacks {fallbacks}, failed backends "
           f"{sorted(pselect.failed_backends())}")

@@ -34,7 +34,15 @@
 //   top-k and the tile's statistics; the last tile to finish adds the
 //   tiles' statistics and forms RouterOutput's fields as ops/gate.py's
 //   _finish does (normalised weights, i64 ids and counts, mean
-//   probabilities, aux and z losses), so a route is one launch.  Each
+//   probabilities, aux and z losses), so a route is one launch.
+// * An optional logit bias on one expert (bias_e >= 0) is added to that
+//   expert's merged logit before the softmax: the chaos harness's
+//   skewed_routing fault (chaos/inject.py poison_logits), which the plain
+//   router adds to its logits the same way.
+// * A probability under the smallest normal f32 is 0, as XLA and the TPU
+//   flush subnormals (ops/gate.py router_plain follows the same rule): at
+//   a logit gap past about 87 the top-k then ties at 0 and the lowest
+//   index wins, in the kernel and in the plain router alike.  Each
 //   last block resets its ticket, so the tickets stay zero between
 //   launches on a stream with no memset.  Every sum runs in a fixed order
 //   (where threads share a sum, each adds a fixed stride of terms in
@@ -181,7 +189,8 @@ struct GateOut {
 template <typename T, int NT>
 __global__ void __launch_bounds__(GTHREADS)
 gate_main(const T* __restrict__ x, const T* __restrict__ w, int S, int H,
-          int E, int K, int split, float z_coef, float* __restrict__ part,
+          int E, int K, int split, float z_coef, int bias_e, float bias,
+          float* __restrict__ part,
           unsigned* __restrict__ tickets, float* __restrict__ tile_probs,
           int* __restrict__ tile_cnt, float* __restrict__ tile_z,
           GateOut out) {
@@ -318,7 +327,7 @@ gate_main(const T* __restrict__ x, const T* __restrict__ w, int S, int H,
     }
     for (int off = tpe / 2; off; off >>= 1)
       v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (i < nel && sub == 0) lg[i] = v;
+    if (i < nel && sub == 0) lg[i] = i % E == bias_e ? v + bias : v;
   }
   __syncthreads();
 
@@ -341,7 +350,10 @@ gate_main(const T* __restrict__ x, const T* __restrict__ w, int S, int H,
       se += ex;
     }
     se = warp_sum(se);
-    for (int e = lane; e < E; e += 32) row[e] = row[e] / se;
+    for (int e = lane; e < E; e += 32) {
+      const float p = row[e] / se;  // subnormal -> 0 (FLT_MIN = 2^-126)
+      row[e] = p < __int_as_float(0x00800000) ? 0.f : p;
+    }
     __syncwarp();
     for (int kk = 0; kk < K; ++kk) {
       float bv = -1.f;  // probabilities are >= 0
@@ -465,8 +477,9 @@ gate_main(const T* __restrict__ x, const T* __restrict__ w, int S, int H,
 
 template <typename T, int NT>
 int gate_launch(const void* x, const void* w, int S, int H, int E, int K,
-                int split, float z_coef, float* scratch, unsigned* tickets,
-                const GateOut& out, cudaStream_t stream) {
+                int split, float z_coef, int bias_e, float bias,
+                float* scratch, unsigned* tickets, const GateOut& out,
+                cudaStream_t stream) {
   constexpr size_t smem = GateSmem<T, NT>::bytes;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -480,18 +493,19 @@ int gate_launch(const void* x, const void* w, int S, int H, int E, int K,
   int* tile_cnt = reinterpret_cast<int*>(tile_probs + (size_t)ntiles * E);
   float* tile_z = reinterpret_cast<float*>(tile_cnt + (size_t)ntiles * E);
   gate_main<T, NT><<<dim3(ntiles, split), GTHREADS, smem, stream>>>(
-      (const T*)x, (const T*)w, S, H, E, K, split, z_coef, part, tickets,
-      tile_probs, tile_cnt, tile_z, out);
+      (const T*)x, (const T*)w, S, H, E, K, split, z_coef, bias_e, bias,
+      part, tickets, tile_probs, tile_cnt, tile_z, out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int gate_dispatch(const void* x, const void* w, int S, int H, int E, int K,
-                  int split, float z_coef, float* scratch, unsigned* tickets,
-                  const GateOut& out, cudaStream_t stream) {
-#define FM_GATE(NT)                                                     \
-  return gate_launch<T, NT>(x, w, S, H, E, K, split, z_coef, scratch,  \
-                            tickets, out, stream)
+                  int split, float z_coef, int bias_e, float bias,
+                  float* scratch, unsigned* tickets, const GateOut& out,
+                  cudaStream_t stream) {
+#define FM_GATE(NT)                                                       \
+  return gate_launch<T, NT>(x, w, S, H, E, K, split, z_coef, bias_e, bias, \
+                            scratch, tickets, out, stream)
   if (E <= 8) FM_GATE(1);
   if (E <= 16) FM_GATE(2);
   if (E <= 32) FM_GATE(4);
@@ -508,17 +522,20 @@ int gate_dispatch(const void* x, const void* w, int S, int H, int E, int K,
 // Scratch f32 [split * S * E + 2 * nt * E + nt] with nt = ceil(S / 16)
 // (the partial logits, the tiles' probability sums, counts and z sums);
 // tickets u32 [nt + 1], zero on entry and left zero (launches that share
-// them run in stream order).  Needs S >= 1, H % 32 == 0, 1 <= split <= H /
-// (64 / sizeof(dtype)), E <= 256, K <= min(E, 32).
+// them run in stream order).  bias_e: the expert whose logit gets `bias`
+// added, or -1 for none.  Needs S >= 1, H % 32 == 0, 1 <= split <= H /
+// (64 / sizeof(dtype)), E <= 256, K <= min(E, 32), bias_e < E.
 extern "C" int fm_gate(int is_bf16, const void* x, const void* w, int S,
                        int H, int E, int K, int split, float z_coef,
-                       float* scratch, unsigned* tickets, float* combine,
+                       int bias_e, float bias, float* scratch,
+                       unsigned* tickets, float* combine,
                        long long* idx, long long* counts, float* probs_mean,
                        float* aux, float* z, cudaStream_t stream) {
   const fm::GateOut out{combine, idx, counts, probs_mean, aux, z};
   if (is_bf16)
     return fm::gate_dispatch<fm::bf16>(x, w, S, H, E, K, split, z_coef,
-                                       scratch, tickets, out, stream);
-  return fm::gate_dispatch<float>(x, w, S, H, E, K, split, z_coef, scratch,
-                                  tickets, out, stream);
+                                       bias_e, bias, scratch, tickets, out,
+                                       stream);
+  return fm::gate_dispatch<float>(x, w, S, H, E, K, split, z_coef, bias_e,
+                                  bias, scratch, tickets, out, stream);
 }

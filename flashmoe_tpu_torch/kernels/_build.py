@@ -38,10 +38,10 @@ I = ctypes.c_int
 
 # C signatures: name -> argtypes (restype is always int, a cudaError_t)
 SIGNATURES = {
-    # dtype_is_bf16, x, w, S, H, E, K, split, z_coef, scratch, tickets,
-    # combine, idx, counts, probs_mean, aux, z, stream
-    "fm_gate": [I, P, P, I, I, I, I, I, ctypes.c_float, P, P, P, P, P, P, P,
-                P, P],
+    # dtype_is_bf16, x, w, S, H, E, K, split, z_coef, bias_e, bias,
+    # scratch, tickets, combine, idx, counts, probs_mean, aux, z, stream
+    "fm_gate": [I, P, P, I, I, I, I, I, ctypes.c_float, I, ctypes.c_float,
+                P, P, P, P, P, P, P, P, P],
     # dtype_is_bf16, gated, act, x, tile_gid, block_m, num_rows, w_up,
     # w_gate, b_up, w_down, b_down, hidden, out, plan, T, H, I, E, grid,
     # stream

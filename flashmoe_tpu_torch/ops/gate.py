@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from flashmoe_tpu_torch.chaos import inject as chaos_inject
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import dot_f32, top_k_lowest_index
@@ -90,9 +91,19 @@ def _finish(cfg: MoEConfig, top_p, top_idx, probs_sum, counts, zsum,
 
 
 def router_plain(x, gate_w, cfg: MoEConfig) -> RouterOutput:
-    """Router in plain torch (``router_xla``). x: [S, H], gate_w: [H, E]."""
+    """Router in plain torch (``router_xla``). x: [S, H], gate_w: [H, E].
+    An armed ``skewed_routing`` point biases its logits (the chaos seam,
+    ``gate.py:85-88``), as the gate kernel adds its bias operand."""
     logits = dot_f32(x, gate_w)
+    if chaos_inject.is_armed("skewed_routing"):
+        logits = chaos_inject.poison_logits(logits)
     probs = torch.softmax(logits, dim=-1)
+    # the gate's rule for subnormals, the gate kernel's too (csrc/gate.cu):
+    # XLA and the TPU flush them, so a probability under the smallest
+    # normal f32 (a logit gap past ~87, as a skewed router's) is 0, and
+    # its top-k ties break to the lowest index
+    probs = torch.where(probs < torch.finfo(probs.dtype).tiny,
+                        torch.zeros_like(probs), probs)
     top_p, top_idx = top_k_lowest_index(probs, cfg.expert_top_k)
     counts = torch.bincount(top_idx.reshape(-1),
                             minlength=cfg.num_experts)
@@ -149,13 +160,16 @@ def gate_args(x, gate_w, cfg: MoEConfig):
     """The arguments of one launch of the gate kernel (``fm_gate``) on
     checked CUDA tensors of one dtype, with its outputs and scratch made
     here: ``(args, RouterOutput, scratch)``.  The kernel writes every field
-    of the RouterOutput as :func:`_finish` forms them, in f32.  The launch
+    of the RouterOutput as :func:`_finish` forms them, in f32.  An armed
+    ``skewed_routing`` point becomes the launch's logit bias
+    (:func:`flashmoe_tpu_torch.chaos.inject.logit_bias`).  The launch
     takes the kernel's ticket counters, so launches on one device run in
     one stream's order."""
     s, h = x.shape
     e, k = cfg.num_experts, cfg.expert_top_k
     dev = x.device
     tiles, split = gate_split(s, h, e, x.dtype)
+    bias_e, bias = chaos_inject.logit_bias(e) or (-1, 0.0)
     f32 = dict(dtype=torch.float32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     out = RouterOutput(
@@ -167,7 +181,7 @@ def gate_args(x, gate_w, cfg: MoEConfig):
     # the partial logits, the tiles' probability sums, counts and z sums
     scratch = torch.empty((split * s * e + tiles * (2 * e + 1),), **f32)
     args = (int(x.dtype == torch.bfloat16), x.data_ptr(), gate_w.data_ptr(),
-            s, h, e, k, split, float(cfg.router_z_loss_coef),
+            s, h, e, k, split, float(cfg.router_z_loss_coef), bias_e, bias,
             scratch.data_ptr(), _tickets(dev, tiles + 1).data_ptr(),
             *(t.data_ptr() for t in out), _build.stream_of(x))
     return args, out, scratch
@@ -176,6 +190,8 @@ def gate_args(x, gate_w, cfg: MoEConfig):
 def router_cuda(x, gate_w, cfg: MoEConfig) -> RouterOutput:
     """The gate kernel (``csrc/gate.cu``) on CUDA tensors: one launch,
     which also forms the losses and normalised weights of :func:`_finish`.
+    An armed ``skewed_routing`` point biases its logits in the kernel, as
+    :func:`router_plain` biases its own.
 
     x: [S, H] and gate_w: [H, E], bf16 or f32.  When the two dtypes differ
     both are upcast to f32, which is exact, as the JAX router computes in
@@ -654,12 +670,27 @@ def router(x, gate_w, cfg: MoEConfig, use_kernels: bool | None = None
     gate, kernels on CUDA tensors and their plain version on CPU ones, with
     pass 2 as :func:`tiled_need_stats` decides.  Beyond that,
     :func:`router_plain`, as JAX takes ``router_xla`` (gate.py:554-557): a
-    choice made from the configuration alone."""
+    choice made from the configuration alone.
+
+    An armed ``skewed_routing`` chaos point biases the single-tile gate's
+    logits, in the kernel and in :func:`router_plain` alike.  The two-pass
+    gate takes no bias: while the point is armed, its configurations
+    route through :func:`router_plain` on CPU tensors, as JAX routes
+    through ``router_xla`` then (gate.py:538-545), and raise on CUDA
+    tensors."""
     uk = _build.use_kernels_for(x, use_kernels)
     e, k = cfg.num_experts, cfg.expert_top_k
     if e <= GATE_MAX_EXPERTS and k <= GATE_MAX_TOP_K:
         out = RouterOutput(*_RouterAD.apply(x, gate_w, cfg, router_cuda)) \
             if uk else router_plain(x, gate_w, cfg)
+    elif 2 * k <= TILED_MAX_MERGE and chaos_inject.is_armed(
+            "skewed_routing"):
+        if uk:
+            raise NotImplementedError(
+                f"skewed_routing at E={e}: the two-pass gate kernels take "
+                f"no logit bias (the single-tile gate takes E <= "
+                f"{GATE_MAX_EXPERTS})")
+        out = router_plain(x, gate_w, cfg)
     elif 2 * k <= TILED_MAX_MERGE:
         fn = functools.partial(
             router_tiled_cuda if uk else router_tiled_plain,

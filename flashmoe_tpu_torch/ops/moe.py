@@ -13,7 +13,9 @@ arms skip the dispatch buffer: the gather-fused FFN reads each row from
 the tokens through the plan's map (``ops/expert.py``).  With
 ``collect_stats`` the output carries the layer's :class:`MoEStats`, and
 with ``degrade_unhealthy_experts`` a non-finite expert's contribution is
-masked before the combine (``ops/health.py``).
+masked before the combine (``ops/health.py``).  An armed ``nan_expert``
+chaos point poisons the capacity arm's expert outputs before that mask
+(``flashmoe_tpu/ops/moe.py:158-161``).
 
 Quantized expert storage (``cfg.expert_quant``, :mod:`flashmoe_tpu_torch.
 quant`) enters at the layer boundary, as ``flashmoe_tpu/ops/moe.py:77-90``:
@@ -43,6 +45,7 @@ from typing import Any, NamedTuple
 import torch
 
 from flashmoe_tpu_torch import quant as qt
+from flashmoe_tpu_torch.chaos import inject as chaos_inject
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import (activation_fn, dot_f32,
@@ -148,6 +151,8 @@ def moe_layer(params, x, cfg: MoEConfig, *, use_kernels: bool | None = None
             xbuf = dsp.dispatch(xs, plan, cfg, cap)
             ybuf = exp.capacity_buffer_ffn_ad(xbuf, params, cfg,
                                               use_kernels=uk)
+        if chaos_inject.is_armed("nan_expert"):
+            ybuf = chaos_inject.poison_expert(ybuf)
         if cfg.degrade_unhealthy_experts:
             # dsp.combine renormalizes the surviving weights itself
             healthy = hlt.expert_health_capacity(ybuf)

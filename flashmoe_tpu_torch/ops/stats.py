@@ -180,3 +180,51 @@ def stats_to_host(stats: MoEStats) -> dict:
     out = {name: float(v) for name, v in zip(MoEStats._fields, host)
            if name != "expert_load"}
     return {"expert_load": host.expert_load.double().tolist(), **out}
+
+
+def speculation_summary(records) -> dict:
+    """Aggregate speculative-decoding acceptance stats from flight records.
+
+    Counterpart of ``flashmoe_tpu/ops/stats.py:281``, the host-side
+    consumer twin of ``serving.speculate.spec_stats_fields``:
+    the engine folds per-slot counters into ``serve_request`` records and
+    per-step ``spec_tokens``/``spec_on`` into step records; this reduces a
+    recorder dump (or any iterable of such dicts) back into one summary the
+    report surfaces (``observe.py``'s serving report) can print without
+    re-deriving engine internals.
+    """
+    drafted = 0
+    accepted = 0
+    requests = 0
+    spec_steps = 0
+    steps_on = 0
+    extra = 0
+    morphs = 0
+    for rec in records:
+        kind = rec.get("kind")
+        if kind == "serve_request" and "spec_drafted" in rec:
+            requests += 1
+            drafted += int(rec.get("spec_drafted") or 0)
+            accepted += int(rec.get("spec_accepted") or 0)
+        elif kind == "serve_step" and "spec_tokens" in rec:
+            if rec.get("spec_on"):
+                steps_on += 1
+            n = int(rec.get("spec_tokens") or 0)
+            if n > 0:
+                spec_steps += 1
+                extra += n
+        elif "controller.spec_morph" in (rec.get("decision"),
+                                         rec.get("name")):
+            morphs += 1
+    rate = (accepted / drafted) if drafted else 0.0
+    per_step = 1.0 + extra / spec_steps if spec_steps else 1.0
+    return {
+        "spec_requests": requests,
+        "spec_drafted": drafted,
+        "spec_accepted": accepted,
+        "accept_rate": round(rate, 6),
+        "spec_tokens_per_step": round(per_step, 6),
+        "spec_steps": spec_steps,
+        "steps_spec_on": steps_on,
+        "spec_morphs": morphs,
+    }

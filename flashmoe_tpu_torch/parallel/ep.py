@@ -44,6 +44,10 @@ column-parallel slice of ``w_up``/``w_gate``/``b_up`` and row-parallel
 slice of ``w_down`` (one contiguous copy each for the call), each tp rank
 adds ``b_down / tp``, and the FFN's output is summed over the tp group
 after every FFN call (the serial slab, or each ``a2a_chunks`` chunk).
+
+An armed ``nan_expert`` chaos point poisons the armed expert's rows at
+its owner, before the return exchange, serial or chunked
+(``flashmoe_tpu/parallel/ep.py:333-337, 382-390``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from flashmoe_tpu_torch import quant as qt
+from flashmoe_tpu_torch.chaos import inject as chaos_inject
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.kernels import _build
 from flashmoe_tpu_torch.models.reference import shared_expert_ffn
@@ -243,6 +248,13 @@ def _ep_moe_shard(mesh, params: list, xs: list, cfg: MoEConfig, *,
             ys = mesh.tp_psum(ys)
             if cfg.profile_phases:
                 prof.fence(ys)
+        if chaos_inject.is_armed("nan_expert"):
+            # poison before the return exchange, at the owner of the
+            # armed global expert: the NaN crosses the wire (compression
+            # included) before the health mask sees it
+            ys = chaos_inject.poison_local_expert(
+                ys, [mesh.coord(r, "ep") for r in mesh.ranks], e,
+                local_offset=lo, local_total=nlx)
         with span("moe.a2a_combine", ck):
             ysend = [y.reshape(nc, d, cap, h).transpose(0, 1) for y in ys]
             for errs, wd in ((comb_errs, wire_comb), (dcn_errs, wire_dcn)):

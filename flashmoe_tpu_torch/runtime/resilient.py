@@ -35,8 +35,10 @@ budgets (sustained breaches demote a path), ``telemetry_port`` serves
 ``postmortem_dir`` receives a crash bundle
 (:mod:`flashmoe_tpu_torch.profiler.postmortem`) when recovery gives up.
 With a profiler timeline armed each step is a timeline step and the
-loop's host work its sections.  The runtime controller (``controller``,
-``ResilienceConfig.adapt``) is refused, naming its ROADMAP item.  The
+loop's host work its sections.  A runtime controller (``controller``,
+or ``ResilienceConfig.adapt`` under :func:`supervise`) observes every
+successful step and may act at a step boundary; each action is made
+durable at once, its plan in the checkpoint's manifest.  The
 port's step returns new tensors and never donates its input, so the
 state before the first checkpoint is kept by reference, not as a host
 copy.
@@ -59,19 +61,6 @@ from flashmoe_tpu_torch.runtime import checkpoint as ckpt
 from flashmoe_tpu_torch.runtime.trainer import TrainState
 from flashmoe_tpu_torch.tree import tree_leaves
 from flashmoe_tpu_torch.utils.telemetry import Metrics, trace_span
-
-_PLANES = "Host-side planes"
-
-
-def refuse_planes(**kw) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for each
-    host-side plane argument that is set."""
-    for name, val in kw.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet: it waits for the ROADMAP item "
-                f"'{_PLANES}'")
-
 
 class StepFailure(RuntimeError):
     """Unrecoverable training failure.  Instances raised by
@@ -97,11 +86,9 @@ class ResilienceConfig:
     verify_checkpoints: bool = True   # checksum-verify before restore
     emergency_save: bool = True       # persist the last good state on abort
     async_save: bool = False          # periodic saves off the step loop
-    # the runtime controller's config (Host-side planes): refused
+    # the runtime controller: a ControllerConfig arms one that
+    # supervise() builds and owns; None keeps the loop without one
     adapt: object | None = None
-
-    def __post_init__(self):
-        refuse_planes(**{"ResilienceConfig.adapt": self.adapt})
 
 
 def _block_until_ready(out) -> None:
@@ -222,7 +209,8 @@ def resilient_train(state: TrainState, step_fn: Callable,
                     fail_injector: Callable | None = None,
                     preempt=None, slo=None,
                     postmortem_dir: str | None = None, cfg=None,
-                    controller=None, telemetry_port: int | None = None):
+                    controller=None, rebuild_step: Callable | None = None,
+                    telemetry_port: int | None = None):
     """Run ``num_steps`` with detection and restore-and-retry recovery.
 
     ``step_fn(state, batch) -> (state, metrics)``, e.g. from
@@ -241,15 +229,24 @@ def resilient_train(state: TrainState, step_fn: Callable,
     ``postmortem_dir``: when recovery gives up, a postmortem bundle is
     written there (flight history, decisions, ``cfg`` when given, env,
     traceback) and its path set on the raised error's
-    ``postmortem_bundle``.  ``controller`` raises ``NotImplementedError``
-    ("Host-side planes").
+    ``postmortem_bundle``.
+
+    ``controller``: a :class:`~flashmoe_tpu_torch.runtime.controller.
+    RuntimeController` observes every successful step and may, at a step
+    boundary, morph the path or re-place experts.
+    ``rebuild_step(overrides) -> step_fn`` rebuilds the step with the
+    controller's accumulated ``MoEConfig.replace`` overrides
+    (:func:`supervise` provides one); without it, actions that need a
+    rebuild are not offered.  Every action forces a checkpoint whose
+    manifest carries the controller's plan, and every restore reloads
+    the plan the restored state was saved under (rebuilding the step
+    when it differs).
 
     Returns (state, history).  Raises :class:`StepFailure` after
     ``max_retries`` consecutive failures of one step, after a best-effort
     emergency checkpoint of the last good state."""
     from flashmoe_tpu_torch.profiler.slo import as_watchdog
 
-    refuse_planes(controller=controller)
     rcfg = rcfg or ResilienceConfig()
     metrics = metrics or Metrics()
     watchdog = as_watchdog(slo)
@@ -262,8 +259,26 @@ def resilient_train(state: TrainState, step_fn: Callable,
 
         server = train_server(
             telemetry_port, cfg, num_steps=num_steps, progress=progress,
-            watchdog=watchdog, checkpoint_dir=rcfg.checkpoint_dir,
-            metrics_obj=metrics)
+            watchdog=watchdog, controller=controller,
+            checkpoint_dir=rcfg.checkpoint_dir, metrics_obj=metrics)
+
+    def _ctrl_state():
+        return controller.state_dict() if controller is not None else None
+
+    def _ctrl_resync(step: int):
+        # a restore landed on some step's params: the controller's plan
+        # (morph overrides, replica map) must be the one those params
+        # were saved under, and the step rebuilt onto it (budgets stay
+        # monotonic: a rewind never refills them)
+        nonlocal step_fn
+        if controller is None:
+            return
+        cs = ckpt.load_controller_state(rcfg.checkpoint_dir, step)
+        before = controller.cfg_overrides
+        controller.load_state_dict(cs or {})
+        if rebuild_step is not None \
+                and controller.cfg_overrides != before:
+            step_fn = rebuild_step(controller.cfg_overrides)
 
     # resume if a checkpoint exists
     start = ckpt.latest_step(rcfg.checkpoint_dir)
@@ -271,6 +286,7 @@ def resilient_train(state: TrainState, step_fn: Callable,
         state = ckpt.restore(rcfg.checkpoint_dir, state,
                              check_integrity=rcfg.verify_checkpoints)
         metrics.count("resumes")
+        _ctrl_resync(int(state.step))
         # the restore may have fallen back to an older intact step
         if ckpt.restore_loader_state(rcfg.checkpoint_dir,
                                      int(state.step), data_iter):
@@ -298,7 +314,8 @@ def resilient_train(state: TrainState, step_fn: Callable,
                     ckpt.wait_for_saves()
                     if ckpt.latest_step(rcfg.checkpoint_dir) != i:
                         ckpt.save(rcfg.checkpoint_dir, state, step=i,
-                                  loader_state=replay.loader_state_for(i))
+                                  loader_state=replay.loader_state_for(i),
+                                  controller_state=_ctrl_state())
                         metrics.count("checkpoints")
                 metrics.count("preempt_drains")
                 metrics.decision(
@@ -344,7 +361,8 @@ def resilient_train(state: TrainState, step_fn: Callable,
                     if rcfg.emergency_save:
                         saved = ckpt.emergency_save(
                             rcfg.checkpoint_dir, state,
-                            loader_state=replay.loader_state_for(i))
+                            loader_state=replay.loader_state_for(i),
+                            controller_state=_ctrl_state())
                         if saved is not None:
                             metrics.count("emergency_saves")
                     raise StepFailure(
@@ -359,6 +377,7 @@ def resilient_train(state: TrainState, step_fn: Callable,
                             rcfg.checkpoint_dir, template,
                             check_integrity=rcfg.verify_checkpoints,
                             device=device)
+                        _ctrl_resync(int(state.step))
                     except ckpt.CheckpointCorruptionError as ce:
                         if safe_state is None:
                             if rcfg.emergency_save:
@@ -383,6 +402,8 @@ def resilient_train(state: TrainState, step_fn: Callable,
             metrics.times["step"].append(step_s)
             if watchdog is not None:
                 watchdog.observe_step(i, step_s * 1e3, phases=step_phases)
+            if controller is not None:
+                controller.observe_step(i, step_s * 1e3, m)
             rec = scalar_metrics(m)
             if rec.get("grad_ok", 1.0) == 0.0:
                 # the guard skipped this step's update on the device
@@ -392,12 +413,28 @@ def resilient_train(state: TrainState, step_fn: Callable,
                                  grad_norm_ema=rec.get("grad_norm_ema"))
             history.append(rec)
             i += 1
-            if i % rcfg.checkpoint_every == 0 or i == num_steps:
+            force_ckpt = False
+            if controller is not None:
+                # the decision point: a morph rebuilds the step on the
+                # accumulated overrides; a re-placement permutes the
+                # live state (and rebuilds, with a replica).  The action
+                # is made durable at once: the next restore must see
+                # params and plan from the same side of it
+                act = controller.maybe_act(
+                    i, can_rebuild=rebuild_step is not None)
+                if act is not None:
+                    state = controller.apply_action(act, state)
+                    if act.needs_rebuild and rebuild_step is not None:
+                        step_fn = rebuild_step(controller.cfg_overrides)
+                    force_ckpt = True
+            if i % rcfg.checkpoint_every == 0 or i == num_steps \
+                    or force_ckpt:
                 with trace_span("train.checkpoint"), \
                         prof.section("train.checkpoint", step=i):
                     ckpt.save(rcfg.checkpoint_dir, state, step=i,
-                              blocking=not rcfg.async_save,
-                              loader_state=replay.loader_state_for(i))
+                              blocking=not rcfg.async_save or force_ckpt,
+                              loader_state=replay.loader_state_for(i),
+                              controller_state=_ctrl_state())
                 ckpt_boundaries.append(i)
                 durable = ckpt.latest_step(rcfg.checkpoint_dir)
                 # drop the in-memory recovery point once a checkpoint is
@@ -468,20 +505,36 @@ def supervise(cfg, data_factory: Callable, num_steps: int,
     :func:`resilient_train`; a supervisor-level death (incarnations
     exhausted, refusing to spin) writes its own bundle.
     ``telemetry_port``: one scrape server for the whole job, re-pointed
-    at each incarnation's config and mesh.  ``controller`` and
-    ``rcfg.adapt`` raise ``NotImplementedError``.  Returns (state,
-    history), history over all incarnations."""
+    at each incarnation's config and mesh.
+
+    ``controller``: a prebuilt :class:`~flashmoe_tpu_torch.runtime.
+    controller.RuntimeController`, or one armed by ``rcfg.adapt`` (a
+    :class:`~flashmoe_tpu_torch.runtime.controller.ControllerConfig`),
+    which the supervisor owns and re-targets to each incarnation's folded
+    config (spent budgets and plan carried over).  Each resumed
+    incarnation restores the plan from the checkpoint's manifest,
+    builds its step on the plan's overrides and hands
+    :func:`resilient_train` the rebuild.  A resume onto a new
+    incarnation also clears the planner's demoted paths
+    (``controller.demotion_reset``): a demotion earned by the dead
+    incarnation must not outlive it.  Returns (state, history), history
+    over all incarnations."""
     from flashmoe_tpu_torch.runtime.elastic import (elastic_resume,
                                                     fold_parallelism,
                                                     train_mesh)
     from flashmoe_tpu_torch.profiler.slo import as_watchdog
+    from flashmoe_tpu_torch.planner.select import (failed_backends,
+                                                   reset_path_failures)
     from flashmoe_tpu_torch.runtime.trainer import (init_state,
                                                     make_optimizer,
                                                     make_train_step)
 
-    refuse_planes(controller=controller)
     rcfg = rcfg or ResilienceConfig()
     metrics = metrics or Metrics()
+    # a controller built from rcfg.adapt is owned by the supervisor and
+    # re-targeted to every incarnation below (a prebuilt one is the
+    # caller's)
+    own_controller = controller is None and rcfg.adapt is not None
     history: list = []
     restarts = 0
     incarnation = 0
@@ -521,6 +574,7 @@ def supervise(cfg, data_factory: Callable, num_steps: int,
                 bundle(e)
                 raise e
             world = _world(devices_fn()) if devices_fn is not None else 1
+            resumed_step = None
             if ckpt.latest_step(rcfg.checkpoint_dir) is not None:
                 state, mesh, fcfg, opt = elastic_resume(
                     cfg, rcfg.checkpoint_dir, devices=world, guard=guard,
@@ -529,21 +583,55 @@ def supervise(cfg, data_factory: Callable, num_steps: int,
                     "supervisor.resume", incarnation=incarnation,
                     step=int(state.step), world=world, ep=fcfg.ep,
                     dp=fcfg.dp)
+                # the dead incarnation's path demotions describe a world
+                # that may be gone: the planner re-evaluates every path
+                stale = sorted(failed_backends())
+                if stale:
+                    reset_path_failures()
+                    metrics.decision(
+                        "controller.demotion_reset",
+                        incarnation=incarnation, world=world, ep=fcfg.ep,
+                        dp=fcfg.dp, dropped=stale)
+                resumed_step = int(state.step)
             else:
                 fcfg = fold_parallelism(cfg, world)
                 mesh = train_mesh(fcfg, world, device)
                 opt = make_optimizer(fcfg, total_steps=num_steps)
                 gen = torch.Generator(device=device).manual_seed(seed)
                 state = init_state(gen, fcfg, opt, guard=guard)
+            if own_controller:
+                # re-target the controller to this incarnation's folded
+                # world (placement math and morph re-selection describe
+                # what runs); the plan and spent budgets carry over, and
+                # the manifest below pins the plan to the resumed params
+                from flashmoe_tpu_torch.runtime.controller import (
+                    RuntimeController)
+
+                prev = controller
+                controller = RuntimeController(fcfg, rcfg.adapt,
+                                               metrics=metrics,
+                                               device=device)
+                if prev is not None:
+                    controller.load_state_dict(prev.state_dict())
+            if controller is not None and resumed_step is not None:
+                cs = ckpt.load_controller_state(rcfg.checkpoint_dir,
+                                                resumed_step)
+                controller.load_state_dict(cs or {})
             data = data_factory(fcfg)
             if ckpt.restore_loader_state(rcfg.checkpoint_dir,
                                          int(state.step), data):
                 metrics.count("loader_restores")
-            step_fn = make_train_step(fcfg, opt, guard=guard,
-                                      use_kernels=use_kernels, mesh=mesh)
-            if step_wrapper is not None:
-                step_fn = step_wrapper(step_fn)
-            tbox.update(cfg=fcfg, mesh=mesh,
+
+            def build_step(overrides: dict, _fcfg=fcfg, _mesh=mesh,
+                           _opt=opt):
+                scfg = _fcfg.replace(**overrides) if overrides else _fcfg
+                sf = make_train_step(scfg, _opt, guard=guard,
+                                     use_kernels=use_kernels, mesh=_mesh)
+                return step_wrapper(sf) if step_wrapper is not None else sf
+
+            step_fn = build_step(
+                controller.cfg_overrides if controller is not None else {})
+            tbox.update(cfg=fcfg, mesh=mesh, controller=controller,
                         health={"incarnation": incarnation,
                                 "restarts": restarts, "world": world})
             incarnation += 1
@@ -552,7 +640,8 @@ def supervise(cfg, data_factory: Callable, num_steps: int,
                     state, step_fn, data, num_steps, rcfg=rcfg,
                     metrics=metrics, fail_injector=fail_injector,
                     preempt=preempt, slo=watchdog,
-                    postmortem_dir=postmortem_dir, cfg=fcfg)
+                    postmortem_dir=postmortem_dir, cfg=fcfg,
+                    controller=controller, rebuild_step=build_step)
                 history.extend(hist)
             except StepFailure as e:
                 # in-job recovery exhausted: the scheduler would restart

@@ -96,7 +96,24 @@ def device_rates(cfg: MoEConfig, n_devices: int, *,
                  trials: int = 2, fresh: bool = False, device="cuda"):
     """Per-rank throughput ``[n_devices]`` (experts per ms): the process's
     device probed once, its reading repeated for every virtual rank (they
-    share it).  ``fresh`` drops the cached reading first."""
+    share it).  ``fresh`` drops the cached reading first.  The runtime
+    controller's default ``rates_fn`` on its slow-device trigger.
+
+    Chaos seam (``flashmoe_tpu/runtime/throughput.py:119-133``): an armed
+    ``probe_rates`` point (:mod:`flashmoe_tpu_torch.chaos.inject`)
+    supplies the reading a degraded device would give, without probing:
+    ranks past the armed rates repeat its last one.  The virtual ranks of
+    one card share one reading, so a slow rank shows only through this
+    seam, which the ``slow_device`` drill reads."""
+    from flashmoe_tpu_torch.chaos import inject
+
+    if inject.is_armed("probe_rates"):
+        armed = np.asarray(
+            inject.spec("probe_rates").get("rates", ()), dtype=np.float64)
+        if armed.size:
+            out = np.ones(n_devices, dtype=np.float64) * armed[-1]
+            out[:min(n_devices, armed.size)] = armed[:n_devices]
+            return out
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

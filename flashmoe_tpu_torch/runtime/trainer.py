@@ -9,8 +9,8 @@ layers' tokens over (dp, ep[, sp]), attention over sp.
 :func:`state_shardings` gives the train state's placement specs, JAX's
 for JAX's.  :func:`train` has JAX's flight recorder, its
 ``trainer.step_ms`` histogram and its ``trainer.grad_skip`` decision
-(``trainer.py:248-395``), its SLO watchdog, scrape server and profiler
-sections; the runtime controller raises ``NotImplementedError``.  The
+(``trainer.py:248-395``), its SLO watchdog, scrape server, profiler
+sections and runtime controller.  The
 optimizer is optax's chain written out as plain functions on tensors,
 so that it can be held against optax step for step:
 ``clip_by_global_norm(1.0)``, then ``adamw`` over
@@ -29,6 +29,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from flashmoe_tpu_torch.chaos import inject as chaos_inject
 from flashmoe_tpu_torch.config import MoEConfig
 from flashmoe_tpu_torch.models import transformer
 from flashmoe_tpu_torch.ops.stats import stats_to_host
@@ -252,6 +253,9 @@ def make_train_step(cfg: MoEConfig, optimizer: Optimizer,
     def step_fn(state: TrainState, batch):
         loss, metrics, grads = transformer.value_and_grad(
             state.params, batch, cfg, use_kernels, mesh=mesh)
+        if (chaos_inject.is_armed("nan_grad")
+                or chaos_inject.is_armed("grad_spike")):
+            grads = chaos_inject.poison_grads(grads, state.step)
         gnorm = global_norm(grads)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
         if guard is None:
@@ -347,13 +351,18 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
     loop's duration.  With a profiler timeline armed
     (:func:`flashmoe_tpu_torch.profiler.spans.profiling`) the loop's host
     work is recorded as ``train.data_pull`` / ``train.step`` sections and
-    each timed step as a timeline step.  ``controller`` raises
-    ``NotImplementedError`` ("Host-side planes")."""
+    each timed step as a timeline step.
+
+    ``controller``: a :class:`~flashmoe_tpu_torch.runtime.controller.
+    RuntimeController` observes every step (each is then timed) and, at
+    each step boundary, may act: a re-placement permutes the live state,
+    and an action that needs it rebuilds the step with
+    ``cfg.replace(**controller.cfg_overrides)``.  This loop writes no
+    checkpoint, so its plan is not durable: ``resilient_train`` and
+    ``supervise`` keep it in their manifests."""
     from flashmoe_tpu_torch.profiler import spans as prof
     from flashmoe_tpu_torch.profiler.slo import as_watchdog
-    from flashmoe_tpu_torch.runtime.resilient import refuse_planes
 
-    refuse_planes(controller=controller)
     optimizer = make_optimizer(cfg, total_steps=num_steps)
     if state is None:
         if generator is None:
@@ -373,7 +382,7 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
 
         server = train_server(telemetry_port, cfg, mesh,
                               num_steps=num_steps, progress=progress,
-                              watchdog=watchdog)
+                              watchdog=watchdog, controller=controller)
     try:
         for i in range(num_steps):
             progress["step"] = i
@@ -382,7 +391,7 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
             log_step = i % log_every == 0 or i == num_steps - 1
             tl = prof.active()
             if recorder is None and not log_step and watchdog is None \
-                    and tl is None:
+                    and tl is None and controller is None:
                 with prof.section("train.step", step=i):
                     state, metrics = step(state, batch)
                 continue
@@ -398,6 +407,19 @@ def train(cfg: MoEConfig, data_iter, num_steps: int,
             _telemetry.histogram("trainer.step_ms", rec["step_ms"])
             if watchdog is not None:
                 watchdog.observe_step(i, rec["step_ms"], phases=phases)
+            if controller is not None:
+                controller.observe_step(i, rec["step_ms"], metrics)
+                act = controller.maybe_act(i + 1)
+                if act is not None:
+                    # the action at the step boundary: permute the live
+                    # state (re-placement) and rebuild the step on the
+                    # controller's accumulated overrides where needed
+                    state = controller.apply_action(act, state)
+                    if act.needs_rebuild:
+                        step = make_train_step(
+                            cfg.replace(**controller.cfg_overrides),
+                            optimizer, guard=guard,
+                            use_kernels=use_kernels, mesh=mesh)
             if rec.get("grad_ok", 1.0) == 0.0:
                 _telemetry.decision("trainer.grad_skip", step=i,
                                     grad_norm=rec.get("grad_norm"),

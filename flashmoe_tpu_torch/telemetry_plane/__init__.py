@@ -11,8 +11,8 @@ Counterpart of ``flashmoe_tpu/telemetry_plane/``:
 * :mod:`~flashmoe_tpu_torch.telemetry_plane.server`: the ``/metrics``,
   ``/healthz`` and ``/vars`` scrape endpoints.
 
-JAX's ``regression`` module (the perf-regression sentry that its
-``bench.py`` and ``observe.py`` read) waits for the port's counterpart
-of ``observe.py`` (ROADMAP "Host-side planes").  Import the submodules
-directly; this ``__init__`` stays light.
+JAX's ``regression`` module (the perf-regression sentry over the run
+history its ``bench.py`` writes and ``observe.py --regression`` reads)
+waits for the port's benchmark (ROADMAP "The port's benchmark").  Import
+the submodules directly; this ``__init__`` stays light.
 """

@@ -56,6 +56,39 @@ def test_gate_kernel_matches_plain(gen, dtype, s, e, k):
     torch.testing.assert_close(got.z_loss, want.z_loss, rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("dtype,bias", [(torch.bfloat16, 100.0),
+                                        (torch.float32, 100.0),
+                                        (torch.bfloat16, 10.0)],
+                         ids=["bf16_gap100", "f32_gap100", "bf16_gap10"])
+def test_gate_kernel_under_skew_matches_plain(gen, dtype, bias):
+    """The armed ``skewed_routing`` bias, an operand of the kernel and
+    added to router_plain's logits.  At a logit gap past 87 (bias 100)
+    every other probability is subnormal, 0 in both (the gate's one rule),
+    so each token's second choice is the lowest other expert."""
+    from flashmoe_tpu_torch.chaos import inject
+
+    cfg = MoEConfig(num_experts=8, expert_top_k=2, hidden_size=256,
+                    router_z_loss_coef=0.1, dtype=dtype)
+    x = torch.randn(100, 256, device="cuda", generator=gen, dtype=dtype)
+    w = (torch.randn(256, 8, device="cuda", generator=gen) / 16).to(dtype)
+    inject.arm("skewed_routing", expert=3, bias=bias)
+    try:
+        got = gate.router_cuda(x, w, cfg)
+        want = gate.router_plain(x, w, cfg)
+    finally:
+        inject.disarm()
+    assert bool((got.expert_idx[:, 0] == 3).all())
+    if bias > 87:
+        assert bool((got.expert_idx[:, 1] == 0).all())
+    assert torch.equal(got.expert_idx, want.expert_idx)
+    assert torch.equal(got.expert_counts, want.expert_counts)
+    torch.testing.assert_close(got.combine_weights, want.combine_weights,
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.probs_mean, want.probs_mean, rtol=1e-5,
+                               atol=1e-7)
+    torch.testing.assert_close(got.z_loss, want.z_loss, rtol=1e-4, atol=0)
+
+
 @pytest.mark.parametrize("dtype,gated,act", [(torch.bfloat16, True, "silu"),
                                              (torch.float32, False, "gelu")],
                          ids=["bf16_swiglu", "f32_gelu"])

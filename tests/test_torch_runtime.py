@@ -1,13 +1,16 @@
 """PyTorch port: the bootstrap, the API facade, the throughput probe, the
 trainer's host hooks and the CLIs on the CPU.  ``get_bookkeeping`` and
 ``get_compiled_config`` against JAX's for the same config (the Decider
-off); the runtime controller's arguments name their ROADMAP item and the
+off); the runtime controller's keywords run under a sustained skew, the
 planes' (``slo``, ``telemetry_port``, ``postmortem_dir``, the Decider)
-run; three
+run, and the serving fabric's and the benchmark's refusals name their
+ROADMAP items; three
 subprocess runs: the worker CLI, ``run_moe(2)`` on gloo against a local
 mesh of 2, and ``train_cli --synthetic --device cpu``, whose summary has
 JAX's keys."""
 
+import contextlib
+import io
 import json
 import os
 import socket
@@ -75,20 +78,22 @@ def test_bookkeeping_and_compiled_config_equal_jax(over, n):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
+    from flashmoe_tpu_torch import observe
+    from flashmoe_tpu_torch.chaos.__main__ import main as chaos_main
     from flashmoe_tpu_torch.profiler import postmortem as pm
     from flashmoe_tpu_torch.profiler.slo import SLOConfig, SLOWatchdog
 
-    planes = "'Host-side planes'"
     state = ttrainer.TrainState({"w": torch.zeros(2)}, {}, torch.tensor(0))
-    # the runtime controller is still refused
-    with pytest.raises(NotImplementedError, match=planes):
-        tres.resilient_train(state, None, iter(()), 1, controller=1)
-    with pytest.raises(NotImplementedError, match=planes):
-        tres.supervise(TorchConfig(**SMALL), None, 1, controller=1)
-    with pytest.raises(NotImplementedError, match=planes):
-        ttrainer.train(TorchConfig(**SMALL), iter(()), 1, controller=1)
-    with pytest.raises(NotImplementedError, match=planes):
-        tres.ResilienceConfig(adapt=object())
+    # the runtime controller runs now (test_controller_keywords_run); what
+    # stays refused is the serving fabric's and the benchmark's
+    err = io.StringIO()
+    with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
+        chaos_main(["--fault", "replica_crash", "--device", "cpu"])
+    assert "'Serving fabric'" in err.getvalue()
+    with pytest.raises(NotImplementedError, match="'Serving fabric'"):
+        TorchConfig(**SMALL, serving_mode="decode")
+    with pytest.raises(NotImplementedError, match="'The port's benchmark'"):
+        observe.main(["--regression"])
     # ported with the planes: slo, telemetry_port and postmortem_dir run
 
     def step_fn(s, b):
@@ -123,6 +128,58 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     assert rt.group_plan is not None and rt.cfg.ep == 2
     tboot.finalize()
     assert tboot.initialize(TorchConfig(**SMALL), device="cpu").cfg.ep == 1
+
+
+@pytest.mark.parametrize("keyword", ["train", "resilient_train",
+                                     "supervise", "adapt"])
+def test_controller_keywords_run(keyword, tmp_path):
+    """``train(controller=)``, ``resilient_train(controller=,
+    rebuild_step=)``, ``supervise(controller=)`` and
+    ``ResilienceConfig.adapt`` run at the drill configuration under a
+    sustained routing skew: one ``controller.morph`` to the dropless
+    layer, and the loop reaches its last step."""
+    from flashmoe_tpu_torch import chaos
+    from flashmoe_tpu_torch.chaos.drill import data_stream, drill_config
+    from flashmoe_tpu_torch.runtime.controller import (ControllerConfig,
+                                                       RuntimeController)
+
+    ccfg = ControllerConfig(debounce_steps=2, cooldown_steps=3,
+                            baseline_steps=2, ema_decay=0.5, morph_budget=1,
+                            enable_replace=False)
+    cfg = drill_config()
+    m = ttel.Metrics()
+    ctl = None if keyword == "adapt" else RuntimeController(
+        cfg, ccfg, metrics=m, device="cpu")
+    chaos.inject.arm("skewed_routing", expert=0, bias=100.0)
+    try:
+        rcfg = tres.ResilienceConfig(
+            checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=3,
+            adapt=ccfg if keyword == "adapt" else None)
+        if keyword == "train":
+            state, _ = ttrainer.train(
+                cfg, data_stream(cfg, 2, 0, "cpu"), 7,
+                generator=torch.Generator().manual_seed(0), controller=ctl)
+        elif keyword == "resilient_train":
+            opt = ttrainer.make_optimizer(cfg, total_steps=7)
+
+            def rebuild(ov):
+                return ttrainer.make_train_step(cfg.replace(**ov), opt)
+
+            state, _ = tres.resilient_train(
+                ttrainer.init_state(torch.Generator().manual_seed(0), cfg,
+                                    opt),
+                rebuild({}), data_stream(cfg, 2, 0, "cpu"), 7, rcfg=rcfg,
+                metrics=m, controller=ctl, rebuild_step=rebuild)
+        else:
+            state, _ = tres.supervise(
+                cfg, lambda fcfg: data_stream(fcfg, 2, 0, "cpu"), 7, rcfg,
+                metrics=m, controller=ctl, device="cpu")
+    finally:
+        chaos.clear()
+    assert int(state.step) == 7
+    morphs = [d for d in m.decisions if d["decision"] == "controller.morph"]
+    assert len(morphs) == 1 and morphs[0]["dropless"]
+    assert morphs[0]["overrides"] == {"drop_tokens": False}
 
 
 def test_throughput_probe_on_the_cpu():
