@@ -57,6 +57,28 @@ Phases, each of which fails the run on any error:
    again with both runs replaying one run's routing, so that they route
    alike by construction and every token up to the first difference is
    held; and ``python -m flashmoe_tpu_torch.serving`` with its defaults;
+4c. fabric (right after 4b, on its weights and trace): the serving
+   fabric (``fabric.ServingFabric`` behind a ``FrontDoor``,
+   ``FLASHMOE_MOCK_FABRIC=2``) under a runtime of 8 virtual ranks, so
+   that the prefill/decode pool plan forms; every replica and the
+   prefill pool on this card, sharing the weights.  The single engine
+   timed on the trace, then the fabric: in-process with the wire off
+   (logged, ``/metrics`` scraped mid-run, against 4b's mixed run by
+   ``near_tie_match`` and, replaying its routing, by ``forced_match``;
+   every request one handoff; the fleet trace validated; the
+   ``serve.r0`` / ``serve.r1`` sketches), again unlogged and timed (the
+   same streams), over ``HandoffTransport`` on the localhost TCP wire
+   (the same streams bit for bit, no retry, no CRC failure), with
+   ``kv_wire_dtype="e4m3"`` (each decoded page against the plain
+   ``ops/wire`` roundtrip of the same KV, 1 byte an element plus the f32
+   sidecars), with ``replica_crash`` mid-trace (migrations, near ties
+   against the in-process run, the replayed twin forced), with
+   ``replica_stall`` under heartbeats (the watchdog's stall, the
+   migration), and on a ``VirtualClock`` (the drift verdicts'
+   agreement); TTFT / TPOT p50 and p99 and tokens/s of the single engine
+   against the fabric, bytes moved and the TCP wire's host ms a handoff
+   against ``kv_handoff_ms``; then the fabric's ten chaos drills at
+   their drill size.  Each run a path (counts reset before, read after);
 5. ep: expert parallelism over 8 virtual ranks of a local mesh: the ep
    path, ``forward`` at Mixtral widths (4 layers, 4 x 256 tokens) with
    the fused backend (counts reset before, read after), the collective
@@ -234,8 +256,8 @@ Phases, each of which fails the run on any error:
 
 The second-to-last line of stdout is the kernels' JSON line (each
 kernel's launches on the main path of the slice that ported it, and, in
-``launches_by_path``, on the paths of phases 4b, 5, 6, 9, 10, 11, 12,
-13 and 14 that ran it), the last
+``launches_by_path``, on the paths of phases 4b, 4c, 5, 6, 9, 10, 11,
+12, 13 and 14 that ran it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -3845,7 +3867,9 @@ def engine_phase(cfg, params):
     one run's routing (``EngineLog``'s ``replay``; the mixed run's for
     (1), (2), (3) and (6)).  Then the CLI (``cli_run``).  Each run's
     launches, the replayed twins' aside, are a path of the kernels line.
-    Returns the paths."""
+    Returns the paths and the mixed run (its trace, serve knobs, outputs
+    and EngineLog, and the replayed run's), which the fabric phase holds
+    its streams against."""
     paths = {}
     reqs, arrivals = engine_trace(cfg)
     base = dict(ENGINE_SERVE, max_pages_per_slot=slot_pages(reqs,
@@ -3956,7 +3980,9 @@ def engine_phase(cfg, params):
                     "the replayed mixed run",
                     ep_mesh=mesh.local_mesh(8, device="cuda"), **ekw)
     cli_run(paths)
-    return paths
+    mixed = dict(reqs=reqs, arrivals=arrivals, serve=roomy, out=out1,
+                 log=log1, ref=ref1)
+    return paths, mixed
 
 
 def cli_run(paths):
@@ -3992,6 +4018,373 @@ def engine_replayed(tag, cfg, params, reqs, arrivals, ref, what, **kw):
                                 force=force, **kw)
     forced_match(f"{tag} (replayed, forced)", out, ref[0], reqs, log,
                  ref[1], what)
+
+
+# ----------------------------------------------------------------------
+# the serving fabric (phase 4c)
+# ----------------------------------------------------------------------
+
+FABRIC_KERNELS = ("gate", "grouped_ffn", "flash_attention")
+PATH_KERNELS.update({f"fabric {name}": FABRIC_KERNELS for name in (
+    "inproc", "tcp", "e4m3", "crash", "stall", "vclock", "drills")})
+#: the fabric step at which the crash and the stall strike (mid-trace:
+#: both replicas hold in-flight and queued requests)
+FABRIC_FAULT_STEP = 10
+
+
+class FabricLog(EngineLog):
+    """An EngineLog over a fabric's replicas: a device step's rows are
+    the slots of the replica stepping; the handoff's prefills, which run
+    the engine's ``_prefill_padded``, are logged as the engine's."""
+
+    def __init__(self, cfg, fab, reqs, **kw):
+        super().__init__(cfg, fab.engines[0], reqs, **kw)
+        self.fab = fab
+
+    def __enter__(self):
+        for e in self.fab.engines:
+            def spy(e=e, step=e.step):
+                self.engine = e
+                return step()
+            e.step = spy
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for e in self.fab.engines:
+            del e.step
+        return super().__exit__(*exc)
+
+
+def serve_line(mx, tokens, wall) -> dict:
+    """TTFT and TPOT p50 / p99 (ms) and tokens/s of a run."""
+    tt, tp = mx.sketches["serve.ttft_ms"], mx.sketches["serve.tpot_ms"]
+    return {"ttft_ms_p50": round(tt.quantile(0.5), 2),
+            "ttft_ms_p99": round(tt.quantile(0.99), 2),
+            "tpot_ms_p50": round(tp.quantile(0.5), 2),
+            "tpot_ms_p99": round(tp.quantile(0.99), 2),
+            "tokens_per_s": round(tokens / wall, 1)}
+
+
+def fabric_run(tag, cfg, params, reqs, arrivals, serve_kw, paths=None, *,
+               log=True, replay=None, force=None, scrape=False, **fab_kw):
+    """Drive one 2-replica fabric behind a FrontDoor over ``reqs`` (counts
+    reset before, read after as path ``tag`` when ``paths`` is given),
+    every request completed, the fleet document valid, and on a virtual
+    clock (``vclock=``) the door's tracer gate empty: on the wall clock a
+    replica's requests wait while the other replica steps, which the gate
+    reads as gaps in their tracks.  ``scrape``: serve the live plane and read ``/metrics`` once mid-run,
+    when a replica's first request retired.  Returns a dict: outputs,
+    fabric, its FabricLog (or None), metrics, wall seconds, the scraped
+    body."""
+    from flashmoe_tpu_torch import fabric
+    from flashmoe_tpu_torch.profiler import export as pexport
+    from flashmoe_tpu_torch.telemetry_plane.server import scrape as get
+
+    mx = Metrics()
+    fab = fabric.ServingFabric(params, cfg, serving.ServeConfig(**serve_kw),
+                               metrics_obj=mx,
+                               telemetry_port=0 if scrape else None,
+                               **fab_kw)
+    check(fab.n_replicas == 2 and fab.pool_plan is not None,
+          f"{tag}: {fab.n_replicas} replicas, pool plan {fab.pool_plan}")
+    door = fabric.FrontDoor(fab)
+    elog = (FabricLog(cfg, fab, reqs, replay=replay, force=force) if log
+            else None)
+    body = None
+
+    def retired():
+        return any(k.startswith("serve.r") and k.endswith(".ttft_ms")
+                   for k in mx.sketches)
+
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with elog if elog is not None else contextlib.nullcontext():
+            out = door.run(reqs, arrivals,
+                           until=retired if scrape else None)
+            if scrape:
+                check(fab.pending(), f"{tag}: nothing in flight to scrape")
+                body, ctype = get(f"{fab.telemetry.url}/metrics")
+                out = fab.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = engine_counts(tag, paths) if paths is not None else None
+        errors = door.validate() if fab.vclock is not None else []
+        doc = door.fleet_trace_document()
+        check(not errors and not pexport.validate_trace(doc),
+              f"{tag}: trace {errors[:3]} / "
+              f"{pexport.validate_trace(doc)[:3]}")
+    finally:
+        door.close()
+        fab.close()
+    s = fab.summary()
+    check(len(out) == len(reqs) and all(
+        len(out[r.rid]) == len(r.prompt) + r.max_new_tokens for r in reqs),
+        f"{tag}: {len(out)} of {len(reqs)} requests completed")
+    tokens = sum(e["tokens"] for e in s["engines"])
+    line = serve_line(mx, tokens, wall)
+    print(f"{tag}: requests={len(reqs)} replicas=2 routed={s['routed']} "
+          f"steps={s['steps']} tokens={tokens} wall_s={wall:.3f} "
+          f"{' '.join(f'{k}={v}' for k, v in line.items())} handoffs="
+          f"{s['handoffs']} handoff_bytes={s['handoff_bytes']} migrated="
+          f"{s['migrated']} evictions="
+          f"{sum(e['evictions'] for e in s['engines'])} pools="
+          f"{fab.pool_plan.snapshot()['decode_devices']}/"
+          f"{fab.pool_plan.snapshot()['prefill_devices']} "
+          f"fleet_trace_events={len(doc['traceEvents'])} logged={log} "
+          f"launches={counts} ({gpu_line()})")
+    return dict(out=out, fab=fab, log=elog, mx=mx, wall=wall, body=body,
+                line=line, summary=s)
+
+
+def fabric_e4m3_pages():
+    """While active, holds each handoff's e4m3 pages against the plain
+    ``ops/wire`` roundtrip of the same KV run on the card, and its
+    payload at 1 byte an element plus one f32 scale a (layer, page) row
+    of K and of V; ``stats`` gathers the largest differences."""
+    from flashmoe_tpu_torch.fabric import handoff
+    from flashmoe_tpu_torch.ops import wire
+
+    class Spy:
+        def __enter__(self):
+            self.enc, self.dec = handoff.encode_kv_run, handoff.decode_kv_run
+            self.stats = dict(handoffs=0, max_abs_err=0.0, normwise=0.0)
+            self.kv = None
+
+            def enc(k, v, page, wd):
+                p = self.enc(k, v, page, wd)
+                rows = k.shape[0] * k.shape[2] // page
+                check(p.wire == "e4m3" and p.k.dtype == torch.float8_e4m3fn
+                      and p.payload_bytes == 2 * k.numel() + 2 * 4 * rows
+                      and p.k_qscale.numel() == rows,
+                      f"fabric e4m3: payload {p.payload_bytes} bytes for "
+                      f"{k.numel()} elements a side, {rows} rows")
+                self.kv = (k, v, page, wd)
+                return p
+
+            def dec(p, dtype):
+                got = self.dec(p, dtype)
+                k, v, page, wd = self.kv
+                for g, x in zip(got, (k, v)):
+                    want = handoff._unpage_rows(
+                        wire.roundtrip(handoff._page_rows(x, page), wd),
+                        x.shape, page, x.dtype)
+                    self.stats["max_abs_err"] = max(
+                        self.stats["max_abs_err"], max_abs(g, want))
+                    self.stats["normwise"] = max(self.stats["normwise"],
+                                                 normwise(g, x))
+                self.stats["handoffs"] += 1
+                return got
+
+            handoff.encode_kv_run, handoff.decode_kv_run = enc, dec
+            return self
+
+        def __exit__(self, *exc):
+            handoff.encode_kv_run, handoff.decode_kv_run = self.enc, self.dec
+
+    return Spy()
+
+
+def fabric_drills(paths):
+    """The fabric's ten chaos drills (``run_drill``, f32 drill size, on
+    the card): each recovers at its expected tier."""
+    from flashmoe_tpu_torch.chaos import drill
+
+    reset_counts()
+    results = [drill.run_drill(f, device="cuda") for f in drill.FAULTS
+               if f not in drill.TRAINING_FAULTS]
+    torch.cuda.synchronize()
+    counts = engine_counts("fabric drills", paths)
+    for r in results:
+        print(f"chaos {r.fault}: tier={r.expected_tier} recovered="
+              f"{r.recovered} wall_s={r.wall_s} evidence="
+              f"{ {k: v for k, v in r.evidence.items() if isinstance(v, (int, float, bool))} }"
+              + (f" reason={r.reason}" if r.reason else ""))
+        check(r.recovered, f"drill {r.fault}: {r.reason}")
+    print(f"fabric drills: {len(results)} faults recovered at their tier, "
+          f"wall_s={sum(r.wall_s for r in results):.2f} launches={counts} "
+          f"({gpu_line()})")
+
+
+def fabric_phase(cfg, params, paths, mixed):
+    """The serving fabric on the engine phase's weights and mixed trace
+    (module docstring, 4c): two replicas of the engine behind a front
+    door, under a runtime of 8 virtual ranks of this card."""
+    from flashmoe_tpu_torch import fabric
+    from flashmoe_tpu_torch.chaos import FaultPlan
+    from flashmoe_tpu_torch.fabric.topo import ENV_MOCK_FABRIC
+
+    t0 = time.perf_counter()
+    reqs, arrivals, kw = mixed["reqs"], mixed["arrivals"], mixed["serve"]
+    print(f"fabric phase: free memory "
+          f"{torch.cuda.mem_get_info()[0] / 1e9:.1f} GB ({gpu_line()})")
+    # the single engine, timed and unlogged: the comparison's baseline
+    mx = Metrics()
+    eng = serving.ServingEngine(params, cfg, serving.ServeConfig(**kw),
+                                metrics_obj=mx)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    single = eng.run(reqs, arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(single == mixed["out"], "fabric: the single engine's streams "
+          "moved since the engine phase")
+    single_line = serve_line(mx, eng.stats["tokens"], wall)
+    del eng
+    saved = os.environ.get(ENV_MOCK_FABRIC)
+    os.environ[ENV_MOCK_FABRIC] = "2"
+    bootstrap.finalize()
+    rt = bootstrap.initialize(cfg, devices=8, device="cuda", measure=False)
+    print(f"fabric runtime: ranks={rt.mesh.size} groups="
+          f"{rt.group_plan.mapping if rt.group_plan else None}")
+    try:
+        # (1) in-process, wire off: logged on a virtual clock, scraped; its
+    # replayed twin
+        f1 = fabric_run("fabric inproc", cfg, params, reqs, arrivals, kw,
+                        paths, scrape=True, vclock=fabric.VirtualClock())
+        check(f1["summary"]["handoffs"] == len(reqs)
+              and f1["fab"].handoff.count == len(reqs),
+              f"fabric inproc: {f1['summary']['handoffs']} handoffs")
+        for r in ("r0", "r1"):
+            check(f1["mx"].sketches[f"serve.{r}.ttft_ms"].n > 0
+                  and f"flashmoe_serve_{r}_ttft_ms" in f1["mx"]
+                  .prometheus_text(), f"fabric inproc: no serve.{r} sketch")
+        check(any(f'flashmoe_serve_{r}_ttft_ms{{quantile="' in f1["body"]
+                  for r in ("r0", "r1")),
+              "fabric inproc: mid-run /metrics without a replica sketch")
+        print(f"fabric inproc: /metrics scraped mid-run, "
+              f"{len(f1['body'])} bytes; serve.r0 / serve.r1 ttft "
+              f"sketches n={f1['mx'].sketches['serve.r0.ttft_ms'].n} / "
+              f"{f1['mx'].sketches['serve.r1.ttft_ms'].n}")
+        near_tie_match("fabric inproc", f1["out"], mixed["out"], reqs,
+                       f1["log"], mixed["log"], "the engine's mixed run")
+        ref = mixed["ref"]
+        force = {r.rid: list(ref[0][r.rid][len(r.prompt):]) for r in reqs}
+        twin = fabric_run("fabric inproc (replayed, forced)", cfg, params,
+                          reqs, arrivals, kw, replay=ref[1].replay,
+                          force=force)
+        forced_match("fabric inproc (replayed, forced)", twin["out"],
+                     ref[0], reqs, twin["log"], ref[1],
+                     "the replayed mixed run")
+        timed = fabric_run("fabric inproc (timed)", cfg, params, reqs,
+                           arrivals, kw, log=False)
+        check(timed["out"] == f1["out"], "fabric inproc: a second run "
+              "gave other streams")
+
+        # (2) the same trace over the localhost TCP wire
+        transport = fabric.HandoffTransport(wire="tcp")
+        send, sends = transport.send, []
+
+        def timed_send(*a, **k):
+            t = time.perf_counter()
+            got = send(*a, **k)
+            torch.cuda.synchronize()
+            sends.append(1e3 * (time.perf_counter() - t))
+            return got
+
+        transport.send = timed_send
+        try:
+            tcp = fabric_run("fabric tcp", cfg, params, reqs, arrivals, kw,
+                             paths, log=False, transport=transport)
+            snap = transport.snapshot()
+        finally:
+            transport.close()
+        check(tcp["out"] == f1["out"] and snap["retries_total"] == 0
+              and snap["corrupt_total"] == 0 and snap["transfers"]
+              == len(reqs), f"fabric tcp: streams equal "
+              f"{tcp['out'] == f1['out']}, transport {snap}")
+        ho = tcp["fab"].handoff
+        print(f"fabric tcp: streams bit-equal to the in-process run; "
+              f"transfers={snap['transfers']} retries=0 crc_failures=0 "
+              f"bytes_moved={ho.bytes_moved} host_ms_per_handoff mean="
+              f"{sum(sends) / len(sends):.3f} max={max(sends):.3f} "
+              f"(encode to host bytes, the socket both ways, rebuild on "
+              f"the card) against kv_handoff_ms's price mean="
+              f"{ho.modeled_ms_total / ho.count:.4f} ({gpu_line()})")
+        for tag, line in (("single engine", single_line),
+                          ("fabric in-process", timed["line"]),
+                          ("fabric tcp", tcp["line"])):
+            print(f"fabric serving {tag}: "
+                  f"{' '.join(f'{k}={v}' for k, v in line.items())} "
+                  f"({gpu_line()})")
+
+        # (3) the e4m3 KV wire
+        with fabric_e4m3_pages() as spy:
+            e4 = fabric_run("fabric e4m3", cfg.replace(kv_wire_dtype="e4m3"),
+                            params, reqs, arrivals, kw, paths, log=False)
+        st = spy.stats
+        check(st["handoffs"] == len(reqs) and st["max_abs_err"] == 0.0,
+              f"fabric e4m3: {st}")
+        same = sum(e4["out"][r.rid] == f1["out"][r.rid] for r in reqs)
+        print(f"fabric e4m3: {st['handoffs']} handoffs, decoded pages "
+              f"against the plain ops/wire roundtrip max_abs_err="
+              f"{st['max_abs_err']}, against the bf16 KV normwise max "
+              f"{st['normwise']:.4g}; bytes_moved="
+              f"{e4['fab'].handoff.bytes_moved} (wire off "
+              f"{f1['fab'].handoff.bytes_moved}); {same}/{len(reqs)} "
+              f"streams equal to the wire-off run ({gpu_line()})")
+
+        # (4) a replica crash mid-trace, and its replayed twin
+        plan = FaultPlan("replica_crash", step=FABRIC_FAULT_STEP, expert=0)
+        crash = fabric_run("fabric crash", cfg, params, reqs, arrivals, kw,
+                           paths, fault_plan=plan,
+                           vclock=fabric.VirtualClock())
+        check(crash["summary"]["migrated"] > 0
+              and crash["summary"]["crashed"] == [0],
+              f"fabric crash: {crash['summary']['crashed']} crashed, "
+              f"{crash['summary']['migrated']} migrated")
+        near_tie_match("fabric crash", crash["out"], f1["out"], reqs,
+                       crash["log"], f1["log"], "the in-process run")
+        twin = fabric_run("fabric crash (replayed, forced)", cfg, params,
+                          reqs, arrivals, kw, replay=ref[1].replay,
+                          force=force, fault_plan=plan)
+        forced_match("fabric crash (replayed, forced)", twin["out"],
+                     ref[0], reqs, twin["log"], ref[1],
+                     "the replayed mixed run")
+
+        # (5) a replica stall, caught by the heartbeat deadline
+        stall = fabric_run(
+            "fabric stall", cfg, params, reqs, arrivals, kw, paths,
+            log=False, heartbeat=fabric.HeartbeatConfig(misses_to_stall=2),
+            vclock=fabric.VirtualClock(),
+            fault_plan=FaultPlan("replica_stall", step=FABRIC_FAULT_STEP,
+                                 expert=1))
+        stalls = [d for d in stall["mx"].decisions
+                  if d["decision"] == "fabric.heartbeat_stall"]
+        check(len(stalls) == 1 and stalls[0]["step"] > FABRIC_FAULT_STEP
+              and stall["summary"]["migrated"] > 0
+              and stall["summary"]["stalled"] == [1],
+              f"fabric stall: stalls {stalls}, summary {stall['summary']}")
+        same = sum(stall["out"][r.rid] == f1["out"][r.rid] for r in reqs)
+        print(f"fabric stall: replica 1 hung at step {FABRIC_FAULT_STEP}, "
+              f"declared stalled at step {stalls[0]['step']} after "
+              f"{stalls[0]['misses']} missed beats, migrated="
+              f"{stall['summary']['migrated']}; {same}/{len(reqs)} "
+              f"streams equal to the in-process run")
+
+        # (6) a virtual clock behind the door
+        vc = fabric.VirtualClock()
+        clocked = fabric_run("fabric vclock", cfg, params, reqs, arrivals,
+                             kw, paths, log=False, vclock=vc)
+        ho = clocked["fab"].handoff
+        check(ho.drift_total == len(reqs), f"fabric vclock: "
+              f"{ho.drift_total} drift verdicts")
+        print(f"fabric vclock: tick_ms={vc.tick_ms:.4f} (the pool plan's "
+              f"decode objective) fabric.handoff_drift agree="
+              f"{ho.drift_agree}/{ho.drift_total} hidden_fraction="
+              f"{vc.hidden_fraction()} measured_ms_total="
+              f"{ho.measured_ms_total:.4f}")
+    finally:
+        bootstrap.finalize()
+        if saved is None:
+            os.environ.pop(ENV_MOCK_FABRIC, None)
+        else:
+            os.environ[ENV_MOCK_FABRIC] = saved
+    # (7) the fabric's chaos drills
+    fabric_drills(paths)
+    torch.cuda.empty_cache()
+    print(f"fabric phase_s={time.perf_counter() - t0:.2f}")
 
 
 def train_phase():
@@ -5701,10 +6094,8 @@ def controller_drills(paths):
     records a ``planner.fallback`` or leaves a failed backend behind
     (read at each of its ``chaos.clear()`` calls, which forget them); the
     ``path_raise`` drill's fallbacks all carry its injected reason.  The
-    fabric's faults are listed as waiting for the serving fabric.  The
-    drills run at ``drill_config``'s size: a functional ladder, whose
+    fabric's faults are drilled in the fabric phase.  The drills run at ``drill_config``'s size: a functional ladder, whose
     seconds are no recovery cost at a real width."""
-    from flashmoe_tpu_torch.chaos import EXPECTED_TIER, FAULTS
     from flashmoe_tpu_torch.chaos import drill
 
     root = os.path.join(HERE, ".chip_scratch", "chaos")
@@ -5730,7 +6121,7 @@ def controller_drills(paths):
     drill.run_drill, drill.clear = one, watched_clear
     try:
         reset_counts()
-        results = drill.run_matrix(device="cuda")
+        results = drill.run_matrix(drill.TRAINING_FAULTS, device="cuda")
         torch.cuda.synchronize()
     finally:
         tempfile.tempdir = old
@@ -5758,10 +6149,6 @@ def controller_drills(paths):
         if r.expected_tier.startswith(("tier0", "tier1", "controller")):
             check(r.steps_rerun == 0,
                   f"drill {r.fault}: {r.steps_rerun} steps re-run")
-    for f in FAULTS:
-        if f not in drill.TRAINING_FAULTS:
-            print(f"chaos {f}: tier={EXPECTED_TIER[f]} waits for "
-                  f"'Serving fabric'")
     print(f"chaos matrix: {len(results)} faults recovered at their tier, "
           f"wall_s={sum(r.wall_s for r in results):.2f} launches={counts} "
           f"({gpu_line()})")
@@ -5878,7 +6265,9 @@ def main(argv=None) -> int:
                gather_phase(cfg, moe0, x)]
     capacity_phase()
     launches = serve_phase(cfg, params)
-    paths = engine_phase(cfg, params)
+    paths, mixed = engine_phase(cfg, params)
+    fabric_phase(cfg, params, paths, mixed)
+    del mixed
     ep_entry, gmm_recompute, ep_launches, ep_paths, ep_times = ep_phase(
         cfg, params)
     paths.update(ep_paths)

@@ -65,8 +65,8 @@ EXPECTED_TIER = {
     # per-request attribution stays exact
     "dcn_latency": "monitor:handoff_drift",
     "dcn_jitter": "monitor:handoff_drift",
-    # the serving fault-tolerance ladder (the serving fabric's; not
-    # ported): a crashed decode replica's requests
+    # the serving fault-tolerance ladder (:mod:`flashmoe_tpu_torch.
+    # fabric`): a crashed decode replica's requests
     # MIGRATE via deterministic re-prefill; a corrupt or timed-out KV
     # handoff is caught by the transport's per-page CRC32 verify /
     # deadline and RETRIED with capped backoff; a dead front-door peer

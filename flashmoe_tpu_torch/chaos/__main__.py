@@ -4,9 +4,8 @@ Counterpart of ``flashmoe_tpu/chaos/__main__.py``, with its flags.  Runs
 the fault matrix against a small model and reports, per fault: recovery
 outcome, the tier that absorbed it, loss of work and the telemetry
 evidence.  Exit code 0 iff every drilled fault recovered.  Without
-``--faults`` / ``--fault`` the matrix is the faults the port drills
-(:data:`flashmoe_tpu_torch.chaos.drill.TRAINING_FAULTS`); naming a
-serving-fabric fault exits 2 with a message naming its ROADMAP item.
+``--faults`` / ``--fault`` the matrix is every fault, the serving
+fabric's included.
 
 ``--obs-dir`` exports ``decisions.jsonl`` (every structured decision the
 drills produced, each with its ``fault``) and ``drill_results.jsonl``
@@ -27,8 +26,7 @@ def main(argv=None) -> int:
         prog="python -m flashmoe_tpu_torch.chaos",
         description="drill the fault-tolerance ladder")
     p.add_argument("--faults", default=None,
-                   help="comma-separated subset (default: the training "
-                        "matrix)")
+                   help="comma-separated subset (default: all)")
     p.add_argument("--fault", action="append", default=None,
                    metavar="NAME",
                    help="drill a single fault (repeatable; composes "
@@ -49,7 +47,7 @@ def main(argv=None) -> int:
     import torch
 
     from flashmoe_tpu_torch.chaos import FAULTS
-    from flashmoe_tpu_torch.chaos.drill import TRAINING_FAULTS, run_drill
+    from flashmoe_tpu_torch.chaos.drill import run_drill
 
     faults = ([f.strip() for f in args.faults.split(",") if f.strip()]
               if args.faults else [])
@@ -57,17 +55,13 @@ def main(argv=None) -> int:
         if f.strip() and f.strip() not in faults:
             faults.append(f.strip())
     if not args.faults and not args.fault:
-        faults = list(TRAINING_FAULTS)
+        faults = list(FAULTS)
     if not faults:
         # '--faults ,' must not report "all recovered" over zero drills
         p.error(f"--faults selected no fault; known: {list(FAULTS)}")
     unknown = [f for f in faults if f not in FAULTS]
     if unknown:
         p.error(f"unknown fault(s) {unknown}; known: {list(FAULTS)}")
-    fabric = [f for f in faults if f not in TRAINING_FAULTS]
-    if fabric:
-        p.error(f"fault(s) {fabric} are not ported yet: they wait for the "
-                f"ROADMAP item 'Serving fabric'")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         print("python -m flashmoe_tpu_torch.chaos: no CUDA device (pass "

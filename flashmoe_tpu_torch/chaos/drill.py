@@ -1,6 +1,6 @@
 """Chaos drills: prove each fault class recovers at its intended tier.
 
-Counterpart of ``flashmoe_tpu/chaos/drill.py:1-500, 970-1147``.  One
+Counterpart of ``flashmoe_tpu/chaos/drill.py``.  One training
 drill = one :class:`flashmoe_tpu_torch.chaos.FaultPlan` run against a
 small real training job under :func:`flashmoe_tpu_torch.runtime.
 resilient.resilient_train` with the full ladder armed (tier-0 expert
@@ -11,12 +11,15 @@ many steps of work were re-executed, and does the telemetry carry
 evidence that the intended tier absorbed the fault
 (:data:`flashmoe_tpu_torch.chaos.EXPECTED_TIER`)?
 
-The serving-fabric faults (tiers ``monitor:*`` and ``fabric:*``) run
-against the serving fabric, which the port does not have yet:
-:func:`run_drill` refuses them, and :func:`run_matrix` runs the other
-faults by default (:data:`TRAINING_FAULTS`).  The drills run on the
-card unless the caller passes ``device="cpu"``; the supervised drills'
-worlds are virtual ranks of that device.
+The serving faults (tiers ``monitor:*`` and ``fabric:*``) run against a
+mocked 2-replica serving fabric (:mod:`flashmoe_tpu_torch.fabric`)
+behind a front door: the DCN faults on its virtual clock
+(``_run_vclock_drill``), the others with recovery judged by token
+equality with an uninterrupted single-pool engine
+(``_run_fabric_fault_drill``).  :func:`run_matrix` runs all 21 faults by
+default.  The drills run on the card unless the caller passes
+``device="cpu"``; the supervised drills' worlds are virtual ranks of
+that device.
 
 ``python -m flashmoe_tpu_torch.chaos`` runs the matrix.
 """
@@ -44,10 +47,8 @@ from flashmoe_tpu_torch.runtime.trainer import (
 )
 from flashmoe_tpu_torch.utils.telemetry import Metrics, metrics as global_metrics
 
-_FABRIC = "Serving fabric"
-
-#: the faults the port drills: every fault whose tier is not the serving
-#: fabric's (``monitor:*`` / ``fabric:*``)
+#: the training ladder's faults: every fault whose tier is not the
+#: serving fabric's (``monitor:*`` / ``fabric:*``)
 TRAINING_FAULTS = tuple(
     f for f in FAULTS
     if not EXPECTED_TIER[f].startswith(("monitor:", "fabric:")))
@@ -509,18 +510,508 @@ def _run_controller_drill(fault: str, *, num_steps: int,
         evidence=evidence, decisions=decisions)
 
 
+def fabric_drill_config(device="cuda"):
+    """The serving drills' model: ``loadgen.tiny_config`` (JAX's), two
+    heads of 32 on the CPU and, as the serving CLI takes it, of 64 on the
+    card, whose flash-attention kernel takes heads of 64 or 128."""
+    from flashmoe_tpu_torch.serving.loadgen import tiny_config
+
+    return tiny_config(
+        hidden=128 if torch.device(device).type == "cuda" else 64)
+
+
+def _fabric_drill_inputs(seed: int, device):
+    """(config, weights, engine shape, requests, arrivals) of the serving
+    drills: JAX's drill trace, 6 requests of 8 tokens, 4 new each."""
+    from flashmoe_tpu_torch.models.transformer import init_params
+    from flashmoe_tpu_torch.serving.engine import ServeConfig
+    from flashmoe_tpu_torch.serving.loadgen import build_requests
+
+    cfg = fabric_drill_config(device)
+    params = init_params(torch.Generator(device=device).manual_seed(seed),
+                         cfg, device=device)
+    serve = ServeConfig(max_batch=2, page_size=8, num_pages=64,
+                        max_pages_per_slot=4, ctx_bucket_pages=1,
+                        prompt_bucket=8)
+    reqs, arrivals = build_requests(
+        6, vocab=cfg.vocab_size, prompt_len=8, max_new=4, seed=seed,
+        arrival_every=1)
+    return cfg, params, serve, reqs, arrivals
+
+
+def _mock_two_replicas():
+    """Set ``FLASHMOE_MOCK_FABRIC=2``; returns the call that restores
+    the variable."""
+    from flashmoe_tpu_torch.fabric.topo import ENV_MOCK_FABRIC
+
+    saved = os.environ.get(ENV_MOCK_FABRIC)
+    os.environ[ENV_MOCK_FABRIC] = "2"
+
+    def restore():
+        if saved is None:
+            os.environ.pop(ENV_MOCK_FABRIC, None)
+        else:
+            os.environ[ENV_MOCK_FABRIC] = saved
+    return restore
+
+
+def _run_vclock_drill(fault: str, *, seed: int,
+                      device="cuda") -> DrillResult:
+    """Drill the DCN faults (``dcn_latency`` / ``dcn_jitter``) against
+    the serving fabric's measured-latency plane: a mocked 2-replica
+    fabric steps on a :class:`~flashmoe_tpu_torch.fabric.vclock.VirtualClock`
+    with the plan armed, behind a
+    :class:`~flashmoe_tpu_torch.fabric.frontdoor.FrontDoor`.
+
+    These faults never crash anything — no recovery tier fires.  The
+    claim under drill is OBSERVABILITY (``monitor:handoff_drift``):
+    every perturbed transfer must surface through the
+    ``fabric.handoff_drift`` decisions with ``measured > modeled``,
+    unperturbed transfers must keep reconciling with the priced
+    verdict, the shared tracer must stay contiguous, and every
+    request's critical-path attribution must still sum to its span
+    within the 1% gate — delay injection may stretch latencies, never
+    corrupt the accounting."""
+    from flashmoe_tpu_torch.fabric import (FrontDoor, ServingFabric,
+                                           VirtualClock)
+
+    # window over TRANSFER index: skip the first two handoffs so the
+    # drill proves both arms (clean reconciliation AND visible drift)
+    plan = FaultPlan(fault, step=2, duration=6, latency_ms=50.0,
+                     jitter_ms=50.0, seed=seed)
+    clear()
+    cfg, params, serve, reqs, arrivals = _fabric_drill_inputs(seed, device)
+    metrics = Metrics()
+    restore_env = _mock_two_replicas()
+    t0 = time.perf_counter()
+    error, door, fab = None, None, None
+    outputs: dict = {}
+    att: dict = {}
+    trace_errors: list = []
+    try:
+        vc = VirtualClock(plan=plan)
+        fab = ServingFabric(params, cfg, serve, metrics_obj=metrics,
+                            vclock=vc)
+        door = FrontDoor(fab)
+        outputs = door.run(reqs, arrivals)
+        att = door.attribution()
+        trace_errors = door.validate()
+    except Exception as e:  # noqa: BLE001 — a drill reports, never dies
+        error = f"{type(e).__name__}: {e}"
+    finally:
+        if door is not None:
+            door.close()
+        if fab is not None:
+            fab.close()
+        restore_env()
+    wall = time.perf_counter() - t0
+
+    decisions = list(metrics.decisions)
+    drift = [d for d in decisions
+             if d["decision"] == "fabric.handoff_drift"]
+    perturbed = [d for d in drift if d["chaos_ms"] > 0]
+    clean = [d for d in drift if d["chaos_ms"] == 0]
+    sums_ok = [a["sum_ok"] for a in att.values()]
+    evidence: dict = {
+        "completed": len(outputs),
+        "handoffs": len([d for d in decisions
+                         if d["decision"] == "fabric.handoff"]),
+        "drift_decisions": len(drift),
+        "perturbed_transfers": len(perturbed),
+        "clean_transfers": len(clean),
+        "max_chaos_ms": (max(d["chaos_ms"] for d in perturbed)
+                         if perturbed else 0.0),
+        "clean_agree": [d["agree"] for d in clean],
+        "attribution_requests": len(att),
+        "attribution_sum_ok": sums_ok,
+        "max_rel_err": (max(a["rel_err"] for a in att.values())
+                        if att else None),
+        "trace_errors": trace_errors,
+        "decision_names": sorted({d["decision"] for d in decisions}),
+    }
+
+    ok, why = True, []
+
+    def need(cond, msg):
+        nonlocal ok
+        if not cond:
+            ok = False
+            why.append(msg)
+
+    need(error is None, f"aborted: {error}")
+    need(len(outputs) == len(reqs),
+         f"only {len(outputs)}/{len(reqs)} requests completed")
+    need(len(drift) == evidence["handoffs"],
+         "not every handoff produced a drift verdict")
+    need(len(perturbed) >= 1, "injected DCN fault never surfaced in "
+                              "fabric.handoff_drift")
+    need(all(d["measured_dcn_ms"] > d["modeled_dcn_ms"]
+             for d in perturbed),
+         "a perturbed transfer measured no slower than priced")
+    need(all(a is not False for a in evidence["clean_agree"]),
+         "an UNperturbed transfer disagreed with the priced verdict")
+    need(not trace_errors, f"tracer lost contiguity: {trace_errors[:3]}")
+    need(att and all(sums_ok),
+         "attribution no longer sums to the request span (1% gate)")
+
+    clear()
+    return DrillResult(
+        fault=fault, expected_tier=EXPECTED_TIER[fault], recovered=ok,
+        reason="; ".join(why), final_step=(fab.step_idx if fab else -1),
+        steps_rerun=0, wall_s=round(wall, 3),
+        evidence=evidence, decisions=decisions)
+
+
+def _run_fabric_fault_drill(fault: str, *, seed: int,
+                            device="cuda") -> DrillResult:
+    """Drill the serving fault-tolerance ladder: a mocked
+    2-replica fabric behind a front door, with ONE of the serving
+    faults armed —
+
+    * ``replica_crash``    — a decode replica dies silently at a fabric
+      step; the health probes detect it and every victim MIGRATES to a
+      survivor via deterministic re-prefill (``fabric:migrate``);
+    * ``handoff_corrupt``  — a KV transfer's bytes flip on the wire;
+      the per-page CRC32 verify refuses them and the transport retries
+      exactly once (``fabric:handoff_retry``);
+    * ``handoff_timeout``  — a transfer stalls past the deadline; same
+      retry tier, reason ``timeout``;
+    * ``frontdoor_loss``   — a front-door PEER dies mid-run; its
+      namespace leases fail over to the survivors with bumped epochs
+      (``fabric:frontdoor_failover``);
+    * ``net_partition``    — the tcp wire drops transfers MID-STREAM
+      (partial bytes really cross a kernel socket and the receiver
+      really discards them); the sender reconnects and retries
+      (``fabric:partition_retry``);
+    * ``lease_split_brain`` — the lease table lives in an EXTERNAL
+      fcntl-locked store; after a failover the dead peer plays zombie
+      and re-asserts a moved shard at its stale epoch — the store's
+      fencing token REFUSES it, zero requests double-served
+      (``fabric:lease_fence``);
+    * ``replica_stall``    — a decode replica hangs MID-STEP (its
+      health probe still answers); the sub-step heartbeat deadline
+      catches it and the victims migrate (``fabric:heartbeat_migrate``);
+    * ``lease_torn_write`` — a lease writer is killed mid-append; the
+      store's CRC framing refuses the torn record and rolls back to
+      the last intact epoch (``fabric:lease_repair``).
+
+    Recovery must be INVISIBLE to the tokens: every request completes
+    with a token stream bit-equal to an uninterrupted single-pool
+    engine on the same trace, the shared tracer stays orphan-free
+    through the transition, the post-failure fleet Perfetto document
+    still validates, and retry/migration costs are reconciled through
+    the virtual clock (the ``fabric.handoff_drift`` family)."""
+    from flashmoe_tpu_torch.fabric import (
+        FrontDoor, FrontDoorCluster, HandoffTransport, HeartbeatConfig,
+        LeaseStore, ServingFabric, StaleLeaseError, VirtualClock,
+    )
+    from flashmoe_tpu_torch.serving.engine import ServingEngine
+
+    clear()
+    cfg, params, serve, reqs, arrivals = _fabric_drill_inputs(seed, device)
+
+    # the uninterrupted single-pool run the recovery must be bit-equal
+    # to (same step functions, same seeded trace)
+    eng = ServingEngine(params, cfg, serve, metrics_obj=Metrics())
+    baseline = eng.run(reqs, arrivals)
+    eng.close()
+
+    metrics = Metrics()
+    restore_env = _mock_two_replicas()
+    t0 = time.perf_counter()
+    error, fab, door, cluster, transport = None, None, None, None, None
+    store, store_path = None, None
+    zombie_attempts, zombie_refused = 0, 0
+    torn_bytes, restored_epoch = 0, -1
+    outputs: dict = {}
+    att: dict = {}
+    trace_errors: list = []
+    fleet_doc: dict = {}
+    try:
+        vc = VirtualClock()
+        if fault in ("lease_split_brain", "lease_torn_write"):
+            fd, store_path = tempfile.mkstemp(
+                prefix="flashmoe-drill-leases-", suffix=".bin")
+            os.close(fd)
+        if fault in ("handoff_corrupt", "handoff_timeout"):
+            # window over TRANSFER index, first attempt only (once):
+            # two faulted transfers, each retried exactly once
+            transport = HandoffTransport(
+                metrics_obj=metrics,
+                plan=FaultPlan(fault, step=2, duration=2, seed=seed))
+            fab = ServingFabric(params, cfg, serve, metrics_obj=metrics,
+                                vclock=vc, transport=transport)
+            door = FrontDoor(fab)
+            outputs = door.run(reqs, arrivals)
+        elif fault == "replica_crash":
+            fab = ServingFabric(
+                params, cfg, serve, metrics_obj=metrics, vclock=vc,
+                fault_plan=FaultPlan(fault, step=3, expert=0,
+                                     seed=seed))
+            door = FrontDoor(fab)
+            outputs = door.run(reqs, arrivals)
+        elif fault == "frontdoor_loss":
+            fab = ServingFabric(params, cfg, serve, metrics_obj=metrics,
+                                vclock=vc)
+            cluster = FrontDoorCluster(fab, n_doors=2, n_shards=8,
+                                       metrics_obj=metrics)
+            outputs = cluster.run(reqs, arrivals, fail_at=2,
+                                  fail_peer=0)
+        elif fault == "net_partition":
+            # the REAL tcp wire: two transfers are cut mid-stream at
+            # the kernel socket layer (partial bytes actually cross),
+            # the receiver discards the torn frames, the sender
+            # reconnects and retries on the capped-backoff ladder
+            transport = HandoffTransport(
+                metrics_obj=metrics, wire="tcp",
+                plan=FaultPlan(fault, step=2, duration=2, seed=seed))
+            fab = ServingFabric(params, cfg, serve, metrics_obj=metrics,
+                                vclock=vc, transport=transport)
+            door = FrontDoor(fab)
+            outputs = door.run(reqs, arrivals)
+        elif fault == "lease_split_brain":
+            store = LeaseStore(store_path, metrics_obj=metrics)
+            fab = ServingFabric(params, cfg, serve, metrics_obj=metrics,
+                                vclock=vc)
+            cluster = FrontDoorCluster(fab, n_doors=2, n_shards=8,
+                                       metrics_obj=metrics, store=store)
+            # the epochs the doomed peer believes it holds, BEFORE the
+            # failover moves them
+            stale = {s: ls.epoch for s, ls in store.leases().items()
+                     if ls.owner == 0}
+            outputs = cluster.run(reqs, arrivals, fail_at=2,
+                                  fail_peer=0)
+            # the zombie arm: the failed peer wakes back up and
+            # re-asserts every shard it lost, using the fencing token
+            # it believes is next — every write must be REFUSED
+            for shard, epoch in sorted(stale.items()):
+                zombie_attempts += 1
+                try:
+                    store.write_lease(shard, 0, epoch + 1,
+                                      reason="zombie_reassert")
+                except StaleLeaseError:
+                    zombie_refused += 1
+        elif fault == "replica_stall":
+            # the victim hangs MID-STEP (after its admit heartbeat,
+            # inside prefill); its probe still answers, so only the
+            # sub-step heartbeat deadline can catch it
+            fab = ServingFabric(
+                params, cfg, serve, metrics_obj=metrics, vclock=vc,
+                heartbeat=HeartbeatConfig(misses_to_stall=2),
+                fault_plan=FaultPlan(fault, step=3, expert=0,
+                                     seed=seed))
+            door = FrontDoor(fab)
+            outputs = door.run(reqs, arrivals)
+        elif fault == "lease_torn_write":
+            # seed a store, advance shard 3 to epoch 1, then kill the
+            # writer mid-append of epoch 2 — the torn record must be
+            # refused and the table rolled back to epoch 1
+            store = LeaseStore(store_path, metrics_obj=metrics)
+            store.init_leases({s: s % 2 for s in range(8)})
+            store.write_lease(3, 1, 1, reason="pre_crash")
+            store.write_lease(3, 1, 2, reason="crash_victim")
+            torn_bytes = store.tear_last_record()
+            fab = ServingFabric(params, cfg, serve, metrics_obj=metrics,
+                                vclock=vc)
+            # the cluster's first mutating write repairs the tail
+            cluster = FrontDoorCluster(fab, n_doors=2, n_shards=8,
+                                       metrics_obj=metrics, store=store)
+            restored_epoch = store.leases()[3].epoch
+            outputs = cluster.run(reqs, arrivals, fail_at=2,
+                                  fail_peer=0)
+        else:
+            raise ValueError(f"not a fabric fault: {fault!r}")
+        authority = cluster if cluster is not None else door
+        trace_errors = authority.validate()
+        fleet_doc = authority.fleet_trace_document()
+        if door is not None:
+            att = door.attribution()
+    except Exception as e:  # noqa: BLE001 — a drill reports, never dies
+        error = f"{type(e).__name__}: {e}"
+    finally:
+        if door is not None:
+            door.close()
+        if cluster is not None:
+            cluster.close()
+        if fab is not None:
+            fab.close()
+        if transport is not None:
+            transport.close()
+        if store_path is not None:
+            try:
+                os.unlink(store_path)
+            except OSError:
+                pass
+        restore_env()
+    wall = time.perf_counter() - t0
+
+    decisions = list(metrics.decisions)
+
+    def named(name):
+        return [d for d in decisions if d["decision"] == name]
+
+    bit_equal = (sorted(outputs) == sorted(baseline)
+                 and all(outputs[r] == baseline[r] for r in baseline))
+    drift = named("fabric.handoff_drift")
+    retried_drift = [d for d in drift if d.get("retry_ms", 0) > 0]
+    sums_ok = [a["sum_ok"] for a in att.values()]
+    evidence: dict = {
+        "completed": len(outputs),
+        "bit_equal_to_baseline": bit_equal,
+        "handoffs": len(named("fabric.handoff")),
+        "retries": len(named("fabric.handoff_retry")),
+        "corrupt": len(named("fabric.handoff_corrupt")),
+        "migrations": len(named("fabric.migrate")),
+        "crashes": len(named("fabric.replica_crash")),
+        "failovers": len(named("frontdoor.failover")),
+        "partitions": len(named("fabric.partition")),
+        "fences": len(named("frontdoor.fence")),
+        "lease_repairs": len(named("frontdoor.lease_repair")),
+        "stalls": len(named("fabric.heartbeat_stall")),
+        "heartbeat_misses": len(named("fabric.heartbeat_miss")),
+        "zombie_attempts": zombie_attempts,
+        "zombie_refused": zombie_refused,
+        "torn_bytes": torn_bytes,
+        "restored_epoch": restored_epoch,
+        "retried_drift": len(retried_drift),
+        "trace_errors": trace_errors,
+        "fleet_trace_events": len(fleet_doc.get("traceEvents", [])),
+        "attribution_requests": len(att),
+        "attribution_sum_ok": sums_ok,
+        "decision_names": sorted({d["decision"] for d in decisions}),
+    }
+
+    ok, why = True, []
+
+    def need(cond, msg):
+        nonlocal ok
+        if not cond:
+            ok = False
+            why.append(msg)
+
+    need(error is None, f"aborted: {error}")
+    need(len(outputs) == len(reqs),
+         f"only {len(outputs)}/{len(reqs)} requests completed")
+    need(bit_equal, "a recovered request's token stream diverged from "
+                    "the uninterrupted single-pool run")
+    need(not trace_errors,
+         f"tracer lost contiguity across the failure: "
+         f"{trace_errors[:3]}")
+    need(evidence["fleet_trace_events"] > 0,
+         "post-failure fleet Perfetto document is empty")
+    if fault == "replica_crash":
+        need(evidence["crashes"] == 1,
+             "the crash was never detected")
+        need(evidence["migrations"] >= 1,
+             "no request migrated off the dead replica")
+    elif fault in ("handoff_corrupt", "handoff_timeout"):
+        retries = named("fabric.handoff_retry")
+        need(len(retries) == 2,
+             f"expected exactly one retry per faulted transfer "
+             f"(2 total), saw {len(retries)}")
+        want_reason = ("corrupt" if fault == "handoff_corrupt"
+                       else "timeout")
+        need(all(d["reason"] == want_reason for d in retries),
+             f"retry reasons {[d['reason'] for d in retries]} != "
+             f"{want_reason}")
+        if fault == "handoff_corrupt":
+            need(evidence["corrupt"] == 2,
+                 "CRC verify never named the corrupted pages")
+        need(len(retried_drift) == 2,
+             "retry cost never reconciled through the vclock "
+             "(fabric.handoff_drift retry_ms)")
+        need(att and all(sums_ok),
+             "attribution no longer sums to the request span")
+    elif fault == "frontdoor_loss":
+        fo = named("frontdoor.failover")
+        need(len(fo) >= 1, "no lease failed over off the dead peer")
+        need(all(d["epoch"] >= 1 for d in fo),
+             "a failover did not bump its lease epoch")
+        need(all(d["to_peer"] != 0 for d in fo),
+             "a lease failed over TO the dead peer")
+    elif fault == "net_partition":
+        retries = named("fabric.handoff_retry")
+        parts = named("fabric.partition")
+        need(len(parts) == 2,
+             f"expected 2 partitioned transfers, saw {len(parts)}")
+        need(all(d["wire"] == "tcp" and d["injected"] for d in parts),
+             "a partition verdict did not come off the tcp wire")
+        need(all(d.get("dropped_bytes", 0) > 0 for d in parts),
+             "no partial bytes actually crossed the socket before "
+             "the cut")
+        need(len(retries) == 2
+             and all(d["reason"] == "reset" for d in retries),
+             f"expected 2 retries with reason=reset, saw "
+             f"{[d.get('reason') for d in retries]}")
+        need(len(retried_drift) == 2,
+             "retry cost never reconciled through the vclock "
+             "(fabric.handoff_drift retry_ms)")
+        need(att and all(sums_ok),
+             "attribution no longer sums to the request span")
+    elif fault == "lease_split_brain":
+        fo = named("frontdoor.failover")
+        fences = named("frontdoor.fence")
+        need(len(fo) >= 1, "no lease failed over off the dead peer")
+        need(zombie_attempts >= 1,
+             "the zombie never re-asserted a moved shard")
+        need(zombie_refused == zombie_attempts,
+             f"split brain: {zombie_attempts - zombie_refused} zombie "
+             f"stale-epoch writes were ACCEPTED")
+        need(len(fences) == zombie_refused
+             and all(d["refused"] for d in fences),
+             "a refusal was not logged as a frontdoor.fence decision")
+    elif fault == "replica_stall":
+        stalls = named("fabric.heartbeat_stall")
+        need(len(stalls) == 1,
+             "the mid-step hang was never declared a stall")
+        need(evidence["heartbeat_misses"] >= 2,
+             "the watchdog skipped its hysteresis window")
+        need(stalls and stalls[0]["detect_ms"] > 0,
+             "stall detection latency was not priced")
+        need(stalls and stalls[0]["step"] > 3,
+             "stall declared at or before the hang step — the probe "
+             "false-positived where only heartbeats can see")
+        need(evidence["crashes"] == 1,
+             "the stalled replica was never fenced off")
+        need(evidence["migrations"] >= 1,
+             "no request migrated off the stalled replica")
+    elif fault == "lease_torn_write":
+        reps = named("frontdoor.lease_repair")
+        need(torn_bytes > 0, "the kill never tore any bytes")
+        need(len(reps) >= 1,
+             "the torn tail was never repaired "
+             "(frontdoor.lease_repair)")
+        need(restored_epoch == 1,
+             f"rolled back to epoch {restored_epoch}, wanted the "
+             f"last intact epoch 1")
+        need(evidence["failovers"] >= 1,
+             "failover on top of the repaired store never happened")
+
+    clear()
+    return DrillResult(
+        fault=fault, expected_tier=EXPECTED_TIER[fault], recovered=ok,
+        reason="; ".join(why), final_step=(fab.step_idx if fab else -1),
+        steps_rerun=0, wall_s=round(wall, 3),
+        evidence=evidence, decisions=decisions)
+
+
 def run_drill(fault: str, *, num_steps: int = 6, checkpoint_every: int = 2,
               workdir: str | None = None, seed: int = 0,
               batch: int = 2, device="cuda") -> DrillResult:
     """Run one fault drill end to end; never raises for a failed drill:
-    the result carries the diagnosis instead.  A serving-fabric fault
-    raises ``NotImplementedError`` naming its ROADMAP item."""
+    the result carries the diagnosis instead."""
     if fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
-    if fault not in TRAINING_FAULTS:
-        raise NotImplementedError(
-            f"the {fault!r} drill ({EXPECTED_TIER[fault]}) is not ported "
-            f"yet: it waits for the ROADMAP item '{_FABRIC}'")
+    if fault in ("dcn_latency", "dcn_jitter"):
+        # serving-plane faults: drilled against the fabric's virtual
+        # clock, not the training loop (num_steps etc. do not apply)
+        return _run_vclock_drill(fault, seed=seed, device=device)
+    if fault in ("replica_crash", "handoff_corrupt", "handoff_timeout",
+                 "frontdoor_loss", "net_partition", "lease_split_brain",
+                 "replica_stall", "lease_torn_write"):
+        # the serving fault-tolerance ladder: a mocked 2-replica fabric,
+        # recovery judged by token equality
+        return _run_fabric_fault_drill(fault, seed=seed, device=device)
     if fault in ("preempt", "device_loss"):
         return _run_supervised_drill(
             fault, num_steps=num_steps, checkpoint_every=checkpoint_every,
@@ -678,7 +1169,7 @@ def run_drill(fault: str, *, num_steps: int = 6, checkpoint_every: int = 2,
         evidence=evidence, decisions=decisions)
 
 
-def run_matrix(faults=TRAINING_FAULTS, **kw) -> list[DrillResult]:
+def run_matrix(faults=FAULTS, **kw) -> list[DrillResult]:
     return [run_drill(f, **kw) for f in faults]
 
 

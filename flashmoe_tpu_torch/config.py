@@ -17,10 +17,10 @@ and ``tp > 1`` are refused.  The mesh axes ``dp``, ``pp``,
 ``ep``, ``tp`` and ``sp`` carry no check of their own beyond JAX's (the
 mesh and the layers raise on a geometry they cannot run, as in JAX).
 Every field of JAX's config is here, so that a config file and
-``api.get_compiled_config`` read as JAX's; the knobs of later slices
-(``kv_wire_dtype`` and ``serving_mode``, "Serving fabric") raise
-``NotImplementedError`` naming their ROADMAP item unless they keep their
-defaults.  ``profile_phases`` fences the EP layers' phases for the phase
+``api.get_compiled_config`` read as JAX's; the serving fabric's knobs
+(``kv_wire_dtype``, the KV handoff's wire, and ``serving_mode``, the
+planner's pricing mode) are checked as JAX checks them.
+``profile_phases`` fences the EP layers' phases for the phase
 profiler (:mod:`flashmoe_tpu_torch.profiler.spans`) and changes no
 output.
 ``global_batch`` and ``router_jitter`` are carried as JAX carries them:
@@ -147,7 +147,7 @@ class MoEConfig:
     sp: int = 1
     pp: int = 1
 
-    # --- knobs of later slices: refused unless at their defaults ---
+    # --- the serving fabric: the KV handoff's wire, the pricing mode ---
     kv_wire_dtype: str | None = None
     serving_mode: str | None = None
     profile_phases: bool = False
@@ -174,21 +174,10 @@ class MoEConfig:
                              f"('relu', 'gelu', 'silu')")
         if self.expert_replicas:
             self._check_replicas()
-        self._check_later_slices()
-
-    def _check_later_slices(self) -> None:
-        """Refuse the knobs whose modules the port does not have yet,
-        naming their ROADMAP item."""
         if self.serving_mode not in (None, "prefill", "decode"):
             raise ValueError(
                 f"serving_mode {self.serving_mode!r} not in "
                 f"(None, 'prefill', 'decode')")
-        for knob, item in (("kv_wire_dtype", "Serving fabric"),
-                           ("serving_mode", "Serving fabric")):
-            if getattr(self, knob) not in (None, False):
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} is not ported yet: "
-                    f"it waits for the ROADMAP item '{item}'")
 
     def _check_transport(self) -> None:
         """The JAX package's checks of the expert-parallel knobs, with its
@@ -213,7 +202,8 @@ class MoEConfig:
                 "use 'collective' or 'fused'")
         from flashmoe_tpu_torch.ops import wire as _wire
 
-        for knob in ("wire_dtype", "wire_dtype_combine", "wire_dtype_dcn"):
+        for knob in ("wire_dtype", "wire_dtype_combine", "wire_dtype_dcn",
+                     "kv_wire_dtype"):
             val = getattr(self, knob)
             if val is None:
                 continue

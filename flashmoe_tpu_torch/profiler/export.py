@@ -1,7 +1,7 @@
 """Chrome-trace / Perfetto export of a :class:`PhaseTimeline` and of the
 request tracer.
 
-Counterpart of ``flashmoe_tpu/profiler/export.py:1-160, 260-312``.
+Counterpart of ``flashmoe_tpu/profiler/export.py``.
 Writes the JSON-object flavour of the Trace Event Format, which
 ``ui.perfetto.dev`` and ``chrome://tracing`` open directly:
 
@@ -12,12 +12,14 @@ Writes the JSON-object flavour of the Trace Event Format, which
 * counter tracks (``ph: "C"``) for the samples a caller takes per step
   (expert-load imbalance, flight-recorder depth);
 * per request, a track of its lifecycle spans
-  (:func:`request_trace_events`).
+  (:func:`request_trace_events`);
+* the serving fabric's fleet view: a process per pool, each request a
+  thread on the pools it visited, a flow arrow from its prefill-pool
+  span to its decode resume (:func:`fleet_trace_events`).
 
 Times are microseconds relative to each timeline's birth.
 :func:`validate_trace` checks the invariants the documents rely on; both
-writers run it before they write.  JAX's ``fleet_trace_*`` functions read
-the serving fabric's pools and wait for it (ROADMAP "Serving fabric").
+writers run it before they write.
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ import json
 from flashmoe_tpu_torch.profiler.spans import PhaseTimeline
 
 #: event types this exporter emits (a subset of the Trace Event spec);
-#: "s"/"f" are flow start/finish, which the fleet document draws (JAX's
-#: ``fleet_trace_events``; the validator accepts them)
+#: "s"/"f" are flow start/finish, which the fleet document draws
 _KNOWN_PH = ("X", "C", "M", "s", "f")
 
 
@@ -153,6 +154,106 @@ def write_request_trace(tracer, path: str, *, timelines=None,
     errors = validate_trace(doc)
     if errors:
         raise ValueError(f"malformed request-trace export: {errors[:3]}")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return doc
+
+
+#: lifecycle spans that ran in the prefill pool (the fabric's handoff
+#: prefills there; everything else is decode-replica work)
+_PREFILL_POOL_SPANS = ("serve.prefill", "serve.handoff")
+
+
+def fleet_trace_events(tracer, placement, *, prefill_pid: int = 1999,
+                       base_pid: int = 2000,
+                       replicas: int | None = None) -> list[dict]:
+    """ONE fleet view of a fabric drill: a process track per decode
+    replica (pid ``base_pid + r``) plus one for the prefill pool, each
+    request a thread (``tid = rid``) on the pool(s) it visited, and a
+    flow arrow (``ph "s"``/``"f"``, id = rid) linking the request's
+    prefill-pool span to its decode-pool resume — the cross-pool
+    journey the per-request view can't show.
+
+    ``placement``: ``{rid: decode replica}`` (``ServingFabric.
+    _placement`` / ``summary()["placement"]``)."""
+    events: list[dict] = []
+    if replicas is None:
+        replicas = (max((int(r) for r in placement.values()),
+                        default=0) + 1) if placement else 1
+    events.append({"ph": "M", "name": "process_name",
+                   "pid": prefill_pid, "tid": 0,
+                   "args": {"name": "prefill pool"}})
+    for r in range(replicas):
+        events.append({"ph": "M", "name": "process_name",
+                       "pid": base_pid + r, "tid": 0,
+                       "args": {"name": f"decode pool r{r}"}})
+    for rid in sorted(tracer.requests):
+        st = tracer.requests[rid]
+        replica = int(placement.get(rid, 0))
+        dec_pid = base_pid + replica
+        tid = int(rid)
+        label = f"request {rid}"
+        if st.trace_id:
+            label += f" [{st.trace_id}]"
+        track = tracer.request_track(rid)
+        crossed = any(s["name"] in _PREFILL_POOL_SPANS for s in track)
+        events.append({"ph": "M", "name": "thread_name", "pid": dec_pid,
+                       "tid": tid, "args": {"name": label}})
+        if crossed:
+            events.append({"ph": "M", "name": "thread_name",
+                           "pid": prefill_pid, "tid": tid,
+                           "args": {"name": label}})
+        prefill_start = None
+        first_decode = None
+        for s in track:
+            name = s["name"]
+            on_prefill = name in _PREFILL_POOL_SPANS
+            lbl = name + (" [resumed]" if s.get("resumed") else "")
+            events.append({
+                "ph": "X", "name": lbl, "cat": "fabric",
+                "ts": round(s["ts_ms"] * 1e3, 3),
+                "dur": max(round(s["dur_ms"] * 1e3, 3), 0.001),
+                "pid": prefill_pid if on_prefill else dec_pid,
+                "tid": tid,
+                "args": {"rid": rid, "trace_id": st.trace_id,
+                         "step": s.get("step"), "replica": replica},
+            })
+            if on_prefill and prefill_start is None:
+                prefill_start = s
+            if name == "serve.decode" and first_decode is None:
+                first_decode = s
+        if prefill_start is not None and first_decode is not None:
+            # the cross-pool flow: prefill-pool span -> decode resume
+            for ph, pid, ts_ms, extra in (
+                    ("s", prefill_pid, prefill_start["ts_ms"], {}),
+                    ("f", dec_pid, first_decode["ts_ms"],
+                     {"bp": "e"})):
+                events.append({
+                    "ph": ph, "id": tid, "name": "prefill->decode",
+                    "cat": "fabric", "pid": pid, "tid": tid,
+                    "ts": round(ts_ms * 1e3, 3), **extra,
+                })
+    return events
+
+
+def fleet_trace_document(tracer, placement, *,
+                         replicas: int | None = None) -> dict:
+    """The fabric-wide Perfetto document (see
+    :func:`fleet_trace_events`)."""
+    return {"traceEvents": fleet_trace_events(tracer, placement,
+                                              replicas=replicas),
+            "displayTimeUnit": "ms",
+            "otherData": {"producer": "flashmoe_tpu_torch.fabric"}}
+
+
+def write_fleet_trace(tracer, placement, path: str, *,
+                      replicas: int | None = None) -> dict:
+    """Write the fleet trace (``validate_trace``-gated like every
+    other exporter here)."""
+    doc = fleet_trace_document(tracer, placement, replicas=replicas)
+    errors = validate_trace(doc)
+    if errors:
+        raise ValueError(f"malformed fleet-trace export: {errors[:3]}")
     with open(path, "w") as f:
         json.dump(doc, f)
     return doc

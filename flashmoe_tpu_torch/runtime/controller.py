@@ -28,8 +28,9 @@ On a multi-slice job a third axis, the **wire morph**, narrows the
 two-stage exchange's cross-slice hop (``wire_dtype_dcn``) when the phase
 ledger's exchange legs dominate the step.  The fabric-facing triggers
 (:meth:`RuntimeController.observe_fabric`, :meth:`RuntimeController.
-observe_spec`) are host logic ported whole; nothing in the port feeds
-them until the serving fabric is ported.
+observe_spec`) are fed by the serving fabric
+(:class:`~flashmoe_tpu_torch.fabric.engine.ServingFabric`) once a step,
+which executes their drain and speculation verdicts.
 
 Every action starts a cooldown window, each action class has a per-job
 budget, and the skew trigger resets the moment its condition clears.

@@ -42,8 +42,12 @@ the index into a ``PRNGKey``: a request's stream does not depend on the
 batch it shares, and the verify step can recompute the canonical sample
 of any drafted position.  The live plane (the request tracer, the scrape
 server) and the SLO watchdog are wired as in JAX
-(``flashmoe_tpu/serving/engine.py:721-800, 935-991``); the fabric's
-seams are refused (:class:`ServingEngine`).
+(``flashmoe_tpu/serving/engine.py:721-800, 935-991``), and so are the
+serving fabric's seams (``:736-784, 1025-1066``): a handed-off prefill
+(``prefill_fn``), per-replica latency sketches (``replica_tag``), the
+pool plan in ``/vars`` (``pools_info``), sub-step heartbeats
+(``heartbeat_fn``) and crash migration (:meth:`ServingEngine.evacuate`,
+:meth:`ServingEngine.adopt`).
 """
 
 from __future__ import annotations
@@ -77,15 +81,6 @@ from flashmoe_tpu_torch.serving.speculate import (DraftState, SpecConfig,
 from flashmoe_tpu_torch.telemetry_plane.sketch import WindowedRate
 from flashmoe_tpu_torch.utils.telemetry import metrics as _global_metrics
 from flashmoe_tpu_torch.utils.telemetry import trace_span
-
-# the JAX engine's keywords the port refuses, with the title of the
-# ROADMAP item that ports each
-_FABRIC = "'Serving fabric'"
-_REFUSED = {
-    "prefill_fn": _FABRIC, "replica_tag": _FABRIC, "pools_info": _FABRIC,
-    "heartbeat_fn": _FABRIC,
-}
-
 
 def _refuse(what: str, item: str):
     return NotImplementedError(
@@ -519,10 +514,21 @@ class ServingEngine:
     that port (0: an ephemeral one) until :meth:`close`; ``slo``: an
     :class:`~flashmoe_tpu_torch.profiler.slo.SLOConfig` (or a watchdog)
     judging every step and every retired request's TTFT / TPOT.  The
-    token streams are the same with any of them on.  ``prefill_fn``,
-    ``replica_tag``, ``pools_info`` and ``heartbeat_fn`` (the fabric's
-    seams) raise ``NotImplementedError`` naming the ROADMAP item that
-    ports them."""
+    token streams are the same with any of them on.
+
+    The serving fabric's seams (``flashmoe_tpu/serving/engine.py:
+    739-760``): ``prefill_fn(prompt_padded, true_len, *, rid)`` replaces
+    the local prefill and honours :func:`_prefill_padded`'s contract
+    (logits [V], k_seq / v_seq [L, N_kv, T_pad, D]); a handed-off prefill
+    is always whole (``prefill_chunk`` applies to the local path only).
+    ``replica_tag`` (e.g. ``"r0"``) also keys this engine's TTFT / TPOT
+    sketches per replica; ``pools_info`` is shown as is in ``/vars``.  A
+    ``clock`` with a ``complete_step`` method (a
+    :class:`~flashmoe_tpu_torch.fabric.vclock.VirtualClock`) has its
+    decode tick charged at the end of every step.
+    ``heartbeat_fn(phase)`` is called at every phase boundary of a step
+    (``admit``, ``prefill``, ``sample``, ``decode``, ``end``): a replica
+    that hangs mid-step stops beating mid-step."""
 
     def __init__(self, params, cfg: MoEConfig,
                  serve: ServeConfig | None = None, *,
@@ -530,11 +536,6 @@ class ServingEngine:
                  tracer=None, telemetry_port=None, slo=None,
                  prefill_fn=None, replica_tag=None, pools_info=None,
                  heartbeat_fn=None):
-        given = dict(prefill_fn=prefill_fn, replica_tag=replica_tag,
-                     pools_info=pools_info, heartbeat_fn=heartbeat_fn)
-        for name, value in given.items():
-            if value is not None:
-                raise _refuse(f"ServingEngine({name}=...)", _REFUSED[name])
         if cfg.drop_tokens:
             raise ValueError(
                 "the serving engine requires a dropless config "
@@ -547,7 +548,14 @@ class ServingEngine:
         self.recorder = recorder
         self.metrics = metrics_obj if metrics_obj is not None \
             else _global_metrics
+        self._prefill_fn = prefill_fn
+        self.replica_tag = replica_tag
+        self.pools_info = pools_info
+        self._heartbeat = heartbeat_fn
         self._clock = clock if clock is not None else time.monotonic
+        # a virtual clock (duck-typed on complete_step) is also charged a
+        # decode tick at the end of every step
+        self._vclock = clock if hasattr(clock, "complete_step") else None
         from flashmoe_tpu_torch.profiler.slo import as_watchdog
 
         self.watchdog = as_watchdog(slo)
@@ -699,6 +707,8 @@ class ServingEngine:
             "completed": self.stats["completed"],
             "evictions": self.stats["evictions"],
         }
+        if self.replica_tag is not None:
+            doc["replica"] = self.replica_tag
         if self.serve.speculate is not None:
             doc["spec"] = self.spec_snapshot()
         if self.watchdog is not None:
@@ -729,6 +739,8 @@ class ServingEngine:
             },
             "quant": self.quant_info,
             "tracing": self.tracer is not None,
+            "replica": self.replica_tag,
+            "pools": self.pools_info,
         }
 
     def close(self) -> None:
@@ -769,13 +781,36 @@ class ServingEngine:
                                       None, None))
         self.stats["submitted"] += 1
 
-    def evacuate(self):
-        """The fabric's crash evacuation: not ported."""
-        raise _refuse("ServingEngine.evacuate", _FABRIC)
+    # ---- crash migration (the fabric's recovery path) ----------------
 
-    def adopt(self, entry, *, front: bool = False):
-        """The fabric's migration adoption: not ported."""
-        raise _refuse("ServingEngine.adopt", _FABRIC)
+    def evacuate(self) -> tuple:
+        """Crash evacuation (``flashmoe_tpu/serving/engine.py:1025``):
+        every active slot goes back through the eviction path (its resumed
+        prompt carries its delivered tokens, its pages free, its trace
+        step span closes), then the whole queue is handed over.  Returns
+        ``(inflight, queued)``: the evicted in-flight entries in admission
+        order, and the entries that were still queued.  The engine is
+        empty afterwards."""
+        queued = list(self.queue)
+        while self._evict_youngest():
+            pass
+        # evictions requeue at the front, youngest first: the front now
+        # reads oldest-admitted .. youngest, then the queued entries
+        inflight = list(self.queue)[:len(self.queue) - len(queued)]
+        self.queue.clear()
+        return inflight, queued
+
+    def adopt(self, entry: _QueueEntry, *, front: bool = False) -> None:
+        """Adopt a migrated queue entry from a crashed replica, keeping
+        its arrival and first-token clocks and its resumed prompt.
+        ``front=True`` resumes it ahead of local work, admittable at once
+        (this engine's step counter may trail the dead replica's)."""
+        if front:
+            entry.arrival_step = min(entry.arrival_step, self.step_idx)
+            self.queue.appendleft(entry)
+        else:
+            self.queue.append(entry)
+        self.stats["adopted"] += 1
 
     # ---- internals ---------------------------------------------------
 
@@ -843,7 +878,10 @@ class ServingEngine:
             t0 = len(req.prompt)
             t_pad = prompt_pad(t0, sv.prompt_bucket)
             chunk = sv.prefill_chunk
-            chunked = chunk is not None and t_pad > chunk
+            # a handed-off prefill is always whole: chunking applies to
+            # the local path only
+            chunked = (chunk is not None and t_pad > chunk
+                       and self._prefill_fn is None)
             n_pages = (chunk if chunked else t_pad) // sv.page_size
             # the first free slot whose shard can hold the pages (LIFO
             # alloc never partially succeeds)
@@ -877,8 +915,12 @@ class ServingEngine:
                 prompt = np.full((1, t_pad), sv.pad_token, np.int64)
                 prompt[0, :t0] = req.prompt
                 with trace_span("serve.prefill"):
-                    logits, k_seq, v_seq = _prefill_padded(
-                        self.params, self.cfg, self._tensor(prompt), t0)
+                    if self._prefill_fn is not None:
+                        logits, k_seq, v_seq = self._prefill_fn(
+                            self._tensor(prompt), t0, rid=orig.rid)
+                    else:
+                        logits, k_seq, v_seq = _prefill_padded(
+                            self.params, self.cfg, self._tensor(prompt), t0)
                     page_ids = self._tensor(self._global_pages(slot, pages))
                     store_prefill(self.cache.k_pages, k_seq, page_ids)
                     store_prefill(self.cache.v_pages, v_seq, page_ids)
@@ -1200,6 +1242,14 @@ class ServingEngine:
             self.metrics.sketch("serve.ttft_ms", ttft_ms)
         if tpot_ms is not None:
             self.metrics.sketch("serve.tpot_ms", tpot_ms)
+        # replica-keyed twins on the fabric's shared metrics object
+        if self.replica_tag is not None:
+            if ttft_ms is not None:
+                self.metrics.sketch(f"serve.{self.replica_tag}.ttft_ms",
+                                    ttft_ms)
+            if tpot_ms is not None:
+                self.metrics.sketch(f"serve.{self.replica_tag}.tpot_ms",
+                                    tpot_ms)
         if self.tracer is not None:
             self.tracer.on_retire(s.orig.rid, self.step_idx,
                                   tokens=n_tok, ttft_ms=ttft_ms,
@@ -1253,7 +1303,9 @@ class ServingEngine:
                 [self.slots[i].orig.rid for i in self._active()])
         self._mark_arrivals()
         self._admit()
+        self._beat("admit")
         self._advance_prefill()
+        self._beat("prefill")
 
         # sample each decoding slot's next token from its pending logits
         # (slots mid-chunked-prefill have none yet)
@@ -1279,6 +1331,7 @@ class ServingEngine:
                 if done:
                     self._retire(i, s)
         self.stats["tokens"] += emitted_now
+        self._beat("sample")
 
         # feed the survivors one decode step: speculative (draft + span
         # verify, possibly emitting extra tokens) when armed and anything
@@ -1308,7 +1361,12 @@ class ServingEngine:
                         self.params, self.cfg, *args)
             for i in active:
                 self.slots[i].length += 1
+        self._beat("decode")
 
+        if self._vclock is not None:
+            # the decode tick is charged inside the step window: a step
+            # lasts max(tick, its handoffs) of virtual time
+            self._vclock.complete_step()
         if self.tracer is not None:
             self.tracer.end_step()
         step_ms = (self._clock() - t0_s) * 1e3
@@ -1349,7 +1407,12 @@ class ServingEngine:
         if self.watchdog is not None:
             self.watchdog.observe_step(self.step_idx, step_ms)
         self.step_idx += 1
+        self._beat("end")
         return rec
+
+    def _beat(self, phase: str) -> None:
+        if self._heartbeat is not None:
+            self._heartbeat(phase)
 
     # ---- running to completion ---------------------------------------
 

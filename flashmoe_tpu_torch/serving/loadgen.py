@@ -1,11 +1,13 @@
 """Seeded load generation for the serving engine.
 
 Counterpart of the parts of ``flashmoe_tpu/serving/loadgen.py`` the
-engine's drills and CLI use: :func:`tiny_config`, :func:`build_requests`
-and :func:`pctl`.  Offered load is the arrival gap of the seeded trace
-(requests arrive in pairs every ``arrival_every`` engine steps).  The
-offered-load sweep (``serve_load_sweep``) belongs to the port's
-benchmark and the fabric sweeps to the serving fabric (ROADMAP).
+engine's and the fabric's drills and CLI use: :func:`tiny_config`,
+:func:`build_requests`, :func:`pctl`, and the per-replica trace split
+(:func:`split_requests`, :func:`merge_traces`).  Offered load is the
+arrival gap of the seeded trace (requests arrive in pairs every
+``arrival_every`` engine steps).  The offered-load sweeps
+(``serve_load_sweep``, ``fabric_load_sweep``, ``fabric_fault_sweep``)
+belong to the port's benchmark (ROADMAP).
 """
 
 from __future__ import annotations
@@ -63,3 +65,44 @@ def pctl(values, q: float):
         return None
     v = sorted(values)
     return round(v[min(len(v) - 1, int(q * len(v)))], 3)
+
+
+def split_requests(n: int, *, replicas: int, vocab: int,
+                   prompt_len: int, max_new: int, seed: int,
+                   arrival_every: int, temperature: float = 0.0):
+    """Deterministic per-replica trace split
+    (``flashmoe_tpu/serving/loadgen.py:297``): replica ``r``'s trace is
+    seeded from ``numpy.random.SeedSequence((seed, r))`` (JAX folds ``r``
+    into ``PRNGKey(seed)``), so N independent drill processes, one a
+    replica, generate disjoint, reproducible loads with no coordination;
+    rids are globally unique, ``rid * replicas + r``, as JAX's.  Returns
+    ``[(requests, arrivals), ...]``, one pair a replica; requests total
+    ``n`` (the remainder spreads over the lowest replica ids)."""
+    import dataclasses
+
+    if replicas < 1:
+        raise ValueError(f"replicas={replicas} must be >= 1")
+    out = []
+    for r in range(replicas):
+        count = n // replicas + (1 if r < n % replicas else 0)
+        sub = int(np.random.SeedSequence((seed, r)).generate_state(1)[0]) \
+            % (2**31 - 1)
+        reqs, arrivals = build_requests(
+            count, vocab=vocab, prompt_len=prompt_len, max_new=max_new,
+            seed=sub, arrival_every=arrival_every,
+            temperature=temperature)
+        reqs = [dataclasses.replace(q, rid=q.rid * replicas + r)
+                for q in reqs]
+        out.append((reqs, arrivals))
+    return out
+
+
+def merge_traces(splits):
+    """Merge per-replica traces back into one arrival-ordered stream
+    (ties break on rid): what a single fabric front door submits when
+    the split generated the load."""
+    merged = []
+    for reqs, arrivals in splits:
+        merged.extend(zip(arrivals, reqs))
+    merged.sort(key=lambda p: (p[0], p[1].rid))
+    return [q for _, q in merged], [a for a, _ in merged]

@@ -11,10 +11,12 @@ another order); the host-level faults behave as JAX's tests of them
 (``tests/test_chaos.py:839-899``).  JAX's drill matrix is marked slow
 there (it compiles a train step for every drill), so each of the
 port's training-ladder drills is held to that test's own assertions
-(``tests/test_chaos.py:758-781``) instead of to a JAX run.  The tests
-that call ``run_drill`` are marked slow, as the repository's lint asks
-of every drill (``flashmoe_tpu/staticcheck/lint.py``, ``slow-mark``);
-the fast gate drills through the CLI (two faults) only."""
+(``tests/test_chaos.py:758-781``) instead of to a JAX run, and each of
+the serving fabric's ten drills to the assertions of JAX's tests of it.
+The tests that call ``run_drill`` are marked slow, as the repository's
+lint asks of every drill (``flashmoe_tpu/staticcheck/lint.py``,
+``slow-mark``); the fast gates drill through the CLI (two training
+faults; the fabric's ten, each a CPU-second or less)."""
 
 import json
 import types
@@ -486,24 +488,98 @@ def test_drill_cli_exports_obs_artifacts(tmp_path, capsys):
     assert {d["fault"] for d in decisions} == {"nan_grad", "path_raise"}
 
 
-def test_drill_cli_rejects_unknown_and_fabric_faults(capsys):
+FABRIC_FAULTS = [f for f in tchaos.FAULTS if f not in tdrill.TRAINING_FAULTS]
+
+
+def test_drill_cli_rejects_unknown_and_fabric_faults(capsys, monkeypatch):
+    """Unknown faults are refused; the serving fabric's ten are accepted
+    and handed to ``run_drill`` on the asked device (two of them run in
+    the fast gate below, all ten in the slow drill tests)."""
     for argv in (["--faults", "meteor_strike"], ["--faults", ","],
                  ["--fault", "meteor_strike"]):
         with pytest.raises(SystemExit):
             chaos_main(argv + ["--device", "cpu"])
-    for fault in tchaos.FAULTS:
-        if fault not in tdrill.TRAINING_FAULTS:
-            with pytest.raises(SystemExit):
-                chaos_main(["--fault", fault, "--device", "cpu"])
-            assert "'Serving fabric'" in capsys.readouterr().err
+    capsys.readouterr()
+    asked = []
+
+    def drilled(fault, **kw):
+        asked.append((fault, kw["device"]))
+        return tdrill.DrillResult(
+            fault, tchaos.EXPECTED_TIER[fault], True, "", 0, 0, 0.0,
+            {"decision_names": []}, [])
+
+    monkeypatch.setattr(tdrill, "run_drill", drilled)
+    assert len(FABRIC_FAULTS) == 10
+    assert chaos_main(["--faults", ",".join(FABRIC_FAULTS), "--device",
+                       "cpu", "--json"]) == 0
+    assert asked == [(f, "cpu") for f in FABRIC_FAULTS]
+    assert [r["fault"] for r in json.loads(capsys.readouterr().out)] == \
+        FABRIC_FAULTS
+
+
+def test_drill_cli_drives_a_vclock_and_a_fabric_fault(tmp_path, capsys):
+    """The fast gate: ``dcn_jitter`` surfaces in the drift verdicts and
+    ``replica_crash`` migrates, each recovering at its tier, with the
+    evidence in the exported artifacts."""
+    obs = tmp_path / "obs"
+    assert chaos_main(["--fault", "dcn_jitter", "--fault", "replica_crash",
+                       "--obs-dir", str(obs), "--device", "cpu"]) == 0
+    assert "2/2 faults recovered" in capsys.readouterr().out
+    results = {r["fault"]: r for r in map(json.loads, (
+        obs / "drill_results.jsonl").read_text().splitlines())}
+    jit, crash = results["dcn_jitter"], results["replica_crash"]
+    assert jit["expected_tier"] == "monitor:handoff_drift"
+    assert jit["evidence"]["perturbed_transfers"] >= 1
+    assert crash["expected_tier"] == "fabric:migrate"
+    assert crash["evidence"]["bit_equal_to_baseline"]
+    assert crash["evidence"]["crashes"] == 1
+    assert crash["evidence"]["migrations"] >= 1
+    names = {(d["fault"], d["decision"]) for d in map(json.loads, (
+        obs / "decisions.jsonl").read_text().splitlines())}
+    assert ("dcn_jitter", "fabric.handoff_drift") in names
+    assert ("replica_crash", "fabric.migrate") in names
 
 
 @pytest.mark.slow
 def test_run_drill_refuses_fabric_and_unknown_faults():
-    for fault in tchaos.FAULTS:
-        if fault not in tdrill.TRAINING_FAULTS:
-            with pytest.raises(NotImplementedError,
-                               match="'Serving fabric'"):
-                tdrill.run_drill(fault, device="cpu")
+    """The fabric's drills run through ``run_drill`` (the unknown fault
+    stays refused), and ``run_matrix``'s default is every fault."""
+    for fault in FABRIC_FAULTS:
+        r = tdrill.run_drill(fault, device="cpu")
+        assert r.recovered, (fault, r.reason)
     with pytest.raises(ValueError, match="unknown fault"):
         tdrill.run_drill("meteor_strike", device="cpu")
+    import inspect
+
+    assert inspect.signature(tdrill.run_matrix).parameters[
+        "faults"].default == tchaos.FAULTS == jchaos.FAULTS
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("fault", FABRIC_FAULTS)
+def test_fabric_drill_holds_jax_assertions(fault):
+    """Each fabric drill against the assertions of JAX's own tests of it
+    (``tests/test_fault_fabric.py``, ``tests/test_frontdoor.py``)."""
+    r = tdrill.run_drill(fault, device="cpu")
+    ev = r.evidence
+    assert r.recovered, r.reason
+    assert r.expected_tier == jchaos.EXPECTED_TIER[fault]
+    assert ev["completed"] == 6 and ev["trace_errors"] == []
+    if fault in ("dcn_latency", "dcn_jitter"):
+        assert ev["perturbed_transfers"] >= 1
+        assert all(a is not False for a in ev["clean_agree"])
+        assert all(ev["attribution_sum_ok"])
+        return
+    assert ev["bit_equal_to_baseline"] and ev["fleet_trace_events"] > 0
+    want = {"replica_crash": ("crashes", 1),
+            "handoff_corrupt": ("corrupt", 2),
+            "handoff_timeout": ("retries", 2),
+            "net_partition": ("partitions", 2),
+            "replica_stall": ("stalls", 1),
+            "lease_torn_write": ("restored_epoch", 1)}.get(fault)
+    if want is not None:
+        assert ev[want[0]] == want[1]
+    if fault == "lease_split_brain":
+        assert ev["zombie_refused"] == ev["zombie_attempts"] >= 1
+    if fault == "frontdoor_loss":
+        assert ev["failovers"] >= 1

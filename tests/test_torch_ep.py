@@ -198,10 +198,9 @@ def test_chunk_divisor_and_config_errors():
     assert tep.resolve_moe_plan(auto.replace(ep=1)) == ("collective", None)
     # ported: the phase profiler's fences
     assert TorchConfig(**LAYER, profile_phases=True).profile_phases
-    # the knobs of later slices, by their ROADMAP titles
+    # ported with the serving fabric: its knobs construct
     for knob, val in (("kv_wire_dtype", "e4m3"), ("serving_mode", "decode")):
-        with pytest.raises(NotImplementedError, match="'Serving fabric'"):
-            TorchConfig(**LAYER, **{knob: val})
+        assert getattr(TorchConfig(**LAYER, **{knob: val}), knob) == val
     for backend in ("fused", "ragged"):
         with pytest.raises(ValueError, match="tp>1"):
             TorchConfig(**LAYER, ep=2, tp=2, moe_backend=backend)

@@ -200,21 +200,27 @@ def test_flight_recorder_offset_export_equals_jax(tmp_path):
     assert tr.export_jsonl(str(tmp_path / "t2.jsonl")) == len(tr) == 4
 
 
-@pytest.mark.parametrize("knob, value, item", [
-    ("kv_wire_dtype", "e4m3", "Serving fabric"),
-    ("serving_mode", "decode", "Serving fabric"),
-    # ported with the phase profiler: the knob constructs and round-trips
-    pytest.param("profile_phases", True, None,
+@pytest.mark.parametrize("knob, value", [
+    # ported with the serving fabric and the phase profiler: each knob
+    # constructs and round-trips (the ids name the item that ported it)
+    pytest.param("kv_wire_dtype", "e4m3",
+                 id="kv_wire_dtype-e4m3-Serving fabric"),
+    pytest.param("serving_mode", "decode",
+                 id="serving_mode-decode-Serving fabric"),
+    pytest.param("profile_phases", True,
                  id="profile_phases-True-Host-side planes"),
 ])
-def test_config_refuses_later_slices_knobs(knob, value, item):
-    if item is None:
-        cfg = TorchConfig(**{knob: value})
-        assert getattr(cfg, knob) == value
-        assert getattr(TorchConfig.from_json(json.loads(cfg.to_json())),
-                       knob) == value
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        TorchConfig(**{knob: value})
-    with pytest.raises(ValueError, match="serving_mode"):
-        TorchConfig(serving_mode="both")
+def test_config_refuses_later_slices_knobs(knob, value):
+    cfg = TorchConfig(**{knob: value})
+    assert getattr(cfg, knob) == value
+    assert getattr(TorchConfig.from_json(json.loads(cfg.to_json())),
+                   knob) == value
+    # the values JAX refuses, with its errors
+    bad = {"kv_wire_dtype": ["int4"], "serving_mode": ["both"],
+           "profile_phases": []}[knob]
+    for v in bad:
+        with pytest.raises(ValueError) as te:
+            TorchConfig(**{knob: v})
+        with pytest.raises(ValueError) as je:
+            JaxConfig(**{knob: v})
+        assert str(te.value) == str(je.value)

@@ -423,15 +423,15 @@ def test_request_submit_and_engine_errors_match_jax(weights):
     assert msgs[0] == msgs[1]
 
 
-# the JAX engine's keywords: the live plane's run (item None), the
-# fabric's seams are refused naming their ROADMAP item
-REFUSED = [("tracer", True, None),
-           ("telemetry_port", 0, None),
-           ("slo", "slo", None),
-           ("prefill_fn", lambda *a, **k: None, "Serving fabric"),
+# the JAX engine's keywords the port once refused: the live plane's and
+# the serving fabric's seams, each ported by the item named
+REFUSED = [("tracer", True, "Host-side planes"),
+           ("telemetry_port", 0, "Host-side planes"),
+           ("slo", "slo", "Host-side planes"),
+           ("prefill_fn", "prefill", "Serving fabric"),
            ("replica_tag", "r0", "Serving fabric"),
-           ("pools_info", {}, "Serving fabric"),
-           ("heartbeat_fn", lambda phase: None, "Serving fabric")]
+           ("pools_info", {"decode_ms": 1.0}, "Serving fabric"),
+           ("heartbeat_fn", "beats", "Serving fabric")]
 
 
 def _plane_run(weights, **kw):
@@ -455,34 +455,57 @@ def _plane_run(weights, **kw):
 @pytest.mark.parametrize("kw,value,item", REFUSED,
                          ids=[r[0] for r in REFUSED])
 def test_refused_keywords_name_their_roadmap_item(weights, kw, value, item):
-    if item is None:
-        # ported with the live plane: the keyword runs, and the tokens
-        # are those of the engine without it
-        from flashmoe_tpu_torch.profiler.slo import SLOConfig
+    """Each keyword runs, and the tokens are those of the engine
+    without it."""
+    from flashmoe_tpu_torch.profiler.slo import SLOConfig
 
-        if kw == "slo":
-            value = SLOConfig(step_ms=1e-6, ttft_ms=1e-6, tpot_ms=1e-6)
-        want, _ = _plane_run(weights)
-        got, eng = _plane_run(weights, **{kw: value})
-        assert got == want
-        if kw == "tracer":
-            assert eng.tracer.validate() == []
-            assert eng.stats["evictions"] > 0
-        if kw == "slo":
-            assert eng.watchdog.metrics.counters["slo.breaches"] > 0
-        if kw == "telemetry_port":
-            assert eng.telemetry is None  # closed
-        return
-    with pytest.raises(NotImplementedError, match=f"'{item}'"):
-        teng.ServingEngine(weights[1], TCFG, **{kw: value})
+    calls = []
+    if kw == "slo":
+        value = SLOConfig(step_ms=1e-6, ttft_ms=1e-6, tpot_ms=1e-6)
+    if kw == "prefill_fn":
+        def value(prompt, t0, *, rid=None):
+            calls.append(rid)
+            return teng._prefill_padded(weights[1], TCFG, prompt, t0)
+    if kw == "heartbeat_fn":
+        value = calls.append
+    want, _ = _plane_run(weights)
+    got, eng = _plane_run(weights, **{kw: value})
+    assert got == want
+    if kw == "tracer":
+        assert eng.tracer.validate() == []
+        assert eng.stats["evictions"] > 0
+    if kw == "slo":
+        assert eng.watchdog.metrics.counters["slo.breaches"] > 0
+    if kw == "telemetry_port":
+        assert eng.telemetry is None  # closed
+    if kw == "prefill_fn":
+        # every admission (the evicted requests' resumptions too)
+        assert len(calls) == 4 + eng.stats["evictions"]
+    if kw == "replica_tag":
+        assert eng.metrics.sketches["serve.r0.ttft_ms"].n == 4
+        assert eng._health_snapshot()["replica"] == "r0"
+    if kw == "pools_info":
+        assert eng._vars_snapshot()["pools"] == value
+    if kw == "heartbeat_fn":
+        assert calls == ["admit", "prefill", "sample", "decode",
+                         "end"] * eng.stats["steps"]
 
 
 def test_refused_fabric_methods_and_cli_flags(weights, capsys, tmp_path):
+    # ported with the serving fabric: an idle engine evacuates nothing,
+    # and an adopted entry is served
     eng = teng.ServingEngine(weights[1], TCFG, metrics_obj=Metrics())
-    with pytest.raises(NotImplementedError, match="'Serving fabric'"):
-        eng.evacuate()
-    with pytest.raises(NotImplementedError, match="'Serving fabric'"):
-        eng.adopt(None)
+    assert eng.evacuate() == ([], [])
+    reqs = both_requests(prompt_rows(2, 6, seed=3), 3)[1]
+    eng.submit(reqs[0])
+    eng.step()
+    inflight, queued = eng.evacuate()
+    assert len(inflight) == 1 and queued == [] and not eng.pending()
+    eng.adopt(inflight[0], front=True)
+    assert eng.stats["adopted"] == 1
+    want = teng.ServingEngine(weights[1], TCFG,
+                              metrics_obj=Metrics()).run(reqs[:1])
+    assert eng.run() == want
     # the live plane's flags run (ported with it)
     obs = tmp_path / "obs"
     assert tcli.main(["--device", "cpu", "--requests", "2", "--max-new",
