@@ -264,8 +264,8 @@ CUTS = {
                        + _B8_RELEASE)],
     # B9's K/V ring of one stage: each key block loads after the last
     # one's products
-    "b9_one_stage": [(FLASH, "constexpr int FA_STAGES = 3;",
-                      "constexpr int FA_STAGES = 1;")],
+    "b9_one_stage": [(FLASH, "constexpr int fa_stages() { return NB <= 2 ? 3 : 2; }",
+                      "constexpr int fa_stages() { return 1; }")],
     # B9's barrier waits print before they trap, as the other Hopper
     # kernels' do: a printf call inside the wgmma pipeline, so ptxas
     # serializes every wgmma of the kernel (its info C7510); B8's trap

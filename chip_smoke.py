@@ -16,7 +16,15 @@ Phases, each of which fails the run on any error:
    matmul and transposed grouped matmul of the training step, the two-pass gate's passes at the many-expert layer's widths
    (with pass 2 and without; S 4, E 300, f32 and K = 64 cases too; a
    token's pass-1 outputs alone bit for bit against the same token's in
-   S 8192; both passes twice bit for bit), and the
+   S 8192; both passes twice bit for bit; the ``skewed_routing`` point
+   armed, B4a's logit-bias operand, through ``router`` against
+   ``router_plain`` armed alike at bias 100 and 10, the biased expert in
+   every top-k, both passes bit for bit before arming and after
+   disarming, the armed launches timed beside the unarmed ones: path
+   ``gate_tiled armed``), flash attention also at D 32, 80, 96, 192 and 256
+   (bf16 and f32, T 200 and 272, GQA) and at Gemma-7B-like [4, 16, 256,
+   256] and Phi-3-mini-like [4, 32, 256, 96] widths, timed beside SDPA
+   (head dims 36 and 320 take the counted plain route), and the
    gather-fused FFN (also against the grouped FFN on the dispatched
    buffer, bit for bit).  The gate and both FFNs are timed at prefill and
    decode (the grouped FFN's decode rows also held, bit for bit, against
@@ -270,10 +278,20 @@ Phases, each of which fails the run on any error:
    same layer run without the recorder, bit for bit.  Each point a path
    (counts reset before, read after).
 
+16. loadgen (after phase 15): the offered-load sweeps of
+   ``serving/loadgen.py`` on ``tiny_config()`` (two heads of 32, B9 at
+   D 32): ``serve_load_sweep`` at 3 load points, ``fabric_load_sweep``
+   with replicas (1, 2) in process on the wall clock and on the virtual
+   clock in a runtime of 8 virtual ranks, ``fabric_fault_sweep`` on
+   ``replica_crash`` and ``handoff_corrupt`` plus the brownout record;
+   one line a record, none with ``error``; the records' points and the
+   planner's reference points appended twice to a temporary history and
+   ``observe --regression --ci`` over it, rc 0.  Each sweep a path.
+
 The second-to-last line of stdout is the kernels' JSON line (each
 kernel's launches on the main path of the slice that ported it, and, in
-``launches_by_path``, on the paths of phases 4b, 4c, 5, 6, 9, 10, 11,
-12, 13, 14 and 15 that ran it), the last
+``launches_by_path``, on the paths of phases 2, 4b, 4c, 5, 6, 9, 10,
+11, 12, 13, 14, 15 and 16 that ran it), the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -731,7 +749,18 @@ def ffn_phase(cfg, params, x):
         **{f"decode_{key}": v for key, v in dec.items()})
 
 
+def lib_flash(args) -> int:
+    """One bare ``fm_flash_attention`` call."""
+    return _build.library().fm_flash_attention(*args)
+
+
 def flash_phase():
+    """B9 against its plain version: the prefill shape, ragged T, D 64,
+    f32, every other head dim class at ragged T with GQA in bf16 and f32,
+    two published widths (Gemma-7B-like, Phi-3-mini-like) and D 32 and
+    192, each of the last four timed beside its bound and SDPA; D 36 and
+    100 on zero-padded copies; D 320 refused before any launch; then the
+    prefill shape's kernel, wrapper, device, plain and SDPA times."""
     g = torch.Generator(device="cuda").manual_seed(7)
 
     def qkv(b, n, nkv, t, d, dt):
@@ -759,6 +788,55 @@ def flash_phase():
     one("ragged_T272", *qkv(4, 32, 8, 272, 128, torch.bfloat16))
     one("d64", *qkv(2, 8, 8, 200, 64, torch.bfloat16))
     one("f32", *qkv(1, 4, 2, 100, 64, torch.float32))
+    # every head dim the kernel takes (D % 8 == 0 up to 256): NB =
+    # ceil(D / 64) boxes in bf16, ceil(D / 32) lanes' columns in f32, at
+    # ragged T with GQA
+    for d in (32, 80, 96, 192, 256):
+        for dt in (torch.bfloat16, torch.float32):
+            for t in (200, 272):
+                one(f"d{d}_T{t}", *qkv(2, 8, 2, t, d, dt))
+    # head dims off the launch's step of 8 on zero-padded copies
+    for d in (36, 100):
+        for dt in (torch.bfloat16, torch.float32):
+            one(f"d{d}_padded_T200", *qkv(2, 8, 2, 200, d, dt))
+    # past 256 the wrapper raises: no launch, no plain version in its place
+    n0 = attention.flash_attention_cuda.launches
+    qq = torch.randn(1, 2, 64, 320, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    try:
+        attention.flash_attention(qq, qq, qq)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and attention.flash_attention_cuda.launches == n0,
+          "flash: head dim 320 did not raise before any launch")
+    print("flash_attention: head dim 320 raises (no launch)")
+    by_dim = {}
+    for tag, shape, nkv_d in (
+            ("d32", (4, 32, 256, 32), 8),
+            ("phi3_mini_d96", (4, 32, 256, 96), 32),
+            ("d192", (4, 16, 256, 192), 16),
+            ("gemma_7b_d256", (4, 16, 256, 256), 16)):
+        bq, nq, tq, dq = shape
+        qs, ks, vs = qkv(bq, nq, nkv_d, tq, dq, torch.bfloat16)
+        e_d = one(tag, qs, ks, vs)
+        a_d, _o_d = attention.flash_args(qs, ks, vs)
+        check(lib_flash(a_d) == 0, f"fm_flash_attention launch {tag}")
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True)
+
+        r = dict(ms=cuda_ms(lambda: lib_flash(a_d), 200),
+                 library_ms=cuda_ms(sdpa, 200), max_abs_err=e_d,
+                 **bound(bytes_=2 * (2 * bq * nq * tq * dq
+                                     + 2 * bq * nkv_d * tq * dq),
+                         flops=4 * bq * nq * dq * tq * (tq + 1) / 2))
+        by_dim[tag] = r
+        print(f"flash_attention {tag} {list(shape)} kv heads {nkv_d} bf16 "
+              f"causal: kernel_ms={r['ms']:.5f} (bare fm_flash_attention) "
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms="
+              f"{r['library_ms']:.5f} (SDPA) ({gpu_line()})")
     b, n, t, d = q.shape
     nkv = k.shape[1]
     # the bare C call on arguments made once, the wrapper (checks, output,
@@ -785,6 +863,8 @@ def flash_phase():
         **bound(bytes_=2 * (2 * b * n * t * d + 2 * b * nkv * t * d),
                 flops=4 * b * n * d * t * (t + 1) / 2))
     rec["library_device_ms"], lib_names = device_ms(library, 50)
+    for tag, r in by_dim.items():
+        rec.update({f"{tag}_{key}": v for key, v in r.items()})
     print(f"flash_attention prefill [{b}, {n}, {t}, {d}] kv heads {nkv} "
           f"bf16 causal: kernel_ms={rec['ms']:.5f} (bare "
           f"fm_flash_attention) wrapper_ms={rec['wrapper_ms']:.5f} "
@@ -1126,15 +1206,154 @@ def check_tiled_gate(tag, x, w, cfg, need_stats):
     return err
 
 
-def gate_tiled_phase():
+#: the expert the armed two-pass gate biases
+ARMED_EXPERT = 3
+
+
+def armed_tiled_gate(x, w, cfg, paths):
+    """B4a+B4b under the armed ``skewed_routing`` bias (B4a's logit-bias
+    operand) at the many-expert layer's widths, through ``router`` (the
+    two-pass gate's route: pass 2 always runs armed, as JAX's armed
+    ``router_xla`` forms the statistics), against ``router_plain`` armed
+    alike, under PR 18's subnormal rule: at bias 100 every other
+    probability is subnormal, 0 in both, and the zeros take the lowest
+    other ids in both, so the ids are exact; at ``SLOW_SKEW_BIAS`` routing
+    flips only at near ties.  The biased expert is in every token's
+    top-k.  Both passes before arming and after disarming, bit for bit.
+    The armed launches are path ``gate_tiled armed`` (counts reset
+    before, read after).  Returns the armed launches' bare and device ms
+    and the combine weights' error."""
+    from flashmoe_tpu_torch.chaos import inject
+
+    s, e, k = x.shape[0], cfg.num_experts, cfg.expert_top_k
+    before = gate.gate_pass1_cuda(x, w, k, True)
+    before2 = gate.gate_pass2_cuda(before[0], before[1], before[2],
+                                   before[4], e)
+    c = cfg.replace(router_z_loss_coef=1e-3)
+    err = 0.0
+    reset_counts()
+    for bias in (100.0, SLOW_SKEW_BIAS):
+        inject.arm("skewed_routing", expert=ARMED_EXPERT, bias=bias)
+        try:
+            got = gate.router(x, w, c)
+            want = gate.router_plain(x, w, c)
+            logits = inject.poison_logits(reference.dot_f32(x, w))
+        finally:
+            inject.disarm("skewed_routing")
+        torch.cuda.synchronize()
+        tag = f"gate_tiled armed bias {bias:g}"
+        check(bool((got.expert_idx == ARMED_EXPERT).any(-1).all()),
+              f"{tag}: expert {ARMED_EXPERT} missing from some top-k")
+        flips = routing_flips(got.expert_idx, want.expert_idx,
+                              torch.softmax(logits, -1))
+        check(bias < 87 or torch.equal(got.expert_idx, want.expert_idx),
+              f"{tag}: ids differ from router_plain past a gap of 87")
+        # each row's (id, weight) pairs in id order on both sides: every
+        # row whose id set matches has its weights held, whatever the order
+        ig, og = got.expert_idx.sort(-1)
+        iw, ow = want.expert_idx.sort(-1)
+        same = (ig == iw).all(-1)
+        cw = max_abs(got.combine_weights.gather(-1, og)[same],
+                     want.combine_weights.gather(-1, ow)[same])
+        err = max(err, cw)
+        check(cw <= GATE_ABS_TOL,
+              f"{tag}: combine weights err {cw} on {int(same.sum())} rows")
+        own = torch.bincount(got.expert_idx.reshape(-1), minlength=e)
+        dc = int((got.expert_counts - want.expert_counts).abs().sum())
+        check(torch.equal(own, got.expert_counts) and dc <= 2 * flips,
+              f"{tag}: counts (differ from plain by {dc}, {flips} flips)")
+        pm = max_abs(got.probs_mean, want.probs_mean) \
+            / float(want.probs_mean.abs().max())
+        losses = {n: abs(float(getattr(got, n)) - float(getattr(want, n)))
+                  / abs(float(getattr(want, n)))
+                  for n in ("aux_loss", "z_loss")}
+        check(pm <= GATE_LOSS_RTOL and max(losses.values())
+              <= GATE_LOSS_RTOL, f"{tag}: probs_mean {pm}, losses {losses}")
+        print(f"{tag}: S={s} E={e} K={k} bf16 (router, B4a+B4b vs "
+              f"router_plain armed alike): ids_exact="
+              f"{torch.equal(got.expert_idx, want.expert_idx)} "
+              f"routing_flips={flips} max_abs_err={cw:.3g} (tol "
+              f"{GATE_ABS_TOL}) probs_mean_rel_err={pm:.3g} aux_rel_err="
+              f"{losses['aux_loss']:.3g} z_rel_err={losses['z_loss']:.3g} "
+              f"(tol {GATE_LOSS_RTOL}) weights held on {int(same.sum())} "
+              f"rows (ids in id order) expert {ARMED_EXPERT} in every top-k")
+    paths["gate_tiled armed"] = all_counts()
+    check(paths["gate_tiled armed"]["gate_pass1"] == 2
+          and paths["gate_tiled armed"]["gate_pass2"] == 2,
+          f"gate_tiled armed: launches {paths['gate_tiled armed']}")
+    after = gate.gate_pass1_cuda(x, w, k, True)
+    after2 = gate.gate_pass2_cuda(after[0], after[1], after[2], after[4], e)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(before + before2,
+                                                after + after2)),
+          "gate_tiled: unarmed outputs moved across an armed launch")
+    print("gate_tiled: both passes unarmed, before arming and after "
+          "disarming, equal bit for bit")
+    # the armed launches' own time beside the unarmed ones
+    lib = _build.library()
+    out, pass1 = {}, {}
+    for armed in (False, True):
+        if armed:
+            inject.arm("skewed_routing", expert=ARMED_EXPERT, bias=100.0)
+        try:
+            a1, o1, _keep = gate.gate_pass1_args(x, w, k, True)
+        finally:
+            inject.disarm("skewed_routing")
+        lg, mm, ss, _, ti = o1
+        check(lib.fm_gate_pass1(*a1) == 0, "fm_gate_pass1 launch")
+        a2, _o2, _scr = gate.gate_pass2_args(lg, mm, ss, ti)
+        check(lib.fm_gate_pass2(*a2) == 0, "fm_gate_pass2 launch")
+        tag = "armed" if armed else "unarmed"
+        pass1[tag] = (lg, mm, ss, ti)
+        for name, fn, a, word in (("gate_pass1", lib.fm_gate_pass1, a1,
+                                   "gate_pass1"),
+                                  ("gate_pass2", lib.fm_gate_pass2, a2,
+                                   "gate_pass2")):
+            ms = cuda_ms(lambda: fn(*a), 50)
+            dms = device_ms(lambda: fn(*a), 20, (word,))[0]
+            out[(name, tag)] = (ms, dms)
+            print(f"{name} {tag} S={s} E={e} K={k} bf16: kernel_ms={ms:.5f} "
+                  f"(bare C call) device_ms={fmt_ms(dms)} (profiler) "
+                  f"({gpu_line()})")
+    # what slows B4b on armed logits: pass 2 on the armed logits with the
+    # unarmed ids (subnormal exp(l - m) in every division, spread
+    # selection counts) and on the unarmed logits with the armed ids (the
+    # same K experts counted for every token, normal quotients)
+    torch.cuda.synchronize()
+    for tag, (lg, mm, ss, _) in pass1.items():
+        sub = int(((lg - mm[:, None]).exp()
+                   < torch.finfo(torch.float32).tiny).sum())
+        ids = int(torch.unique(pass1[tag][3]).numel())
+        print(f"gate_pass2 inputs {tag}: {sub} of {lg.numel()} "
+              f"exp(l - m) subnormal or 0, {ids} distinct selected ids")
+    for tag, logits_of, ids_of in (("armed logits, unarmed ids", "armed",
+                                    "unarmed"),
+                                   ("unarmed logits, armed ids", "unarmed",
+                                    "armed")):
+        lg, mm, ss, _ = pass1[logits_of]
+        a2, _o2, _scr = gate.gate_pass2_args(lg, mm, ss, pass1[ids_of][3])
+        check(lib.fm_gate_pass2(*a2) == 0, "fm_gate_pass2 launch")
+        ms = cuda_ms(lambda: lib.fm_gate_pass2(*a2), 50)
+        dms = device_ms(lambda: lib.fm_gate_pass2(*a2), 20,
+                        ("gate_pass2",))[0]
+        out[("gate_pass2", tag)] = (ms, dms)
+        print(f"gate_pass2 {tag} S={s} E={e} K={k}: kernel_ms={ms:.5f} "
+              f"(bare C call) device_ms={fmt_ms(dms)} (profiler) "
+              f"({gpu_line()})")
+    return out, err
+
+
+def gate_tiled_phase(paths):
     """The two-pass gate (B4a, B4b) at the many-expert layer's widths (S
     8192, H 2048, E 512, K 10, bf16), with pass 2 and without; at S 4
     (decode), E 300 with S 1000, the JAX tests' f32 case (E 1280, K 2, H
     128) and K = 64.  B4a's outputs for tokens alone (S 1 to 4) bit for
     bit against the same tokens' inside S 8192, both passes called twice
     bit for bit, B4b alone against its plain version on the kernel's
-    pass-1 outputs.  Times: the bare C calls, the wrappers and the
-    kernels' device time, at S 8192 and at S 4."""
+    pass-1 outputs; then the armed skew (:func:`armed_tiled_gate`, path
+    ``gate_tiled armed`` into ``paths``).  Times: the bare C calls, the
+    wrappers and the kernels' device time, at S 8192 and at S 4, and the
+    armed launches' beside the unarmed ones."""
     cfg = many_expert_cfg()
     s, h, e, k = cfg.tokens, cfg.hidden_size, cfg.num_experts, \
         cfg.expert_top_k
@@ -1238,6 +1457,18 @@ def gate_tiled_phase():
 
     pass1, pass2 = times(x)
     d1, d2 = times(x[:4].contiguous())
+    armed, armed_err = armed_tiled_gate(x, w, cfg, paths)
+    for rec, name in ((pass1, "gate_pass1"), (pass2, "gate_pass2")):
+        rec.update(unarmed_ms=armed[(name, "unarmed")][0],
+                   unarmed_device_ms=armed[(name, "unarmed")][1],
+                   armed_ms=armed[(name, "armed")][0],
+                   armed_device_ms=armed[(name, "armed")][1])
+    pass1["armed_max_abs_err"] = armed_err
+    pass2.update(
+        armed_logits_unarmed_ids_ms=armed[("gate_pass2",
+                                           "armed logits, unarmed ids")][0],
+        unarmed_logits_armed_ids_ms=armed[("gate_pass2",
+                                           "unarmed logits, armed ids")][0])
     pass1.update(name="gate_pass1", route="cuda",
                  source="flashmoe_tpu_torch/csrc/gate_tiled.cu",
                  replaces="flashmoe_tpu/ops/gate.py:223", max_abs_err=err)
@@ -4029,7 +4260,8 @@ def cli_run(paths):
                                                      "flight.jsonl"],
           f"engine cli: rc {rc}, files {files}, summary {summary}")
     print(f"engine cli: python -m flashmoe_tpu_torch.serving (defaults; "
-          f"hidden 128, f32): {json.dumps(summary)} launches={counts} "
+          f"hidden 64, two heads of 32, f32): {json.dumps(summary)} "
+          f"launches={counts} "
           f"({gpu_line()})")
 
 
@@ -6358,6 +6590,82 @@ def staticcheck_phase(paths):
     print(f"staticcheck phase_s={time.perf_counter() - t0:.2f}")
 
 
+PATH_KERNELS.update({
+    "loadgen serve": ENGINE_KERNELS,
+    "loadgen fabric": ENGINE_KERNELS,
+    "loadgen fabric vclock": ENGINE_KERNELS,
+    "loadgen faults": ENGINE_KERNELS,
+})
+
+
+def loadgen_phase(paths):
+    """Phase 16: the offered-load sweeps on the card, each a path (counts
+    reset before, read after), on ``tiny_config()`` (two heads of 32: B9
+    at D 32 on the path): ``serve_load_sweep`` at 3 load points;
+    ``fabric_load_sweep`` with replicas (1, 2) in process, on the wall
+    clock and on the virtual clock, in a runtime of 8 virtual ranks
+    (``bootstrap.initialize(devices=8)``, so the pools form);
+    ``fabric_fault_sweep`` on two faults and the brownout record.  No
+    record may carry ``error``, every request completes, the drills
+    recover and the brownout sheds.  Then the records' points and the
+    planner's reference points appended twice to a temporary history,
+    and ``observe --regression --ci`` over it must exit 0."""
+    from flashmoe_tpu_torch import observe
+    from flashmoe_tpu_torch.telemetry_plane import regression
+
+    t0 = time.perf_counter()
+    records = []
+
+    def sweep(name, fn, *a, **kw):
+        reset_counts()
+        recs = fn(*a, **kw)
+        torch.cuda.synchronize()
+        path_counts(name, paths)
+        records.extend(recs)
+        return recs
+
+    serve = sweep("loadgen serve", loadgen.serve_load_sweep, [4, 2, 1])
+    check([r["tokens"] for r in serve] == [8 * 6] * 3
+          and all(r["completed"] == 8 for r in serve),
+          f"loadgen serve: {[(r['completed'], r['tokens']) for r in serve]}")
+    bootstrap.finalize()
+    bootstrap.initialize(loadgen.tiny_config(), devices=8, device="cuda",
+                         measure=False)
+    try:
+        fab = sweep("loadgen fabric", loadgen.fabric_load_sweep, [2],
+                    replica_counts=(1, 2))
+        fab += sweep("loadgen fabric vclock", loadgen.fabric_load_sweep,
+                     [2], replica_counts=(1, 2), vclock=True)
+        faults = sweep("loadgen faults", loadgen.fabric_fault_sweep,
+                       ["replica_crash", "handoff_corrupt"])
+    finally:
+        bootstrap.finalize()
+    check(all(r["completed"] == 8 and r["tokens"] == 8 * 6 for r in fab)
+          and all(r["pools_formed"] for r in fab if r["replicas"] > 1),
+          f"loadgen fabric: {[(r['metric'], r['completed']) for r in fab]}")
+    check(all(r["recovered"] and r["bit_equal"] for r in faults[:2])
+          and faults[2]["shed"] > 0 and faults[2]["trace_errors"] == 0,
+          f"loadgen faults: {faults}")
+    for r in records:
+        check("error" not in r, f"loadgen {r['metric']}: {r.get('error')}")
+        print(f"loadgen {json.dumps(r)}")
+    with tempfile.TemporaryDirectory() as d:
+        hist = os.path.join(d, "history_torch.jsonl")
+        pts = {**regression.collect_points(records),
+               **regression.reference_points("h100")}
+        for run in ("loadgen-1", "loadgen-2"):
+            regression.append_run(hist, pts, run=run,
+                                  meta={"device": torch.cuda.get_device_name(0)})
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = observe.main(["--regression", "--ci", hist])
+    print(out.getvalue().rstrip())
+    check(rc == 0 and "all within tolerance" in out.getvalue(),
+          f"loadgen: observe --regression --ci rc {rc}")
+    print(f"loadgen phase_s={time.perf_counter() - t0:.2f} records="
+          f"{len(records)} points={len(pts)} ({gpu_line()})")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -6387,14 +6695,16 @@ def main(argv=None) -> int:
     x = torch.randn(1024, cfg.hidden_size, device="cuda", generator=g,
                     dtype=torch.bfloat16)
     tile_phase()
+    pre_paths: dict = {}  # the kernel phases' paths
     entries = [gate_phase(cfg, x, moe0["gate_w"]),
                ffn_phase(cfg, moe0, x), flash_phase(),
                res_phase(cfg, moe0, x), gmm_phase(cfg, moe0, x),
-               tgmm_phase(cfg, moe0, x), *gate_tiled_phase(),
+               tgmm_phase(cfg, moe0, x), *gate_tiled_phase(pre_paths),
                gather_phase(cfg, moe0, x)]
     capacity_phase()
     launches = serve_phase(cfg, params)
     paths, mixed = engine_phase(cfg, params)
+    paths.update(pre_paths)
     fabric_phase(cfg, params, paths, mixed)
     del mixed
     ep_entry, gmm_recompute, ep_launches, ep_paths, ep_times = ep_phase(
@@ -6404,6 +6714,7 @@ def main(argv=None) -> int:
     planner_phase(cfg, params, ep_times, paths)
     planes_phase(cfg, params, paths)
     staticcheck_phase(paths)
+    loadgen_phase(paths)
     entries.append(ep_entry)
     launches.update({k: ep_launches[k] for k in EP_KERNELS})
     del params, moe0, x

@@ -510,14 +510,12 @@ def _run_controller_drill(fault: str, *, num_steps: int,
         evidence=evidence, decisions=decisions)
 
 
-def fabric_drill_config(device="cuda"):
-    """The serving drills' model: ``loadgen.tiny_config`` (JAX's), two
-    heads of 32 on the CPU and, as the serving CLI takes it, of 64 on the
-    card, whose flash-attention kernel takes heads of 64 or 128."""
+def fabric_drill_config():
+    """The serving drills' model: ``loadgen.tiny_config()``, JAX's, two
+    heads of 32 on every device."""
     from flashmoe_tpu_torch.serving.loadgen import tiny_config
 
-    return tiny_config(
-        hidden=128 if torch.device(device).type == "cuda" else 64)
+    return tiny_config()
 
 
 def _fabric_drill_inputs(seed: int, device):
@@ -527,7 +525,7 @@ def _fabric_drill_inputs(seed: int, device):
     from flashmoe_tpu_torch.serving.engine import ServeConfig
     from flashmoe_tpu_torch.serving.loadgen import build_requests
 
-    cfg = fabric_drill_config(device)
+    cfg = fabric_drill_config()
     params = init_params(torch.Generator(device=device).manual_seed(seed),
                          cfg, device=device)
     serve = ServeConfig(max_batch=2, page_size=8, num_pages=64,
@@ -537,22 +535,6 @@ def _fabric_drill_inputs(seed: int, device):
         6, vocab=cfg.vocab_size, prompt_len=8, max_new=4, seed=seed,
         arrival_every=1)
     return cfg, params, serve, reqs, arrivals
-
-
-def _mock_two_replicas():
-    """Set ``FLASHMOE_MOCK_FABRIC=2``; returns the call that restores
-    the variable."""
-    from flashmoe_tpu_torch.fabric.topo import ENV_MOCK_FABRIC
-
-    saved = os.environ.get(ENV_MOCK_FABRIC)
-    os.environ[ENV_MOCK_FABRIC] = "2"
-
-    def restore():
-        if saved is None:
-            os.environ.pop(ENV_MOCK_FABRIC, None)
-        else:
-            os.environ[ENV_MOCK_FABRIC] = saved
-    return restore
 
 
 def _run_vclock_drill(fault: str, *, seed: int,
@@ -574,6 +556,7 @@ def _run_vclock_drill(fault: str, *, seed: int,
     corrupt the accounting."""
     from flashmoe_tpu_torch.fabric import (FrontDoor, ServingFabric,
                                            VirtualClock)
+    from flashmoe_tpu_torch.fabric.topo import set_mock_fabric
 
     # window over TRANSFER index: skip the first two handoffs so the
     # drill proves both arms (clean reconciliation AND visible drift)
@@ -582,7 +565,7 @@ def _run_vclock_drill(fault: str, *, seed: int,
     clear()
     cfg, params, serve, reqs, arrivals = _fabric_drill_inputs(seed, device)
     metrics = Metrics()
-    restore_env = _mock_two_replicas()
+    restore_env = set_mock_fabric(2)
     t0 = time.perf_counter()
     error, door, fab = None, None, None
     outputs: dict = {}
@@ -705,6 +688,7 @@ def _run_fabric_fault_drill(fault: str, *, seed: int,
         FrontDoor, FrontDoorCluster, HandoffTransport, HeartbeatConfig,
         LeaseStore, ServingFabric, StaleLeaseError, VirtualClock,
     )
+    from flashmoe_tpu_torch.fabric.topo import set_mock_fabric
     from flashmoe_tpu_torch.serving.engine import ServingEngine
 
     clear()
@@ -717,7 +701,7 @@ def _run_fabric_fault_drill(fault: str, *, seed: int,
     eng.close()
 
     metrics = Metrics()
-    restore_env = _mock_two_replicas()
+    restore_env = set_mock_fabric(2)
     t0 = time.perf_counter()
     error, fab, door, cluster, transport = None, None, None, None, None
     store, store_path = None, None

@@ -27,7 +27,7 @@
 //     warpgroups; a producer thread TMA-loads both Q tiles (3-D maps
 //     [B * heads, T, D], so rows past T are zero-filled and never taken
 //     from the next head) into one of two Q buffers, then each key block's
-//     K and V into a ring of FA_STAGES stages with a barrier each for K
+//     K and V into a ring of STAGES stages with a barrier each for K
 //     and V, so S can start before V lands and the next key blocks load
 //     while this one computes.
 //   * Products on wgmma: S = Q K^T as m64n64k16 with both operands
@@ -50,6 +50,15 @@
 //     (dead by then, 128-byte swizzled) and stores it by TMA, clipped at
 //     T; the Q buffer is refilled once both warpgroups' stores have read
 //     it.
+//   * Head dims: any D with D % 8 == 0 (a TMA row stride is a multiple of
+//     16 bytes) up to 256.  The kernel is a template on NB = ceil(D / 64),
+//     the 64-column boxes across D, and takes D at run time: the maps over
+//     q, k, v and o have D columns, so TMA fills a last box's columns past
+//     D with zeros on load (S = Q K^T and the O columns below D are
+//     unchanged; P V is m64n{64 NB}) and clips them on store, with no
+//     padded copy.  The scale is the true D's.  Shared memory per NB
+//     (FaSmem): two Q buffers and 3 K/V stages up to NB 2, two Q buffers
+//     and 2 stages at NB 3, one Q buffer and 2 stages at NB 4.
 #include "common.cuh"
 #include "hopper_gemm.cuh"
 
@@ -61,23 +70,34 @@ constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
 
 constexpr int FA_ROWS = 64;      // packed (head, query) rows of a tile
 constexpr int FA_BK = 64;        // keys of a stage
-constexpr int FA_STAGES = 3;
 constexpr int FA_CONSUMERS = 2;  // tiles of a block
 constexpr int FA_THREADS = 128 * (FA_CONSUMERS + 1);
 constexpr int FA_BOX = 64 * 64;  // bf16 elements of a 64-row x 64-column box
+constexpr int FA_MAX_D = 256;
+// K/V stages and Q buffers of NB 64-column boxes: as many as fit
+template <int NB> constexpr int fa_stages() { return NB <= 2 ? 3 : 2; }
+template <int NB> constexpr int fa_qbufs() { return NB <= 3 ? 2 : 1; }
 
-template <int D> struct FaSmem {
-  static constexpr int NB = D / 64;  // 64-column boxes across D
-  // two items' Q tiles, each tile's then its O, so that one item's loads
-  // overlap the last one's products and stores
-  bf16 q[2][FA_CONSUMERS][NB][FA_BOX];
-  bf16 k[FA_STAGES][NB][FA_BOX];
-  bf16 v[FA_STAGES][NB][FA_BOX];
-  uint64_t qfull[2], qempty[2];
-  uint64_t kfull[FA_STAGES];
-  uint64_t vfull[FA_STAGES];
-  uint64_t empty[FA_STAGES];
+template <int NB_> struct FaSmem {
+  static constexpr int NB = NB_;  // 64-column boxes across D
+  static constexpr int STAGES = fa_stages<NB>();
+  static constexpr int QB = fa_qbufs<NB>();
+  // QB items' Q tiles, each tile's then its O, so that (with two) one
+  // item's loads overlap the last one's products and stores
+  bf16 q[QB][FA_CONSUMERS][NB][FA_BOX];
+  bf16 k[STAGES][NB][FA_BOX];
+  bf16 v[STAGES][NB][FA_BOX];
+  uint64_t qfull[QB], qempty[QB];
+  uint64_t kfull[STAGES];
+  uint64_t vfull[STAGES];
+  uint64_t empty[STAGES];
 };
+// a block's shared memory, with smem_bytes' alignment slack, within the
+// 227 KB an H100 block may take
+static_assert(hg::smem_bytes<FaSmem<1>>() <= 232448, "FaSmem<1>");
+static_assert(hg::smem_bytes<FaSmem<2>>() <= 232448, "FaSmem<2>");
+static_assert(hg::smem_bytes<FaSmem<3>>() <= 232448, "FaSmem<3>");
+static_assert(hg::smem_bytes<FaSmem<4>>() <= 232448, "FaSmem<4>");
 
 // Work item i: batch b, kv head kvh, first packed head h0, first query q0
 // of its first tile.  Items go in order of decreasing q0, so the ones
@@ -111,8 +131,9 @@ __device__ __forceinline__ int fa_key_blocks(int qs, int rq, int T,
 }
 
 // S = Q K^T of one key block on wgmma (m64n64k16, both operands K-major),
-// issued and committed, not waited for: s is zeroed first.
-template <int D>
+// over NB boxes of D (the columns past D zero), issued and committed, not
+// waited for: s is zeroed first.
+template <int NB>
 __device__ __forceinline__ void fa_scores(float (&s)[32],
                                           const bf16 (*q)[FA_BOX],
                                           const bf16 (*k)[FA_BOX]) {
@@ -120,7 +141,7 @@ __device__ __forceinline__ void fa_scores(float (&s)[32],
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   hg::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < NB * 4; ++kk)
     hg::wgmma_m64n64k16(s, hg::sw128_desc(q[kk / 4]) + 2 * (kk % 4),
                         hg::sw128_desc(k[kk / 4]) + 2 * (kk % 4));
   hg::wgmma_commit();
@@ -190,17 +211,17 @@ __device__ __forceinline__ void fa_pack(const float (&s)[32],
     }
 }
 
-// O += P V on wgmma (P the register A operand, V MN-major), issued and
-// committed, not waited for
-template <int D>
-__device__ __forceinline__ void fa_pv(float (&o)[D / 2],
+// O += P V on wgmma (P the register A operand, V MN-major, NB boxes:
+// m64n{64 NB}k16), issued and committed, not waited for
+template <int NB>
+__device__ __forceinline__ void fa_pv(float (&o)[NB * 32],
                                       const uint32_t (&pa)[4][4],
                                       const bf16* v) {
   hg::wgmma_fence();
   const uint64_t dv = hg::sw128_desc_mn(v);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    hg::wgmma_rs<D>(o, pa[kk], dv + (hg::MN_K16 >> 4) * kk);
+    hg::wgmma_rs<NB * 64>(o, pa[kk], dv + (hg::MN_K16 >> 4) * kk);
   hg::wgmma_commit();
 }
 
@@ -210,11 +231,11 @@ __device__ __forceinline__ void fa_pv(float (&o)[D / 2],
 // released once its P V has read it.  (Issuing the next block's S ahead
 // of this block's P V, to run the softmax under P V, made ptxas
 // serialize every wgmma of the kernel, its info C7514, and ran slower.)
-template <int D>
-__device__ __forceinline__ void fa_tile(FaSmem<D>& sm,
+template <int NB>
+__device__ __forceinline__ void fa_tile(FaSmem<NB>& sm,
                                         const bf16 (*q)[FA_BOX],
                                         hg::RingPos& pos, int nkb_w, int qs,
-                                        float (&o)[D / 2], float (&l_i)[2],
+                                        float (&o)[NB * 32], float (&l_i)[2],
                                         const int (&qrow)[2], int T,
                                         float scale, int causal, int tid) {
   const int lane = tid % 32;
@@ -222,7 +243,7 @@ __device__ __forceinline__ void fa_tile(FaSmem<D>& sm,
   uint32_t pa[4][4];
   for (int kb = 0; kb < nkb_w; ++kb) {
     hg::mbar_wait<false>(&sm.kfull[pos.stage], pos.phase);
-    fa_scores<D>(s, q, sm.k[pos.stage]);
+    fa_scores<NB>(s, q, sm.k[pos.stage]);
     hg::wgmma_wait<0>();
     hg::fence_acc(s);
     // whether the block reaches past T or past the tile's first query
@@ -232,40 +253,41 @@ __device__ __forceinline__ void fa_tile(FaSmem<D>& sm,
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < NB * 8; ++j) {
         o[4 * j + 2 * h] *= alpha[h];
         o[4 * j + 2 * h + 1] *= alpha[h];
       }
     fa_pack(s, pa);
     hg::mbar_wait<false>(&sm.vfull[pos.stage], pos.phase);
-    fa_pv<D>(o, pa, sm.v[pos.stage][0]);
+    fa_pv<NB>(o, pa, sm.v[pos.stage][0]);
     hg::wgmma_wait<0>();  // P V has read the stage
     hg::fence_acc(o);
     if (tid == 0) hg::mbar_arrive(&sm.empty[pos.stage]);
-    pos.next<FA_STAGES>();
+    pos.next<FaSmem<NB>::STAGES>();
   }
 }
 
-template <int D>
+template <int NB>
 __global__ void __launch_bounds__(FA_THREADS, 1)
 flash_hopper(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap to, int B, int N, int NKV,
              int T, int P, float scale, int causal) {
-  constexpr int NB = FaSmem<D>::NB;
+  using Smem = FaSmem<NB>;
+  constexpr int STAGES = Smem::STAGES, QB = Smem::QB;
   extern __shared__ unsigned char fa_raw[];
-  FaSmem<D>& sm = hg::smem_at<FaSmem<D>>(fa_raw);
+  Smem& sm = hg::smem_at<Smem>(fa_raw);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int G = N / NKV, rq = FA_ROWS / P;
   const int nqb = (T + FA_CONSUMERS * rq - 1) / (FA_CONSUMERS * rq);
   const int items = nqb * B * NKV * (G / P);
   if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < QB; ++b) {
       hg::mbar_init(&sm.qfull[b], 1);
       hg::mbar_init(&sm.qempty[b], FA_CONSUMERS);
     }
-    for (int s = 0; s < FA_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       hg::mbar_init(&sm.kfull[s], 1);
       hg::mbar_init(&sm.vfull[s], 1);
       hg::mbar_init(&sm.empty[s], FA_CONSUMERS);
@@ -284,9 +306,9 @@ flash_hopper(const __grid_constant__ CUtensorMap tq,
       const FaItem w0 = fa_item(it, B, NKV, G, P, nqb);
       // the Q tiles of the consumers that hold a query (P boxes of rq
       // rows in each 64-column box), into the item's Q buffer once both
-      // consumers have stored the item two back from it
-      const int buf = j & 1;
-      hg::mbar_wait<false>(&sm.qempty[buf], ((j >> 1) & 1) ^ 1);
+      // consumers have stored the item QB back from it
+      const int buf = j % QB;
+      hg::mbar_wait<false>(&sm.qempty[buf], ((j / QB) & 1) ^ 1);
       int tiles = 0, nkb = 0;
       for (int w = 0; w < FA_CONSUMERS; ++w) {
         tiles += w0.q0 + w * rq < T;
@@ -311,7 +333,7 @@ flash_hopper(const __grid_constant__ CUtensorMap tq,
         for (int c = 0; c < NB; ++c)
           hg::tma_load_3d(sm.v[pos.stage][c], &tv, &sm.vfull[pos.stage],
                           64 * c, kb * FA_BK, kvrow);
-        pos.next<FA_STAGES>();
+        pos.next<STAGES>();
       }
     }
     return;
@@ -323,7 +345,7 @@ flash_hopper(const __grid_constant__ CUtensorMap tq,
     const int it = fa_walk(j, blockIdx.x, gridDim.x);
     if (it >= items) break;
     const FaItem w0 = fa_item(it, B, NKV, G, P, nqb);
-    const int buf = j & 1;
+    const int buf = j % QB;
     int nkb = 0;
     for (int w = 0; w < FA_CONSUMERS; ++w)
       nkb = max(nkb, fa_key_blocks(w0.q0 + w * rq, rq, T, causal));
@@ -334,14 +356,14 @@ flash_hopper(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       qrow[h] = qs + (warp * 16 + lane / 4 + 8 * h) % rq;
-    float o[D / 2];  // the m64n{D} output accumulator
+    float o[NB * 32];  // the m64n{64 NB} output accumulator
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < NB * 32; ++i) o[i] = 0.f;
     float l_i[2] = {0.f, 0.f};
     if (nkb_w > 0) {
-      hg::mbar_wait<false>(&sm.qfull[buf], (j >> 1) & 1);
-      fa_tile<D>(sm, sm.q[buf][wg], pos, nkb_w, qs, o, l_i, qrow, T, scale,
-                 causal, tid);
+      hg::mbar_wait<false>(&sm.qfull[buf], (j / QB) & 1);
+      fa_tile<NB>(sm, sm.q[buf][wg], pos, nkb_w, qs, o, l_i, qrow, T, scale,
+                  causal, tid);
     }
     for (int kb = nkb_w; kb < nkb; ++kb) {
       // past the tile's last key block: wait out the stage, keeping the
@@ -351,17 +373,18 @@ flash_hopper(const __grid_constant__ CUtensorMap tq,
       hg::mbar_wait<false>(&sm.vfull[pos.stage], pos.phase);
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
       if (tid == 0) hg::mbar_arrive(&sm.empty[pos.stage]);
-      pos.next<FA_STAGES>();
+      pos.next<STAGES>();
     }
     if (nkb_w > 0) {
       // O = acc / max(l, 1e-30) in bf16 into the tile's Q boxes (128-byte
       // swizzled rows), then one TMA store per head and 64-column box
+      // (the columns past D clipped)
       char* box = reinterpret_cast<char*>(sm.q[buf][wg]);
       float lmax[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) lmax[h] = fmaxf(l_i[h], 1e-30f);
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj)
+      for (int jj = 0; jj < NB * 8; ++jj)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = warp * 16 + lane / 4 + 8 * h;
@@ -407,10 +430,10 @@ inline int flash_sms() {
   return sms[dev];
 }
 
-template <int D>
+template <int NB>
 int flash_hopper_launch(const void* q, const void* k, const void* v, void* o,
-                        int B, int N, int NKV, int T, float scale, int causal,
-                        cudaStream_t stream) {
+                        int B, int N, int NKV, int T, int D, float scale,
+                        int causal, cudaStream_t stream) {
   const int P = flash_pack(N, NKV), rq = FA_ROWS / P;
   CUtensorMap tq, tk, tv, to;
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -426,15 +449,15 @@ int flash_hopper_launch(const void* q, const void* k, const void* v, void* o,
       !hg::make_map(&tv, bf, v, 3, kd, st, kb) ||
       !hg::make_map(&to, bf, o, 3, qd, st, qb))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = hg::smem_bytes<FaSmem<D>>();
+  const size_t smem = hg::smem_bytes<FaSmem<NB>>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_hopper<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_hopper<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nqb = (T + FA_CONSUMERS * rq - 1) / (FA_CONSUMERS * rq);
   const int items = nqb * B * NKV * (N / NKV / P);
   const int grid = min(items, flash_sms());
-  flash_hopper<D><<<grid, FA_THREADS, smem, stream>>>(
+  flash_hopper<NB><<<grid, FA_THREADS, smem, stream>>>(
       tq, tk, tv, to, B, N, NKV, T, P, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -442,17 +465,28 @@ int flash_hopper_launch(const void* q, const void* k, const void* v, void* o,
 // ---- f32: SIMT -------------------------------------------------------------
 //
 // One warp per query row, 8 rows a block, 32-key tiles in shared memory;
-// lane j scores key j of the tile, lanes split D for P . V.
+// lane j scores key j of the tile, lanes split D for P . V: NPL = ceil(D /
+// 32) columns a lane, the ones past D zero in shared memory and never
+// stored.
 constexpr int F32_ROWS = 8, F32_KT = 32;
 
-template <int D>
+template <int NPL> constexpr int f32_smem() {
+  return (F32_ROWS * NPL * 32 + F32_KT * (NPL * 32 + 1) +
+          F32_KT * NPL * 32) * (int)sizeof(float);
+}
+
+template <int NPL>
 __global__ void __launch_bounds__(F32_ROWS * 32)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int N, int NKV,
-          int T, float scale, int causal) {
-  __shared__ float Qs[F32_ROWS][D];
-  __shared__ float Ks[F32_KT][D + 1];
-  __shared__ float Vs[F32_KT][D];
+          int T, int D, float scale, int causal) {
+  constexpr int DP = NPL * 32;  // D padded to the lanes' columns
+  extern __shared__ float f32_raw[];
+  float (*Qs)[DP] = reinterpret_cast<float (*)[DP]>(f32_raw);
+  float (*Ks)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(
+      f32_raw + F32_ROWS * DP);
+  float (*Vs)[DP] = reinterpret_cast<float (*)[DP]>(
+      f32_raw + F32_ROWS * DP + F32_KT * (DP + 1));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, b = bh / N, n = bh % N;
   const int kvh = n / (N / NKV);
@@ -460,10 +494,9 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + (size_t)bh * T * D;
   const float* kb = k + (size_t)(b * NKV + kvh) * T * D;
   const float* vb = v + (size_t)(b * NKV + kvh) * T * D;
-  for (int d = lane; d < D; d += 32)
-    Qs[warp][d] = row < T ? qb[(size_t)row * D + d] : 0.f;
+  for (int d = lane; d < DP; d += 32)
+    Qs[warp][d] = row < T && d < D ? qb[(size_t)row * D + d] : 0.f;
 
-  constexpr int NPL = D / 32;
   float acc[NPL];
 #pragma unroll
   for (int i = 0; i < NPL; ++i) acc[i] = 0.f;
@@ -471,10 +504,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int kend = causal ? min(T, q0 + F32_ROWS) : T;
   for (int k0 = 0; k0 < kend; k0 += F32_KT) {
     __syncthreads();
-    for (int i = threadIdx.x; i < F32_KT * D; i += F32_ROWS * 32) {
-      const int kr = i / D, d = i % D, key = k0 + kr;
-      Ks[kr][d] = key < T ? kb[(size_t)key * D + d] : 0.f;
-      Vs[kr][d] = key < T ? vb[(size_t)key * D + d] : 0.f;
+    for (int i = threadIdx.x; i < F32_KT * DP; i += F32_ROWS * 32) {
+      const int kr = i / DP, d = i % DP, key = k0 + kr;
+      const bool in = key < T && d < D;
+      Ks[kr][d] = in ? kb[(size_t)key * D + d] : 0.f;
+      Vs[kr][d] = in ? vb[(size_t)key * D + d] : 0.f;
     }
     __syncthreads();
     const int key = k0 + lane;
@@ -499,36 +533,55 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
 #pragma unroll
     for (int i = 0; i < NPL; ++i)
-      o[(size_t)bh * T * D + (size_t)row * D + lane + 32 * i] = acc[i] * inv;
+      if (lane + 32 * i < D)
+        o[(size_t)bh * T * D + (size_t)row * D + lane + 32 * i] =
+            acc[i] * inv;
   }
 }
 
-template <int D>
-int flash_launch(int is_bf16, const void* q, const void* k, const void* v,
-                 void* o, int B, int N, int NKV, int T, float scale,
-                 int causal, cudaStream_t stream) {
-  if (is_bf16)
-    return flash_hopper_launch<D>(q, k, v, o, B, N, NKV, T, scale, causal,
-                                  stream);
+template <int NPL>
+int flash_f32_launch(const void* q, const void* k, const void* v, void* o,
+                     int B, int N, int NKV, int T, int D, float scale,
+                     int causal, cudaStream_t stream) {
+  constexpr int smem = f32_smem<NPL>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + F32_ROWS - 1) / F32_ROWS, B * N);
-  flash_f32<D><<<grid, F32_ROWS * 32, 0, stream>>>(
+  flash_f32<NPL><<<grid, F32_ROWS * 32, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, N, NKV, T,
-      scale, causal);
+      D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace fm
 
-// q/o [B, N, T, D], k/v [B, NKV, T, D] (NKV divides N), D in {64, 128}.
+// q/o [B, N, T, D], k/v [B, NKV, T, D] (NKV divides N), D % 8 == 0 and
+// 8 <= D <= 256.
 extern "C" int fm_flash_attention(int is_bf16, const void* q, const void* k,
                                   const void* v, void* o, int B, int N,
                                   int NKV, int T, int D, float scale,
                                   int causal, cudaStream_t stream) {
-  if (D == 64)
-    return fm::flash_launch<64>(is_bf16, q, k, v, o, B, N, NKV, T, scale,
-                                causal, stream);
-  if (D == 128)
-    return fm::flash_launch<128>(is_bf16, q, k, v, o, B, N, NKV, T, scale,
-                                 causal, stream);
+  if (D < 8 || D > fm::FA_MAX_D || D % 8) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    switch ((D + 63) / 64) {
+#define FM_FLASH_NB(NB)                                                    \
+  case NB:                                                                 \
+    return fm::flash_hopper_launch<NB>(q, k, v, o, B, N, NKV, T, D, scale, \
+                                       causal, stream);
+      FM_FLASH_NB(1) FM_FLASH_NB(2) FM_FLASH_NB(3) FM_FLASH_NB(4)
+#undef FM_FLASH_NB
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  switch ((D + 31) / 32) {
+#define FM_FLASH_NPL(NPL)                                                   \
+  case NPL:                                                                 \
+    return fm::flash_f32_launch<NPL>(q, k, v, o, B, N, NKV, T, D, scale,    \
+                                     causal, stream);
+    FM_FLASH_NPL(1) FM_FLASH_NPL(2) FM_FLASH_NPL(3) FM_FLASH_NPL(4)
+    FM_FLASH_NPL(5) FM_FLASH_NPL(6) FM_FLASH_NPL(7) FM_FLASH_NPL(8)
+#undef FM_FLASH_NPL
+  }
   return (int)cudaErrorInvalidValue;
 }

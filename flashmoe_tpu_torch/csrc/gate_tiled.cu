@@ -61,6 +61,19 @@
 // the spill from the fragments 1.1x slower than through TMA (cut
 // b4_spill_direct).
 //
+// An armed logit bias (bias_e >= 0, the skewed_routing chaos point; B1
+// takes the same operand, gate.cu) is added to column bias_e of the f32
+// logits before the spill, the online (m, se) and the selection rounds, so
+// pass 2 reads the biased logits.  An armed launch also keeps the router's
+// rule for subnormal probabilities (router_plain, gate.cu): a selected
+// probability below the smallest normal f32 is 0, and those zeros go to
+// the lowest expert ids among the ones whose probability is below it.
+// The list holds every expert of normal probability when it has fewer
+// than K of them, and the lowest ids below it lie among experts 0..K-1,
+// so the launch keeps the first K logits of each token ([S, K] in
+// `head`) and reads them back once (m, se) are final.  Unarmed, neither
+// step runs and the outputs are the same bits as without the operand.
+//
 // Pass 1, f32: one block of 128 threads per 64-token tile on
 // gemm_tile.cuh's SIMT tile (TF32 would miss the f32 tolerance), looping
 // over 64-wide expert tiles; the carried top-k in shared memory, where
@@ -78,6 +91,7 @@
 // fixed shuffle tree), so the final reduction is spread over the chunks'
 // blocks: no float atomics, repeated calls equal bit for bit, counts
 // exact.
+#include <cfloat>
 #include <climits>
 #include <cmath>
 
@@ -92,12 +106,26 @@ constexpr int TILED_KMAX = 64;  // the merge of 2K candidates, 2K <= 128
 
 constexpr int P1_ROWS = FBM;   // tokens per pass-1 block
 
+// An armed launch's zeros: from entry kk of a token's list on, the lowest
+// expert ids whose probability exp(l - m) / den lies below the smallest
+// normal f32, from the token's first K logits hd, each with probability
+// 0.  Entries 0..kk-1 hold every expert of normal probability, so K - kk
+// such ids lie among experts 0..K-1.
+__device__ __forceinline__ void g1_zeros(const float* hd, float m, float den,
+                                         int K, int kk, float* p, int* ids) {
+  for (int j = 0; j < K && kk < K; ++j)
+    if (expf(hd[j] - m) / den < FLT_MIN) {
+      p[kk] = 0.f;
+      ids[kk++] = j;
+    }
+}
+
 __global__ void __launch_bounds__(FTHREADS)
 gate_pass1_simt(const float* __restrict__ x, const float* __restrict__ w,
-                int S, int H, int E, int PX, int K,
-                float* __restrict__ logits, float* __restrict__ m_out,
-                float* __restrict__ se_out, float* __restrict__ top_p,
-                int* __restrict__ top_i) {
+                int S, int H, int E, int PX, int K, int bias_e, float bias,
+                float* __restrict__ head, float* __restrict__ logits,
+                float* __restrict__ m_out, float* __restrict__ se_out,
+                float* __restrict__ top_p, int* __restrict__ top_i) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Cs = reinterpret_cast<float*>(smem);  // GEMM operands, then logits
   float* tv = reinterpret_cast<float*>(smem + FFN_SMEM);  // [64][K]
@@ -117,6 +145,10 @@ gate_pass1_simt(const float* __restrict__ x, const float* __restrict__ w,
     ffn_mainloop<1, false>(x + (size_t)s0 * H, H, B, PX, Cs);
     __syncthreads();
     const int ne = min(FBN, E - e0);  // columns past E are padding
+    if (bias_e >= e0 && bias_e < e0 + ne) {  // the same in the whole block
+      if (tid < P1_ROWS) Cs[tid * LDC + bias_e - e0] += bias;
+      __syncthreads();
+    }
     if (logits != nullptr)
       for (int i = tid; i < P1_ROWS * FBN; i += FTHREADS) {
         const int rr = i / FBN, c = i % FBN;
@@ -124,6 +156,8 @@ gate_pass1_simt(const float* __restrict__ x, const float* __restrict__ w,
           logits[(size_t)(s0 + rr) * E + e0 + c] = Cs[rr * LDC + c];
       }
     const float* row = Cs + r * LDC;
+    if (head != nullptr && e0 == 0 && half == 0 && s0 + r < S)
+      for (int c = 0; c < K; ++c) head[(size_t)(s0 + r) * K + c] = row[c];
     const int c0 = half * (FBN / 2), c1 = min(c0 + FBN / 2, ne);
     float mt = -1e30f;
     for (int c = c0; c < c1; ++c) mt = fmaxf(mt, row[c]);
@@ -154,24 +188,30 @@ gate_pass1_simt(const float* __restrict__ x, const float* __restrict__ w,
     m_out[s] = m_run;
     se_out[s] = se_run;
     const float den = fmaxf(se_run, 1e-30f);
-    for (int kk = 0; kk < K; ++kk) {
-      top_p[(size_t)s * K + kk] = expf(v[kk] - m_run) / den;
+    int kk = 0;
+    for (; kk < K; ++kk) {
+      const float p = expf(v[kk] - m_run) / den;
+      if (head != nullptr && p < FLT_MIN) break;
+      top_p[(size_t)s * K + kk] = p;
       top_i[(size_t)s * K + kk] = id[kk];
     }
+    if (kk < K) g1_zeros(head + (size_t)s * K, m_run, den, K, kk,
+                         top_p + (size_t)s * K, top_i + (size_t)s * K);
   }
 }
 
 int pass1_simt_launch(const void* x, const void* w, int S, int H, int E,
-                      int PX, int K, float* logits, float* m, float* se,
-                      float* top_p, int* top_i, cudaStream_t stream) {
+                      int PX, int K, int bias_e, float bias, float* head,
+                      float* logits, float* m, float* se, float* top_p,
+                      int* top_i, cudaStream_t stream) {
   const int bytes = FFN_SMEM + 2 * P1_ROWS * K * 4;
   cudaError_t err = cudaFuncSetAttribute(
       gate_pass1_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int nb = (S + P1_ROWS - 1) / P1_ROWS;
   gate_pass1_simt<<<nb, FTHREADS, bytes, stream>>>(
-      (const float*)x, (const float*)w, S, H, E, PX, K, logits, m, se, top_p,
-      top_i);
+      (const float*)x, (const float*)w, S, H, E, PX, K, bias_e, bias, head,
+      logits, m, se, top_p, top_i);
   return (int)cudaGetLastError();
 }
 
@@ -405,6 +445,7 @@ template <int STAGES>
 __device__ __forceinline__ void g1_merge(const G1Smem<STAGES>& sm,
                                          const float* lv, const int* li,
                                          int row, int s, int K,
+                                         const float* head,
                                          float* __restrict__ m_out,
                                          float* __restrict__ se_out,
                                          float* __restrict__ top_p,
@@ -421,15 +462,19 @@ __device__ __forceinline__ void g1_merge(const G1Smem<STAGES>& sm,
   const int* i0 = li + (size_t)row * K;
   const int* i1 = li + (size_t)(G1_ROWS + row) * K;
   const int n0 = sm.n[0][row], n1 = sm.n[1][row];
-  int a = 0, b = 0;
-  for (int kk = 0; kk < K; ++kk) {
+  int a = 0, b = 0, kk = 0;
+  for (; kk < K; ++kk) {
     const bool first = b >= n1 || (a < n0 && g1_above(v0[a], i0[a], v1[b],
                                                        i1[b]));
     const float v = first ? v0[a] : v1[b];
+    const float p = expf(v - m) / den;
+    if (head != nullptr && p < FLT_MIN) break;  // the rest are below too
     const int id = first ? i0[a++] : i1[b++];
-    top_p[(size_t)s * K + kk] = expf(v - m) / den;
+    top_p[(size_t)s * K + kk] = p;
     top_i[(size_t)s * K + kk] = id;
   }
+  if (kk < K) g1_zeros(head + (size_t)s * K, m, den, K, kk,
+                       top_p + (size_t)s * K, top_i + (size_t)s * K);
 }
 
 template <int STAGES>
@@ -437,7 +482,9 @@ __global__ void __launch_bounds__(G1_THREADS, 1)
 gate_pass1_hopper(const __grid_constant__ CUtensorMap tx,
                   const __grid_constant__ CUtensorMap tw,
                   const __grid_constant__ CUtensorMap tl, int S, int H,
-                  int E, int K, float* __restrict__ logits, int spill_tma,
+                  int E, int K, int bias_e, float bias,
+                  float* __restrict__ head, float* __restrict__ logits,
+                  int spill_tma,
                   float* __restrict__ m_out, float* __restrict__ se_out,
                   float* __restrict__ top_p, int* __restrict__ top_i) {
   extern __shared__ unsigned char g1_raw[];
@@ -483,6 +530,29 @@ gate_pass1_hopper(const __grid_constant__ CUtensorMap tx,
       }
       float d[G1_COLS / 2];
       g1_products<STAGES>(sm, pos, nk, wg, tid, d);
+      // the armed bias on column bias_e, held by the threads whose
+      // fragments map to it (d[4 j + 2 h + i]: row r + 8 h, column n0 + 8 j
+      // + 2 (lane % 4) + i, the map the spill's staging boxes use)
+      if (bias_e >= n0 && bias_e < n0 + G1_COLS) {
+#pragma unroll
+        for (int j = 0; j < G1_COLS / 8; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (n0 + 8 * j + 2 * (lane % 4) + q % 2 == bias_e)
+              d[4 * j + q] += bias;
+      }
+      // an armed launch keeps each token's first K logits (K <= 64: all in
+      // warpgroup 0's columns of the first expert tile)
+      if (head != nullptr && n0 == 0) {
+#pragma unroll
+        for (int j = 0; j < G1_COLS / 8; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int c = 8 * j + 2 * (lane % 4) + q % 2;
+            const int s = row0 + r + 8 * (q / 2);
+            if (c < K && s < S) head[(size_t)s * K + c] = d[4 * j + q];
+          }
+      }
       if (logits != nullptr) {
         if (spill_tma) {
           hg::store_f32<G1_COLS>(d, sm.out[wg][0], sm.out[wg][1], &tl, row0,
@@ -516,8 +586,8 @@ gate_pass1_hopper(const __grid_constant__ CUtensorMap tx,
     asm volatile("bar.sync %0, %1;\n" ::"r"(G1_BAR), "n"(128 * G1_CONSUMERS));
     const int ct = wg * 128 + tid;  // one thread a row
     if (ct < G1_ROWS && row0 + ct < S)
-      g1_merge<STAGES>(sm, lv, li, ct, row0 + ct, K, m_out, se_out, top_p,
-                       top_i);
+      g1_merge<STAGES>(sm, lv, li, ct, row0 + ct, K, head, m_out, se_out,
+                       top_p, top_i);
     // the lists are read before the next item writes them
     asm volatile("bar.sync %0, %1;\n" ::"r"(G1_BAR), "n"(128 * G1_CONSUMERS));
   }
@@ -526,8 +596,9 @@ gate_pass1_hopper(const __grid_constant__ CUtensorMap tx,
 
 template <int STAGES>
 int pass1_hopper_launch(const void* x, const void* w, int S, int H, int E,
-                        int PX, int K, float* logits, float* m, float* se,
-                        float* top_p, int* top_i, cudaStream_t stream) {
+                        int PX, int K, int bias_e, float bias, float* head,
+                        float* logits, float* m, float* se, float* top_p,
+                        int* top_i, cudaStream_t stream) {
   CUtensorMap tx, tw, tl;
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint64_t xd[2] = {(cuuint64_t)H, (cuuint64_t)S};
@@ -560,7 +631,8 @@ int pass1_hopper_launch(const void* x, const void* w, int S, int H, int E,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int tiles = (S + G1_ROWS - 1) / G1_ROWS;
   gate_pass1_hopper<STAGES><<<min(tiles, sms), G1_THREADS, smem, stream>>>(
-      tx, tw, tl, S, H, E, K, logits, spill_tma, m, se, top_p, top_i);
+      tx, tw, tl, S, H, E, K, bias_e, bias, head, logits, spill_tma, m, se,
+      top_p, top_i);
   return (int)cudaGetLastError();
 }
 
@@ -684,24 +756,30 @@ gate_pass2(const float* __restrict__ logits, const float* __restrict__ m,
 // x [S, H]; w [H, PX].  bf16: PX >= E with PX % 8 == 0 (the map's
 // 16-byte row stride; columns past E are ignored), x read in place; f32:
 // x [ceil(S / 64) * 64, H] (rows past S are read, never reported) and PX a
-// multiple of 64.  H % 64 == 0, 1 <= K <= min(E, 64).  Outputs: logits
-// f32 [S, E] (null: not written), m and se f32 [S], top_p f32 [S, K], top_i
-// i32 [S, K].
+// multiple of 64.  H % 64 == 0, 1 <= K <= min(E, 64).  bias_e: the expert
+// whose logit gets `bias` (-1: none); an armed launch (bias_e >= 0) takes
+// head, f32 scratch [S, K], and keeps the router's rule for subnormal
+// probabilities.  Outputs: logits f32 [S, E] (null: not written), m and se
+// f32 [S], top_p f32 [S, K], top_i i32 [S, K].
 extern "C" int fm_gate_pass1(int is_bf16, const void* x, const void* w,
-                             int S, int H, int E, int PX, int K,
-                             float* logits, float* m, float* se,
-                             float* top_p, int* top_i, cudaStream_t stream) {
-  if (K < 1 || K > fm::TILED_KMAX || K > E) return (int)cudaErrorInvalidValue;
+                             int S, int H, int E, int PX, int K, int bias_e,
+                             float bias, float* head, float* logits,
+                             float* m, float* se, float* top_p, int* top_i,
+                             cudaStream_t stream) {
+  if (K < 1 || K > fm::TILED_KMAX || K > E || bias_e >= E ||
+      (bias_e >= 0) != (head != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (!is_bf16)
-    return fm::pass1_simt_launch(x, w, S, H, E, PX, K, logits, m, se, top_p,
-                                 top_i, stream);
+    return fm::pass1_simt_launch(x, w, S, H, E, PX, K, bias_e, bias, head,
+                                 logits, m, se, top_p, top_i, stream);
   if (PX < E || PX % 8) return (int)cudaErrorInvalidValue;
   // a ring of 4 stages leaves room for lists of K <= 32, 3 for K <= 64
   if (K <= 32)
-    return fm::pass1_hopper_launch<4>(x, w, S, H, E, PX, K, logits, m, se,
-                                      top_p, top_i, stream);
-  return fm::pass1_hopper_launch<3>(x, w, S, H, E, PX, K, logits, m, se,
-                                    top_p, top_i, stream);
+    return fm::pass1_hopper_launch<4>(x, w, S, H, E, PX, K, bias_e, bias,
+                                      head, logits, m, se, top_p, top_i,
+                                      stream);
+  return fm::pass1_hopper_launch<3>(x, w, S, H, E, PX, K, bias_e, bias, head,
+                                    logits, m, se, top_p, top_i, stream);
 }
 
 // logits f32 [S, E], m and se f32 [S], top_i i32 [S, K] (K <= 64).

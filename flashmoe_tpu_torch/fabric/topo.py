@@ -20,10 +20,35 @@ ranks of one card, priced on the ``"local"`` row), else the nodes of the
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 #: the env var: a single positive replica count dividing the world size.
 ENV_MOCK_FABRIC = "FLASHMOE_MOCK_FABRIC"
+
+
+def set_mock_fabric(replicas: int):
+    """Set ``FLASHMOE_MOCK_FABRIC`` to ``replicas``; returns the call that
+    restores (or unsets) the variable."""
+    saved = os.environ.get(ENV_MOCK_FABRIC)
+    os.environ[ENV_MOCK_FABRIC] = str(int(replicas))
+
+    def restore():
+        if saved is None:
+            os.environ.pop(ENV_MOCK_FABRIC, None)
+        else:
+            os.environ[ENV_MOCK_FABRIC] = saved
+    return restore
+
+
+@contextlib.contextmanager
+def mock_fabric(replicas: int):
+    """``FLASHMOE_MOCK_FABRIC`` set to ``replicas`` for a block."""
+    restore = set_mock_fabric(replicas)
+    try:
+        yield
+    finally:
+        restore()
 
 
 def world_ranks() -> tuple[list, str | None]:

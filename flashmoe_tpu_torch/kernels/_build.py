@@ -49,9 +49,10 @@ SIGNATURES = {
     # stream
     "fm_grouped_ffn": [I, I, I, P, P, I, P, P, P, P, P, P, P, P, P, I, I, I,
                        I, I, P],
-    # dtype_is_bf16, x, w, S, H, E, PX, K, logits, m, se, top_p, top_i,
-    # stream
-    "fm_gate_pass1": [I, P, P, I, I, I, I, I, P, P, P, P, P, P],
+    # dtype_is_bf16, x, w, S, H, E, PX, K, bias_e, bias, head, logits, m,
+    # se, top_p, top_i, stream
+    "fm_gate_pass1": [I, P, P, I, I, I, I, I, I, ctypes.c_float, P, P, P, P,
+                      P, P, P],
     # logits, m, se, top_i, S, E, K, part_probs, part_counts, part_z,
     # tickets, probs_sum, counts, zsum, stream
     "fm_gate_pass2": [P, P, P, P, I, I, I, P, P, P, P, P, P, P, P],

@@ -29,10 +29,12 @@ Usage::
     python -m flashmoe_tpu_torch.observe --trace 3 trace.jsonl
     python -m flashmoe_tpu_torch.observe --merge telemetry.*.jsonl
     python -m flashmoe_tpu_torch.observe --attribution trace.jsonl
+    python -m flashmoe_tpu_torch.observe --regression --ci [obs/history_torch.jsonl]
 
-``--regression`` (the perf sentry over a benchmark's run history) raises
-``NotImplementedError``: it reads the history the port's benchmark
-writes, which waits for the ROADMAP item 'The port's benchmark'.
+``--regression`` runs the perf sentry
+(:mod:`flashmoe_tpu_torch.telemetry_plane.regression`) over the port's
+run history (default ``obs/history_torch.jsonl``; ``--ci`` exits rc 2 on
+a tolerance breach).
 """
 
 from __future__ import annotations
@@ -1296,8 +1298,9 @@ def main(argv=None) -> int:
                          "spill, prefill, handoff DCN, decode, "
                          "eviction gaps) and the fleet rollup")
     ap.add_argument("--regression", action="store_true",
-                    help="perf sentry over the port's benchmark run "
-                         "history (not ported yet: raises)")
+                    help="perf sentry: compare the newest run in the "
+                         "history file (default obs/history_torch.jsonl) "
+                         "against the rolling baseline")
     ap.add_argument("--ci", action="store_true",
                     help="with --regression: exit rc 2 when any metric "
                          "regressed (regress.detected decisions)")
@@ -1316,10 +1319,25 @@ def main(argv=None) -> int:
         ap.error("--ci only applies with --regression")
 
     if args.regression:
-        raise NotImplementedError(
-            "--regression is not ported yet: it reads the run history "
-            "the port's benchmark writes, which waits for the ROADMAP item "
-            "'The port's benchmark'")
+        from flashmoe_tpu_torch.telemetry_plane import regression as reg
+
+        path = args.files[0] if args.files else reg.DEFAULT_HISTORY
+        runs = reg.load_history(path)
+        if not runs:
+            print(f"no run history at {path!r} (append one with "
+                  f"`bench.py --regression` or "
+                  f"regression.append_run)", file=sys.stderr)
+            return 2
+        report = reg.check_regression(runs)
+        report["history"] = path
+        if args.json:
+            json.dump(report, sys.stdout)
+            print()
+        else:
+            print(reg.render_text(report))
+        if args.ci and report["regressions"]:
+            return 2
+        return 0
 
     if args.postmortem:
         from flashmoe_tpu_torch.profiler import postmortem as pm

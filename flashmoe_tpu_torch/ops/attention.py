@@ -9,7 +9,11 @@ Counterpart of ``flashmoe_tpu/ops/attention.py``.  Layout [B, N, T, D].
   (the port of ``_flash_kernel``).  k and v may carry fewer heads than q
   (GQA): query head n reads kv head n // (N // NKV), which is what
   repeating the kv heads with ``repeat_interleave`` (``jnp.repeat``)
-  gives.
+  gives.  The kernel takes every head dim up to 256: its launch's head
+  dim is a multiple of 8, so q, k and v of another D are copied with zero
+  columns up to the next multiple (S = Q K^T and the true D's scale
+  unchanged) and the output's first D columns kept.  A head dim past 256
+  raises on the card.
 """
 
 from __future__ import annotations
@@ -17,11 +21,16 @@ from __future__ import annotations
 import itertools
 
 import torch
+import torch.nn.functional as F
 
 from flashmoe_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
-FLASH_HEAD_DIMS = (64, 128)
+#: the launch's head dims: a multiple of 8 (a TMA row stride is a multiple
+#: of 16 bytes; other head dims are padded, flash_pad) up to 256 (four
+#: 64-column boxes; csrc/flash_attention.cu)
+FLASH_HEAD_DIM_STEP = 8
+FLASH_MAX_HEAD_DIM = 256
 #: the bf16 kernel's schedule (csrc/flash_attention.cu): packed (head,
 #: query) rows of a consumer warpgroup's tile, keys of a stage, tiles of a
 #: block (FA_ROWS, FA_BK, FA_CONSUMERS)
@@ -45,6 +54,22 @@ def attention_plain(q, k, v, *, causal: bool = True):
     out = torch.einsum("bnts,bnsd->bntd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def flash_head_dim_ok(d: int) -> bool:
+    """Whether ``d`` is a head dim the kernel's launch takes as it is."""
+    return 0 < d <= FLASH_MAX_HEAD_DIM and d % FLASH_HEAD_DIM_STEP == 0
+
+
+def flash_pad(q, k, v):
+    """q, k and v with their head dim copied up to the next multiple of
+    ``FLASH_HEAD_DIM_STEP`` with zero columns (the same tensors when it
+    is one already)."""
+    d = q.shape[-1]
+    pad = -d % FLASH_HEAD_DIM_STEP
+    if not pad:
+        return q, k, v
+    return tuple(F.pad(t, (0, pad)) for t in (q, k, v))
 
 
 def _check(q, k, v):
@@ -131,16 +156,17 @@ def flash_block_walk(b: int, n: int, nkv: int, t: int, sms: int,
     return walk
 
 
-def flash_walk_plain(q, k, v, *, causal: bool = True, sms: int = 132):
+def flash_walk_plain(q, k, v, *, causal: bool = True, sms: int = 132,
+                     scale: float | None = None):
     """Flash attention by :func:`flash_block_walk`'s tiles, with the
     kernel's arithmetic: per key block of ``FLASH_KEYS`` keys, f32 scores
-    scaled then masked to NEG_INF, the online max, alpha and row sum of
+    scaled (by ``scale``, D ** -0.5 when None) then masked to NEG_INF, the online max, alpha and row sum of
     the unrounded p, p rounded to v's dtype before P . V in f32, and acc /
     max(l, 1e-30) rounded once.  Rows no tile covers stay NaN, so a gap in
     the walk shows."""
     _check(q, k, v)
     b, n, t, d = q.shape
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     out = torch.full(q.shape, float("nan"), dtype=torch.float32,
                      device=q.device)
     for _, bi, kvh, heads, tiles, _ in flash_block_walk(
@@ -173,37 +199,44 @@ def flash_walk_plain(q, k, v, *, causal: bool = True, sms: int = 132):
     return out.to(q.dtype)
 
 
-def flash_args(q, k, v, *, causal: bool = True):
+def flash_args(q, k, v, *, causal: bool = True,
+               scale: float | None = None):
     """The arguments of one call of ``fm_flash_attention`` on checked CUDA
-    tensors, with its output made here: ``(args, o)``."""
+    tensors of a head dim the launch takes (:func:`flash_head_dim_ok`),
+    with its output made here: ``(args, o)``.  ``scale`` is D ** -0.5
+    when None (a padded call passes the true D's)."""
     b, n, t, d = q.shape
     o = torch.empty_like(q)
     args = (int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), b, n, k.shape[1], t, d, d ** -0.5,
-            int(causal), _build.stream_of(q))
+            v.data_ptr(), o.data_ptr(), b, n, k.shape[1], t, d,
+            d ** -0.5 if scale is None else scale, int(causal),
+            _build.stream_of(q))
     return args, o
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """The flash-attention kernel on CUDA tensors: q [B, N, T, D], k/v
-    [B, NKV, T, D] with NKV dividing N, D in (64, 128), bf16 or f32."""
+    [B, NKV, T, D] with NKV dividing N and D <= 256, bf16 or f32.  A
+    head dim off the launch's step of 8 runs on zero-padded copies
+    (:func:`flash_pad`) at the true D's scale."""
     _check(q, k, v)
     b, n, t, d = q.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda takes D in "
-                         f"{FLASH_HEAD_DIMS}, got {d}")
+    if not 0 < d <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_cuda takes a head dim D <= "
+                         f"{FLASH_MAX_HEAD_DIM}, got {d}")
     if q.dtype not in (torch.bfloat16, torch.float32) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda takes bf16 or f32 q/k/v of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     _build.refuse_autograd("flash_attention_cuda", q, k, v)
     _build.require_cuda("flash_attention_cuda", q, k, v)
-    args, o = flash_args(q, k, v, causal=causal)
+    qkv = flash_pad(q, k, v)  # held until the launch is queued
+    args, o = flash_args(*qkv, causal=causal, scale=d ** -0.5)
     with torch.cuda.device(q.device):
         err = _build.library().fm_flash_attention(*args)
     _build.check(err, "fm_flash_attention")
     flash_attention_cuda.launches += 1
-    return o
+    return o if o.shape[-1] == d else o[..., :d].contiguous()
 
 
 flash_attention_cuda.launches = 0

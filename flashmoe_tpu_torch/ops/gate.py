@@ -236,17 +236,52 @@ router_cuda.launches = 0
 # the two-pass expert-tiled gate
 # ----------------------------------------------------------------------
 
+def _pass1_logits(x, gate_w):
+    """Pass 1's f32 logits, with an armed ``skewed_routing`` point's bias
+    added to its expert's column (the kernel's ``(bias_e, bias)``
+    operand, :func:`gate_pass1_args`)."""
+    logits = dot_f32(x, gate_w)
+    if chaos_inject.is_armed("skewed_routing"):
+        logits = chaos_inject.poison_logits(logits)
+    return logits
+
+
+def _armed_zeros(logits, m, se, top_p, top_i):
+    """An armed pass 1's rule for subnormal probabilities, as
+    :func:`router_plain` and the gate kernels keep it: a selected
+    probability below the smallest normal f32 is 0, and those zeros take
+    the lowest expert ids whose probability is below it.  The list [S, K]
+    (by logit) holds every expert of normal probability when there are
+    fewer than K, so those ids lie among experts 0..K-1 (the kernel's
+    ``head`` logits).  Disarmed, the list is returned as it is."""
+    if not chaos_inject.is_armed("skewed_routing"):
+        return top_p, top_i
+    k = top_p.shape[1]
+    tiny = torch.finfo(torch.float32).tiny
+    den = torch.clamp(se, min=1e-30)[:, None]
+    low = torch.exp(logits[:, :k] - m[:, None]) / den < tiny
+    pos = torch.arange(k, device=top_i.device).expand_as(top_i)
+    keys = torch.cat([torch.where(top_p >= tiny, pos, 2 * k),
+                      torch.where(low, k + pos, 2 * k)], -1)
+    order = torch.argsort(keys, dim=-1, stable=True)[:, :k]
+    return (torch.cat([top_p, torch.zeros_like(top_p)], -1).gather(-1, order),
+            torch.cat([top_i, pos.to(top_i.dtype)], -1).gather(-1, order))
+
+
 def gate_pass1_plain(x, gate_w, k: int, need_logits: bool):
     """Plain torch version of pass 1: ``(logits [S, E] f32 or None, m [S],
     se [S], top_p [S, K], top_i [S, K])``, m the max logit, se the sum of
     exp(logit - m), top_i the K largest logits (lowest id first on
-    ties) and top_p = exp(top_logit - m) / max(se, 1e-30)."""
-    logits = dot_f32(x, gate_w)
+    ties) and top_p = exp(top_logit - m) / max(se, 1e-30).  An armed
+    ``skewed_routing`` point biases the logits and keeps the rule of
+    :func:`_armed_zeros`, as the kernel does."""
+    logits = _pass1_logits(x, gate_w)
     m = logits.max(-1).values
     se = torch.exp(logits - m[:, None]).sum(-1)
     top_l, top_i = top_k_lowest_index(logits, k)
     top_p = torch.exp(top_l - m[:, None]) \
         / torch.clamp(se, min=1e-30)[:, None]
+    top_p, top_i = _armed_zeros(logits, m, se, top_p, top_i)
     return logits if need_logits else None, m, se, top_p, top_i
 
 
@@ -369,8 +404,9 @@ def gate_pass1_walk(x, gate_w, k: int):
     warpgroup's top-k carried through the selection rounds
     (:func:`_gate_select`).  Then the two warpgroups merged as the kernel
     merges them: m the larger, se = se0 exp(m0 - m) + se1 exp(m1 - m),
-    the lists by larger value, then lower id."""
-    logits = dot_f32(x, gate_w)
+    the lists by larger value, then lower id.  An armed ``skewed_routing``
+    point biases the logits and keeps the rule of :func:`_armed_zeros`."""
+    logits = _pass1_logits(x, gate_w)
     s, e = logits.shape
     big = torch.iinfo(torch.int64).max
     m, se = torch.empty(s), torch.empty(s)
@@ -402,9 +438,10 @@ def gate_pass1_walk(x, gate_w, k: int):
         v, i = _gate_rank(torch.cat([lv0, lv1], -1),
                           torch.cat([li0, li1], -1), k)
         sl = slice(rows.start, rows.stop)
-        m[sl], se[sl], top_i[sl] = mm, sse, i
-        top_p[sl] = torch.exp(v - mm[:, None]) \
-            / torch.clamp(sse, min=1e-30)[:, None]
+        m[sl], se[sl] = mm, sse
+        top_p[sl], top_i[sl] = _armed_zeros(
+            lg, mm, sse, torch.exp(v - mm[:, None])
+            / torch.clamp(sse, min=1e-30)[:, None], i)
     return m, se, top_p, top_i
 
 
@@ -464,11 +501,14 @@ def gate_pass2_walk(logits, m, se, top_i, num_experts: int):
 def gate_pass1_args(x, gate_w, k: int, need_logits: bool):
     """The arguments of one launch of pass 1 (``fm_gate_pass1``) on checked
     CUDA tensors of one dtype, with its outputs made here: ``(args,
-    (logits, m, se, top_p, top_i))``.  bf16 reads x in place (TMA fills
-    rows past S with zeros) and gate_w too unless E % 8 != 0, which pads
-    gate_w's columns to a multiple of 8 (the map's 16-byte row stride);
-    f32 pads x's rows to the 64-token tile and gate_w's columns to the
-    64-expert tile."""
+    (logits, m, se, top_p, top_i), keep)``.  bf16 reads x in place (TMA
+    fills rows past S with zeros) and gate_w too unless E % 8 != 0, which
+    pads gate_w's columns to a multiple of 8 (the map's 16-byte row
+    stride); f32 pads x's rows to the 64-token tile and gate_w's columns
+    to the 64-expert tile.  An armed ``skewed_routing`` point becomes the
+    launch's logit bias ``(bias_e, bias)`` (``(-1, 0)`` disarmed, as
+    :func:`gate_args` gives it), with the [S, K] f32 scratch ``head`` of
+    its first K logits (null disarmed)."""
     s, h = x.shape
     e = gate_w.shape[1]
     if x.dtype == torch.bfloat16:
@@ -481,14 +521,17 @@ def gate_pass1_args(x, gate_w, k: int, need_logits: bool):
     if px != e:
         gate_w = F.pad(gate_w, (0, px - e))
     f32 = dict(dtype=torch.float32, device=x.device)
+    bias_e, bias = chaos_inject.logit_bias(e) or (-1, 0.0)
+    head = torch.empty((s, k), **f32) if bias_e >= 0 else None
     out = (torch.empty((s, e), **f32) if need_logits else None,
            torch.empty((s,), **f32), torch.empty((s,), **f32),
            torch.empty((s, k), **f32),
            torch.empty((s, k), dtype=torch.int32, device=x.device))
     args = (int(x.dtype == torch.bfloat16), x.data_ptr(), gate_w.data_ptr(),
-            s, h, e, px, k, None if out[0] is None else out[0].data_ptr(),
-            *(t.data_ptr() for t in out[1:]), _build.stream_of(x))
-    return args, out, (x, gate_w)
+            s, h, e, px, k, bias_e, bias,
+            *(None if t is None else t.data_ptr() for t in (head, *out)),
+            _build.stream_of(x))
+    return args, out, (x, gate_w, head)
 
 
 def gate_pass1_cuda(x, gate_w, k: int, need_logits: bool):
@@ -496,7 +539,8 @@ def gate_pass1_cuda(x, gate_w, k: int, need_logits: bool):
     :func:`gate_pass1_plain`'s outputs, top_i int32.  x: [S, H] and
     gate_w: [H, E], bf16 or f32 (mixed dtypes are upcast to f32, which is
     exact); H % 64 == 0 and 1 <= K <= min(E, 64).  bf16 x is read in
-    place; see :func:`gate_pass1_args` for the padding f32 takes."""
+    place; see :func:`gate_pass1_args` for the padding f32 takes and the
+    armed ``skewed_routing`` bias."""
     s, h = x.shape
     e = gate_w.shape[1]
     if gate_w.shape[0] != h:
@@ -678,27 +722,21 @@ def router(x, gate_w, cfg: MoEConfig, use_kernels: bool | None = None
     :func:`router_plain`, as JAX takes ``router_xla`` (gate.py:554-557): a
     choice made from the configuration alone.
 
-    An armed ``skewed_routing`` chaos point biases the single-tile gate's
-    logits, in the kernel and in :func:`router_plain` alike.  The two-pass
-    gate takes no bias: while the point is armed, its configurations
-    route through :func:`router_plain` on CPU tensors, as JAX routes
-    through ``router_xla`` then (gate.py:538-545), and raise on CUDA
-    tensors."""
+    An armed ``skewed_routing`` chaos point biases the logits of every
+    gate, as a logit-bias operand of the kernels (B1's, and B4a's pass 1,
+    whose spilled logits B4b reads) and in their plain versions alike, on
+    the same route as an unarmed configuration.  JAX routes every armed
+    configuration through ``router_xla`` (gate.py:538-542), which always
+    forms the statistics and flushes subnormal probabilities, so an armed
+    two-pass gate runs pass 2 and keeps :func:`_armed_zeros`' rule."""
     uk = _build.use_kernels_for(x, use_kernels)
     e, k = cfg.num_experts, cfg.expert_top_k
     if e <= GATE_MAX_EXPERTS and k <= GATE_MAX_TOP_K:
         out = _gate_route("B1", x, gate_w, cfg, router_cuda) \
             if uk else router_plain(x, gate_w, cfg)
-    elif 2 * k <= TILED_MAX_MERGE and chaos_inject.is_armed(
-            "skewed_routing"):
-        if uk:
-            raise NotImplementedError(
-                f"skewed_routing at E={e}: the two-pass gate kernels take "
-                f"no logit bias (the single-tile gate takes E <= "
-                f"{GATE_MAX_EXPERTS})")
-        out = router_plain(x, gate_w, cfg)
     elif 2 * k <= TILED_MAX_MERGE:
-        need = tiled_need_stats(cfg, *x.shape, x.dtype)
+        need = chaos_inject.is_armed("skewed_routing") \
+            or tiled_need_stats(cfg, *x.shape, x.dtype)
         fn = functools.partial(
             router_tiled_cuda if uk else router_tiled_plain, need_stats=need)
         out = _gate_route("B4a+B4b" if need else "B4a", x, gate_w, cfg, fn) \

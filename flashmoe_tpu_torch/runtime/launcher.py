@@ -58,3 +58,12 @@ def run_workers(n_processes: int = 1, *, config_path: str | None = None,
                 p.kill()
                 p.wait()
     return rc
+
+
+def slurm_command(n_nodes: int, config_path: str) -> str:
+    """The srun command line of a multi-host job, one worker a node
+    (``flashmoe_tpu/runtime/launcher.py:55``, with the port's worker)."""
+    return (
+        f"srun -N {n_nodes} --ntasks-per-node=1 "
+        f"python -m flashmoe_tpu_torch.runtime.worker {config_path} --bench"
+    )

@@ -15,9 +15,8 @@ seeded arrival trace; prints one JSON summary line (requests completed,
 tokens/s, TTFT / TPOT, queue depth, cache occupancy, evictions, the
 plans) and, with ``--obs-dir``, writes ``flight.jsonl`` and
 ``decisions.jsonl``.  It runs on the card unless ``--device cpu`` is
-given; without a GPU it fails.  On the card ``--hidden`` defaults to
-128 (JAX's 64 makes heads of 32, which the flash attention kernel does
-not take).  ``--ttft-slo-ms`` / ``--tpot-slo-ms`` arm the SLO watchdog
+given; without a GPU it fails.  ``--hidden`` defaults to JAX's 64 (two
+heads of 32) on every device.  ``--ttft-slo-ms`` / ``--tpot-slo-ms`` arm the SLO watchdog
 (``slo.breach`` decisions), ``--telemetry-port`` the scrape server for
 the run (its port joins the summary), and ``--trace`` the request tracer:
 with ``--obs-dir`` it writes ``trace.jsonl``, ``request_trace.json``
@@ -51,10 +50,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--num-pages", type=int, default=64)
-    ap.add_argument("--hidden", type=int, default=None,
-                    help="model width: by default 64 on the CPU (two "
-                         "heads of 32) and 128 on the card, whose flash "
-                         "attention kernel takes heads of 64 or 128")
+    ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--experts", type=int, default=4)
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--vocab", type=int, default=256)
@@ -91,8 +87,6 @@ def main(argv=None) -> int:
                                                     tiny_config)
     from flashmoe_tpu_torch.utils.telemetry import FlightRecorder, metrics
 
-    if args.hidden is None:
-        args.hidden = 128 if device.type == "cuda" else 64
     cfg = tiny_config(hidden=args.hidden, experts=args.experts,
                       layers=args.layers, vocab=args.vocab)
     params = init_params(

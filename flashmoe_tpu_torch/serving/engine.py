@@ -1419,13 +1419,16 @@ class ServingEngine:
     def pending(self) -> bool:
         return bool(self.queue) or bool(self._active())
 
-    def run(self, requests=None, arrivals=None) -> dict:
+    def run(self, requests=None, arrivals=None, *, until=None) -> dict:
         """Drive to completion.  ``requests``: iterable of
         :class:`Request`; ``arrivals``: their arrival steps (default all
-        0).  Returns {rid: full token list (prompt + generated)}."""
+        0).  ``until``: an optional zero-argument predicate that pauses
+        the drive when it turns true (a mid-run scrape; ``run()`` again
+        finishes), as JAX's engine takes it.  Returns {rid: full token
+        list (prompt + generated)}."""
         for idx, req in enumerate(requests or ()):
             self.submit(req, int(arrivals[idx]) if arrivals else 0)
-        while self.pending():
+        while self.pending() and not (until is not None and until()):
             if self.step_idx >= self.serve.max_steps:
                 raise RuntimeError(
                     f"engine exceeded max_steps={self.serve.max_steps} "

@@ -9,10 +9,10 @@ Counterpart of ``flashmoe_tpu/telemetry_plane/``:
 * :mod:`~flashmoe_tpu_torch.telemetry_plane.attribution`: a retired
   request's latency split into its critical-path components;
 * :mod:`~flashmoe_tpu_torch.telemetry_plane.server`: the ``/metrics``,
-  ``/healthz`` and ``/vars`` scrape endpoints.
+  ``/healthz`` and ``/vars`` scrape endpoints;
+* :mod:`~flashmoe_tpu_torch.telemetry_plane.regression`: the
+  perf-regression sentry over the port's run history, behind
+  ``observe.py --regression``.
 
-JAX's ``regression`` module (the perf-regression sentry over the run
-history its ``bench.py`` writes and ``observe.py --regression`` reads)
-waits for the port's benchmark (ROADMAP "The port's benchmark").  Import
-the submodules directly; this ``__init__`` stays light.
+Import the submodules directly; this ``__init__`` stays light.
 """

@@ -325,6 +325,52 @@ def trace_span(name: str):
             lst.span_exit(name, tok)
 
 
+#: the running whole-program trace: (profiler, log_dir), or None
+_TRACE: list = [None]
+
+
+def start_trace(log_dir: str) -> None:
+    """Start a whole-program trace (``jax.profiler.start_trace``'s
+    counterpart) on ``torch.profiler.profile``: CPU activity, and CUDA's
+    where a card is present.  :func:`stop_trace` writes it under
+    ``log_dir`` as a Chrome trace, which holds the :func:`trace_span`
+    ranges.  Raises if a trace is already running."""
+    if _TRACE[0] is not None:
+        raise RuntimeError("a trace is already running: stop_trace() first")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    _TRACE[0] = (prof, log_dir)
+
+
+def stop_trace() -> str:
+    """Stop the trace of :func:`start_trace` and write it as
+    ``<log_dir>/trace.<pid>.<ns>.json`` (Chrome trace format); returns
+    the file's path.  Raises if no trace is running."""
+    if _TRACE[0] is None:
+        raise RuntimeError("no trace is running: start_trace() first")
+    prof, log_dir = _TRACE[0]
+    _TRACE[0] = None
+    prof.stop()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir,
+                        f"trace.{os.getpid()}.{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def capture_trace(log_dir: str):
+    """:func:`start_trace` on entry, :func:`stop_trace` on exit."""
+    start_trace(log_dir)
+    try:
+        yield
+    finally:
+        stop_trace()
+
+
 class Histogram:
     """Fixed-bucket histogram with percentile estimates (JAX's buckets:
     1-2.5-5 decades from 1e-3 to 5e3 unless ``buckets`` are given)."""

@@ -205,8 +205,10 @@ def test_probe_rates_seam_equal_jax():
 def test_router_under_skew_equals_jax(e, k):
     """Armed skew, against JAX's router, which takes router_xla: at E 8
     the single-tile gate's plain version adds the bias (the gate kernel
-    takes it as an operand); E 300 takes the two-pass gate unarmed, and
-    router_plain armed on CPU tensors.  Ids exactly, weights at 2e-4."""
+    takes it as an operand); E 300 takes the two-pass gate armed or not,
+    its pass 1 biased and keeping the router's rule for subnormal
+    probabilities (bias 100: the second choice is expert 0, as in JAX's).
+    Ids exactly, weights at 2e-4."""
     jc, tc = _cfgs("f32", num_experts=e, expert_top_k=k, hidden_size=64,
                    intermediate_size=64, sequence_len=64)
     rng = np.random.default_rng(e)
@@ -233,8 +235,9 @@ def test_router_under_skew_equals_jax(e, k):
 def test_gate_kernel_launch_takes_the_armed_bias(monkeypatch):
     """The gate kernel's launch carries the armed skew as its bias
     operand, ``(expert mod E, bias)``, and ``(-1, 0)`` disarmed, at the
-    slots of ``fm_gate``'s C signature; on CUDA tensors the two-pass
-    gate, which takes no bias, refuses the armed skew."""
+    slots of ``fm_gate``'s C signature.  Past the single tile (E 300) the
+    armed router takes the two-pass gate's kernel route, whose pass 1
+    takes the same operand, and equals JAX's armed router."""
     from flashmoe_tpu_torch.config import MoEConfig
     from flashmoe_tpu_torch.kernels import _build
 
@@ -248,10 +251,37 @@ def test_gate_kernel_launch_takes_the_armed_bias(monkeypatch):
     args, _, _ = tgate.gate_args(x, w, cfg)
     assert args[9:11] == (3, 25.0)
     assert sig[9] is sig[3] and sig[10] is sig[8]  # int, float
+    jc, big = _cfgs("f32", num_experts=300, expert_top_k=2, hidden_size=64,
+                    intermediate_size=64, sequence_len=16)
+    rng = np.random.default_rng(11)
+    xb = rng.standard_normal((16, 64)).astype(np.float32)
+    wb = (rng.standard_normal((64, 300)) * 0.125).astype(np.float32)
+    _arm_both("skewed_routing", expert=11, bias=25.0)
+    want = jgate.router(jnp.asarray(xb), jnp.asarray(wb), jc,
+                        use_pallas=True)
+    # the kernel route: the two-pass gate's wrapper, run by its plain
+    # version here (no card), with pass 2 (JAX's armed router_xla always
+    # forms the statistics)
+    seen = []
+
+    def tiled(*a, need_stats):
+        seen.append(need_stats)
+        return tgate.router_tiled_plain(*a, need_stats=need_stats)
+
     monkeypatch.setattr(_build, "use_kernels_for", lambda t, uk: True)
-    big = MoEConfig(num_experts=300, expert_top_k=2, hidden_size=64)
-    with pytest.raises(NotImplementedError, match="no logit bias"):
-        tgate.router(x, torch.zeros(64, 300), big)
+    monkeypatch.setattr(tgate, "router_tiled_cuda", tiled)
+    got = tgate.router(torch.from_numpy(xb), torch.from_numpy(wb), big)
+    assert seen == [True]
+    np.testing.assert_array_equal(got.expert_idx.numpy(),
+                                  np.asarray(want.expert_idx))
+    assert bool((got.expert_idx[:, 0] == 11).all())
+    np.testing.assert_array_equal(got.expert_counts.numpy(),
+                                  np.asarray(want.expert_counts))
+    for name in ("combine_weights", "probs_mean", "aux_loss", "z_loss"):
+        np.testing.assert_allclose(
+            getattr(got, name).detach().numpy(),
+            np.asarray(getattr(want, name)), rtol=2e-4, atol=2e-4,
+            err_msg=name)
 
 
 @pytest.mark.parametrize("degrade", [True, False])

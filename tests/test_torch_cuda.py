@@ -1363,3 +1363,76 @@ def test_flash_hopper_matches_plain(gen, t, ratio, d, causal):
     assert _normwise(got, want) <= BF16_TOL
     assert torch.equal(attention.flash_attention_cuda(q, k, v,
                                                       causal=causal), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [8, 32, 36, 80, 96, 100, 192, 250, 256])
+@pytest.mark.parametrize("t", [1, 200, 272])
+def test_flash_kernel_at_other_head_dims(gen, t, d, dtype):
+    """B9 at every head-dim class it takes (up to 256: one to four
+    64-column boxes in bf16, one to eight lanes' columns in f32; D 36,
+    100 and 250 on zero-padded copies), GQA 4, against its plain version;
+    two calls bit-equal."""
+    q = torch.randn(1, 8, t, d, device="cuda", generator=gen, dtype=dtype)
+    k = torch.randn(1, 2, t, d, device="cuda", generator=gen, dtype=dtype)
+    v = torch.randn(1, 2, t, d, device="cuda", generator=gen, dtype=dtype)
+    got = attention.flash_attention_cuda(q, k, v)
+    want = attention.flash_attention_plain(q, k, v)
+    assert torch.isfinite(got).all()
+    assert _normwise(got, want) <= (BF16_TOL if dtype == torch.bfloat16
+                                    else 1e-5)
+    assert torch.equal(attention.flash_attention_cuda(q, k, v), got)
+
+
+def test_flash_kernel_refuses_head_dims_past_256(gen):
+    """D 320 raises on the card, from ``flash_attention`` too, with no
+    launch and no plain version in its place."""
+    q = torch.randn(1, 2, 64, 320, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    n0 = attention.flash_attention_cuda.launches
+    for fn in (attention.flash_attention, attention.flash_attention_cuda):
+        with pytest.raises(ValueError, match="head dim"):
+            fn(q, q, q)
+    assert attention.flash_attention_cuda.launches == n0
+
+
+@pytest.mark.parametrize("dtype,e,k", [(torch.bfloat16, 512, 10),
+                                       (torch.bfloat16, 300, 2),
+                                       (torch.float32, 1280, 2)],
+                         ids=["bf16_e512_k10", "bf16_e300_k2", "f32_e1280"])
+@pytest.mark.parametrize("bias", [100.0, 10.0], ids=["gap100", "bias10"])
+def test_tiled_gate_under_skew_matches_plain(gen, dtype, e, k, bias):
+    """The armed ``skewed_routing`` bias through the two-pass gate (B4a's
+    logit-bias operand, B4b on the biased spilled logits) against
+    router_plain armed alike: the biased expert in every top-k; at a gap
+    past 87 the ids exact (the zeros take the lowest other ids in both);
+    unarmed launches unchanged by an armed one."""
+    from flashmoe_tpu_torch.chaos import inject
+
+    cfg = MoEConfig(num_experts=e, expert_top_k=k, hidden_size=256,
+                    router_z_loss_coef=0.1, dtype=dtype)
+    x = torch.randn(300, 256, device="cuda", generator=gen, dtype=dtype)
+    w = (torch.randn(256, e, device="cuda", generator=gen) / 16).to(dtype)
+    before = gate.gate_pass1_cuda(x, w, k, True)
+    inject.arm("skewed_routing", expert=e + 5, bias=bias)
+    try:
+        got = gate.router(x, w, cfg)
+        want = gate.router_plain(x, w, cfg)
+    finally:
+        inject.disarm()
+    assert bool((got.expert_idx == 5).any(-1).all())
+    if bias > 87:
+        assert torch.equal(got.expert_idx, want.expert_idx)
+    # a near tie may list the same experts in another order
+    sets = (got.expert_idx.sort(-1).values
+            == want.expert_idx.sort(-1).values).all(-1)
+    assert int((~sets).sum()) <= 1
+    same = (got.expert_idx == want.expert_idx).all(-1)
+    torch.testing.assert_close(got.combine_weights[same],
+                               want.combine_weights[same], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got.probs_mean, want.probs_mean, rtol=1e-4,
+                               atol=1e-6)
+    after = gate.gate_pass1_cuda(x, w, k, True)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))

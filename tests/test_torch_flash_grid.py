@@ -117,3 +117,24 @@ def test_flash_walk_computes_plain_attention(t, ratio, causal):
         assert not torch.isnan(got).any()
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
                                    atol=TOL)
+
+
+@pytest.mark.parametrize("t", [200, 256])
+@pytest.mark.parametrize("d", [32, 80, 96, 192, 256])
+def test_flash_walk_at_other_head_dims(d, t):
+    """The walk's function at the kernel's other head dims (NB =
+    ceil(D / 64) boxes, the columns past D zero) against the port's plain
+    attention and, at T 256, JAX's interpret-mode ``flash_attention``,
+    GQA 4."""
+    q, k, v = _qkv(1, 8, 2, t, d, seed=d * t)
+    got = tatt.flash_walk_plain(*map(torch.from_numpy, (q, k, v)), sms=7)
+    want = tatt.flash_attention_plain(*map(torch.from_numpy, (q, k, v)))
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
+                               atol=TOL)
+    if t % 128 == 0:
+        kr, vr = (np.repeat(a, 4, axis=1) for a in (k, v))
+        jwant = np.asarray(flash_attention(jnp.asarray(q), jnp.asarray(kr),
+                                           jnp.asarray(vr), causal=True,
+                                           interpret=True))
+        np.testing.assert_allclose(got.numpy(), jwant, rtol=TOL, atol=TOL)

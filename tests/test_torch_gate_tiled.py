@@ -205,3 +205,146 @@ def test_tiled_gate_kernels_refuse_cpu_tensors():
     logits, m, se, _, top_i = tg.gate_pass1_plain(x, w, 2, True)
     with pytest.raises(ValueError, match="cuda"):
         tg.gate_pass2_cuda(logits, m, se, top_i, 300)
+
+
+# ----------------------------------------------------------------------
+# the armed skew through the two-pass gate (B4a's logit-bias operand)
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def _disarm():
+    from flashmoe_tpu import chaos as jchaos
+    from flashmoe_tpu_torch import chaos as tchaos
+
+    jchaos.clear()
+    tchaos.clear()
+    yield
+    jchaos.clear()
+    tchaos.clear()
+
+
+def _arm_both(**spec):
+    from flashmoe_tpu.chaos import inject as jinject
+    from flashmoe_tpu_torch.chaos import inject as tinject
+
+    jinject.arm("skewed_routing", **spec)
+    tinject.arm("skewed_routing", **spec)
+
+
+def _assert_ids_near(got_ids, want_ids, want_probs, k):
+    """Ids exact, except where JAX's k-th and (k+1)-th probabilities lie
+    within 1e-4 of each other (a near tie, PR 5's rule)."""
+    got_ids, want_ids = np.asarray(got_ids), np.asarray(want_ids)
+    diff = (np.sort(got_ids, -1) != np.sort(want_ids, -1)).any(-1)
+    top = -np.sort(-np.asarray(want_probs), -1)
+    gaps = top[:, k - 1] - top[:, k]
+    assert (gaps[diff] <= 1e-4).all(), gaps[diff]
+    same = ~diff
+    np.testing.assert_array_equal(got_ids[same], want_ids[same])
+    return same
+
+
+@pytest.mark.parametrize("bias", [100.0, 10.0], ids=["gap100", "bias10"])
+@pytest.mark.parametrize("e,k", [(300, 2), (300, 10), (512, 2), (512, 10)])
+def test_armed_tiled_gate_equals_jax_armed_router(_disarm, e, k, bias):
+    """Armed skew past the single tile: the port's router (the two-pass
+    gate, pass 1 biased; its plain version on the CPU) and the walks of
+    both kernels' schedules against JAX's armed router (``router_xla``).
+    Ids exact but at near ties; weights and probability sums at 2e-4.  At
+    a logit gap past 87 every other probability is subnormal, 0 in
+    both, and the zeros take the lowest other ids in both."""
+    jc, tc = _cfgs(num_experts=e, expert_top_k=k, hidden_size=64,
+                   router_z_loss_coef=0.01)
+    x, w = _inputs(48, 64, e, seed=e + k)
+    target = 7 if e == 300 else e + 9  # taken mod E: expert 9 at E 512
+    _arm_both(expert=target, bias=bias)
+    hot = target % e
+    want = jax_router(jnp.asarray(x), jnp.asarray(w), jc, use_pallas=True)
+    logits = np.asarray(x, np.float64) @ np.asarray(w, np.float64)
+    logits[:, hot] += bias
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = tg.router(xt, wt, tc)
+    same = _assert_ids_near(got.expert_idx, want.expert_idx, probs, k)
+    assert bool((got.expert_idx == hot).any(-1).all())
+    if bias > 87:
+        assert same.all()
+        others = [i for i in range(k) if i != hot][:k - 1]
+        np.testing.assert_array_equal(got.expert_idx[:, 1:].numpy(),
+                                      np.broadcast_to(others, (48, k - 1)))
+    if same.all():
+        np.testing.assert_array_equal(got.expert_counts.numpy(),
+                                      np.asarray(want.expert_counts))
+    np.testing.assert_allclose(got.combine_weights.detach().numpy()[same],
+                               np.asarray(want.combine_weights)[same],
+                               rtol=2e-4, atol=2e-4)
+    for name in ("probs_mean", "aux_loss", "z_loss"):
+        np.testing.assert_allclose(
+            getattr(got, name).detach().numpy(),
+            np.asarray(getattr(want, name)), rtol=2e-4, atol=2e-4,
+            err_msg=name)
+    # the kernels' schedules: pass 1's walk, then pass 2's on the biased
+    # spilled logits
+    m, se, top_p, top_i = tg.gate_pass1_walk(xt, wt, k)
+    spilled = tg.gate_pass1_plain(xt, wt, k, True)[0]
+    probs_sum, counts, zsum = tg.gate_pass2_walk(spilled, m, se, top_i, e)
+    same_w = _assert_ids_near(top_i, want.expert_idx, probs, k)
+    assert bool((top_i == hot).any(-1).all())
+    cw = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-20)
+    np.testing.assert_allclose(cw.numpy()[same_w],
+                               np.asarray(want.combine_weights)[same_w],
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose((probs_sum / 48).numpy(),
+                               np.asarray(want.probs_mean), rtol=2e-4,
+                               atol=2e-4)
+    if same_w.all():
+        np.testing.assert_array_equal(counts.numpy(),
+                                      np.asarray(want.expert_counts))
+    np.testing.assert_allclose(
+        float(zsum) / 48 * 0.01, float(want.z_loss), rtol=2e-4)
+
+
+def test_unarmed_walk_is_unchanged_by_arming(_disarm):
+    """Arming changes pass 1 only while armed: the unarmed walk and plain
+    pass 1 give the same bits before and after an armed call."""
+    x, w = (torch.from_numpy(a) for a in _inputs(70, 64, 512, seed=3))
+    before = tg.gate_pass1_walk(x, w, 10)
+    plain = tg.gate_pass1_plain(x, w, 10, True)
+    _arm_both(expert=5, bias=100.0)
+    armed = tg.gate_pass1_walk(x, w, 10)
+    assert bool((armed[3] == 5).any(-1).all())
+    assert not bool((before[3] == 5).any(-1).all())
+    from flashmoe_tpu_torch.chaos import inject as tinject
+
+    tinject.disarm()
+    for a, b in zip(tg.gate_pass1_walk(x, w, 10), before):
+        assert torch.equal(a, b)
+    for a, b in zip(tg.gate_pass1_plain(x, w, 10, True), plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pass1_args_carry_the_armed_bias(_disarm, monkeypatch, dtype):
+    """``gate_pass1_args`` carries ``(bias_e, bias)`` and the scratch of
+    the first K logits at the slots of ``fm_gate_pass1``'s C signature:
+    ``(-1, 0)`` and a null scratch disarmed, ``(expert mod E, bias)`` and
+    an [S, K] f32 scratch armed."""
+    from flashmoe_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    sig = _build.SIGNATURES["fm_gate_pass1"]
+    x = torch.zeros(16, 64, dtype=dtype)
+    w = torch.zeros(64, 300, dtype=dtype)
+    args, out, keep = tg.gate_pass1_args(x, w, 4, True)
+    assert len(args) == len(sig)
+    assert args[8:11] == (-1, 0.0, None) and keep[2] is None
+    assert sig[8] is sig[3] and sig[9] is not sig[8] \
+        and sig[10] is sig[1]                 # int, float, pointer
+    _arm_both(expert=305, bias=25.0)
+    args, out, keep = tg.gate_pass1_args(x, w, 4, False)
+    assert len(args) == len(sig)
+    assert args[8:10] == (5, 25.0)
+    head = keep[2]
+    assert head.shape == (16, 4) and head.dtype == torch.float32
+    assert args[10] == head.data_ptr() and args[11] is None

@@ -7,7 +7,8 @@ same text, byte for byte, and the CLI's modes print what JAX's CLI
 prints on the same files.  Two differences are by design: a postmortem
 report names the bundle's ``torch`` version where JAX's names ``jax``
 (its ``env.json`` records the port's framework), and ``--regression``
-raises, naming the ROADMAP item 'The port's benchmark'.  The adaptation
+reads the port's own history (``obs/history_torch.jsonl`` by default),
+with JAX's report, text, message and exit codes.  The adaptation
 report over the port's own controller run shows the morph's before and
 after windows."""
 
@@ -338,8 +339,37 @@ def test_cli_postmortem_and_refusals(tmp_path, capsys):
     rep_j["bundles"][0].pop("jax")
     assert rep_t == rep_j
     assert _run(tobs.main, ["--postmortem", str(tmp_path / "none")])[0] == 2
-    with pytest.raises(NotImplementedError, match="'The port's benchmark'"):
-        tobs.main(["--regression"])
+    # the perf sentry: a clean history rc 0, a regressed one rc 2 under
+    # --ci, a missing one rc 2 with JAX's message; output and rc JAX's
+    from flashmoe_tpu.telemetry_plane import regression as jreg
+    from flashmoe_tpu_torch.telemetry_plane import regression as treg
+
+    hist = str(tmp_path / "history_torch.jsonl")
+    pts = {"serve_load[every=1,B=4,req=8]":
+           {"value": 100.0, "unit": "tokens_per_sec"},
+           "fabric_fault[replica_crash]": {"value": 12.0, "unit": "ms"}}
+    for run in ("r1", "r2"):
+        treg.append_run(hist, pts, run=run)
+    bad = {k: dict(v) for k, v in pts.items()}
+    bad["fabric_fault[replica_crash]"]["value"] = 20.0
+    capsys.readouterr()
+    for argv, rc in ((["--regression", hist], 0),
+                     (["--regression", "--ci", hist], 0),
+                     (["--regression", "--json", hist], 0)):
+        got, want = _run(tobs.main, argv), _run(jobs.main, argv)
+        assert got == want and got[0] == rc
+    jreg.append_run(hist, bad, run="r3")
+    for argv, rc in ((["--regression", hist], 0),
+                     (["--regression", "--ci", hist], 2)):
+        got, want = _run(tobs.main, argv), _run(jobs.main, argv)
+        assert got == want and got[0] == rc
+    assert "REGRESSED fabric_fault[replica_crash]" in got[1]
+    missing = str(tmp_path / "none.jsonl")
+    capsys.readouterr()
+    assert _run(tobs.main, ["--regression", missing])[0] == 2
+    t_err = capsys.readouterr().err
+    assert _run(jobs.main, ["--regression", missing])[0] == 2
+    assert t_err == capsys.readouterr().err != ""
     for argv in (["--ledger", "--serving", "x"], ["--ci", "x"], []):
         with pytest.raises(SystemExit):
             tobs.main(argv)

@@ -3,8 +3,8 @@ trainer's host hooks and the CLIs on the CPU.  ``get_bookkeeping`` and
 ``get_compiled_config`` against JAX's for the same config (the Decider
 off); the runtime controller's keywords run under a sustained skew, the
 planes' (``slo``, ``telemetry_port``, ``postmortem_dir``, the Decider)
-run, and the serving fabric's and the benchmark's refusals name their
-ROADMAP items; three
+run, the serving fabric's drill and the perf sentry over the port's
+own history run; ``slurm_command`` is JAX's with the port's worker; three
 subprocess runs: the worker CLI, ``run_moe(2)`` on gloo against a local
 mesh of 2, and ``train_cli --synthetic --device cpu``, whose summary has
 JAX's keys."""
@@ -85,8 +85,8 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     from flashmoe_tpu_torch.profiler.slo import SLOConfig, SLOWatchdog
 
     state = ttrainer.TrainState({"w": torch.zeros(2)}, {}, torch.tensor(0))
-    # the runtime controller and the serving fabric run now; what stays
-    # refused is the benchmark's
+    # the runtime controller, the serving fabric and the perf sentry run
+    # now
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert chaos_main(["--fault", "replica_crash", "--device",
@@ -94,8 +94,15 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     assert "1/1 faults recovered" in out.getvalue()
     assert TorchConfig(**SMALL, serving_mode="decode").serving_mode == \
         "decode"
-    with pytest.raises(NotImplementedError, match="'The port's benchmark'"):
-        observe.main(["--regression"])
+    # the perf sentry runs over the port's own history: clean, rc 0
+    from flashmoe_tpu_torch.telemetry_plane import regression as treg
+
+    history = str(tmp_path / "history_torch.jsonl")
+    for run in ("r1", "r2"):
+        treg.append_run(history, treg.reference_points("h100"), run=run)
+    with contextlib.redirect_stdout(io.StringIO()) as rep:
+        assert observe.main(["--regression", "--ci", history]) == 0
+    assert "all within tolerance" in rep.getvalue()
     # ported with the planes: slo, telemetry_port and postmortem_dir run
 
     def step_fn(s, b):
@@ -319,3 +326,15 @@ def test_train_cli_synthetic_summary_has_jax_keys(tmp_path):
         np.isfinite(summary["final_loss"]) and summary["steps"] == 3
     dumped = json.loads((tmp_path / "m.jsonl").read_text())
     assert dumped["step_calls"] == 3 and dumped["steps"] == 3
+
+
+@pytest.mark.parametrize("n_nodes, path", [(1, "cfg.json"),
+                                           (16, "/jobs/mixtral.json")])
+def test_slurm_command_is_jaxs_with_the_ports_worker(n_nodes, path):
+    from flashmoe_tpu.runtime import launcher as jlauncher
+    from flashmoe_tpu_torch.runtime import launcher as tlauncher
+
+    want = jlauncher.slurm_command(n_nodes, path).replace(
+        "flashmoe_tpu.runtime.worker", "flashmoe_tpu_torch.runtime.worker")
+    assert tlauncher.slurm_command(n_nodes, path) == want
+    assert "-m flashmoe_tpu_torch.runtime.worker " in want

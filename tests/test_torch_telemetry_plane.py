@@ -243,3 +243,30 @@ def test_engine_tokens_unchanged_with_the_plane_armed():
     assert {d["decision"] for d in eng.metrics.decisions} >= {
         "serve.trace", "telemetry.server_start", "telemetry.server_stop"}
     assert ttel.get_span_listener() is None
+
+
+def test_capture_trace_writes_a_chrome_trace_with_its_spans(tmp_path):
+    """``capture_trace`` (``jax.profiler``'s whole-program capture, on
+    ``torch.profiler``): a Chrome trace under ``log_dir`` holding the
+    ``trace_span`` ranges and the ops inside them; start and stop refuse
+    to nest or to stop nothing, as JAX's profiler does."""
+    log_dir = tmp_path / "trace"
+    with ttel.capture_trace(str(log_dir)):
+        with ttel.trace_span("moe.expert"):
+            torch.ones(16, 16) @ torch.ones(16, 16)
+    files = list(log_dir.glob("*.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == "moe.expert"]
+    assert span and span[0]["ph"] == "X" and span[0]["dur"] >= 0
+    assert any(e.get("name") == "aten::mm" for e in events)
+    with pytest.raises(RuntimeError, match="no trace"):
+        ttel.stop_trace()
+    ttel.start_trace(str(log_dir))
+    try:
+        with pytest.raises(RuntimeError, match="already running"):
+            ttel.start_trace(str(log_dir))
+    finally:
+        path = ttel.stop_trace()
+    assert path.startswith(str(log_dir)) and len(
+        list(log_dir.glob("*.json"))) == 2
